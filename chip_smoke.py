@@ -14,6 +14,11 @@ printing one JSON line:
              ``InferenceEngine.run()``, with the launch counts of that run
 4. agree   - the first batch's prefill + 15 decode steps on the hopper and
              the ref backends, teacher-forced, logits compared
+5. continuous - the same model and weights through
+             ``InferenceEngine(max_batch=8, kv_block_size=16).serve_continuous()``:
+             16 requests whose 256-token prompts share a 192-token system
+             prompt, served with the prefix cache off, then on; the tokens
+             must be equal and the launch counts exact
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``.
@@ -21,6 +26,7 @@ Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -40,6 +46,17 @@ SEED = 0
 N_REQUESTS = 8
 MAX_BATCH = 4
 MAX_NEW = 16
+
+# continuous phase: a 192-token system prompt common to all requests, then 64
+# tokens of each one's own. The shared run ends on a 64-token chunk boundary
+# and a 16-token block boundary, so a follower's one remaining chunk has the
+# shape it has without sharing: the MoE (capacity factor 1.25) drops tokens
+# within a chunk, and other chunk boundaries would change the results.
+CONT_REQUESTS = 16
+CONT_MAX_BATCH = 8
+CONT_BLOCK = 16
+CONT_SYSTEM, CONT_OWN = 192, 64
+CONT_MAX_NEW = (8, 16, 32)  # cycled over the requests
 
 # agree phase: hopper vs ref logits, both in bfloat16 on the same weights
 # and the same (teacher-forced) tokens. The two paths round differently:
@@ -93,6 +110,12 @@ def compare(got, want, atol: float, rtol: float, what: str) -> dict:
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain version: {res}")
     return res
+
+
+def ref_ops(dispatch: dict) -> dict:
+    """The dispatch branches that served the plain ``ref`` backend: keys
+    ``op.ref`` or ``op.ref_<layout>`` (``decode.hopper_prefix`` is not one)."""
+    return {k: n for k, n in dispatch.items() if k.split(".", 1)[1].split("_")[0] == "ref"}
 
 
 # bf16 outputs: both sides sum in float32 and round once to bfloat16, so
@@ -179,7 +202,9 @@ def phase_kernels(cfg) -> list:
         "ms": cuda_ms(lambda: pa.paged_attention(qd, kc, vc, tables, kn, vn, posv), 200),
         "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(qd, kc2, vc2, tables, kn, vn, posv), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
+        "also": [paged_chunk_row(cfg, rng, dev)],
     })
+    rows.append(prefix_row(cfg, rng, dev))
 
     # grouped matmul: decode (C=8) and prefill (C=64) capacities, both layers
     E, d, f = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
@@ -210,6 +235,113 @@ def phase_kernels(cfg) -> list:
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "rows": rows})
     return rows
+
+
+def _pages(rng, n, bs, cfg, dev):
+    import numpy as np
+    import torch
+
+    shape = (n, bs, cfg.num_kv_heads, cfg.head_dim)
+    return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+
+
+def _cont_table_width():
+    """The block-table width the continuous phase's queue gives: its largest
+    KV need, rounded up to the 64-token bucket, in blocks."""
+    from repro_torch.serving.kv_cache import blocks_for
+    from repro_torch.serving.scheduler import round_up
+
+    return blocks_for(round_up(CONT_SYSTEM + CONT_OWN + max(CONT_MAX_NEW) + 1, 64), CONT_BLOCK)
+
+
+def paged_chunk_row(cfg, rng, dev) -> dict:
+    """The paged kernel at a continuous prefill chunk: one row, 64 tokens
+    written at position 192 through a table of scattered real pages."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+
+    H, hd, bs, nb, C, p0 = cfg.num_heads, cfg.head_dim, CONT_BLOCK, _cont_table_width(), 64, CONT_SYSTEM
+    N = 8 * nb + 1
+    kp, vp = _pages(rng, N, bs, cfg, dev)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[:nb].astype(np.int32)[None]).to(dev)
+    q, kn, vn = (torch.from_numpy(rng.standard_normal((1, C, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+                 for _ in range(3))
+    posv = torch.tensor([p0], dtype=torch.int32, device=dev)
+    kp2, vp2 = kp.clone(), vp.clone()
+    out, _, _ = pa.paged_attention(q, kp, vp, tables, kn, vn, posv)
+    torch.cuda.synchronize()
+    want, kw, vw = pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv)
+    acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "paged_attention (chunk)")
+    if not (torch.equal(kp[1:], kw[1:]) and torch.equal(vp[1:], vw[1:])):
+        raise AssertionError("paged_attention (chunk): appended pages differ from the plain version's")
+    # q, new K/V and out once, the p0 cached keys' K/V once, the chunk's K/V
+    # written once; 4 flops per (query, valid key, dim)
+    pairs = sum(p0 + c + 1 for c in range(C))
+    b_ms, b_by = bound(2 * (4 * C * H * hd + 2 * p0 * H * hd + 2 * C * H * hd), 4 * hd * H * pairs)
+    return {
+        "shape": f"B=1 C={C} H={H} hd={hd} bs={bs} table {nb} scattered pages pos={p0} bf16", **acc,
+        "ms": cuda_ms(lambda: pa.paged_attention(q, kp, vp, tables, kn, vn, posv), 200),
+        "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+def prefix_row(cfg, rng, dev) -> dict:
+    """The prefix kernel at the continuous decode shape: 8 rows; rows 1-7
+    share 12 leading pages (the 192-token system prompt) with
+    representative row 1; row 0 is on its own."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefix_paged_attention as ppa
+
+    B, H, hd, bs, nb, shared = CONT_MAX_BATCH, cfg.num_heads, cfg.head_dim, CONT_BLOCK, _cont_table_width(), 12
+    N = B * nb + 1
+    kp, vp = _pages(rng, N, bs, cfg, dev)
+    t = rng.permutation(np.arange(1, N)).astype(np.int32).reshape(B, nb)
+    t[2:, :shared] = t[1, :shared]
+    pos = np.array([262 + 2 * b for b in range(B)], np.int32)  # depths around 270
+    reps = np.array([0] + [1] * (B - 1), np.int32)
+    nsh = np.array([0, 0] + [shared] * (B - 2), np.int32)
+    q, kn, vn = (torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+                 for _ in range(3))
+    tables, posv, reps_t, nsh_t = (torch.from_numpy(a).to(dev) for a in (t, pos, reps, nsh))
+    pages = {k: (kp.clone(), vp.clone()) for k in ("kernel", "paged", "plain")}
+    out, _, _ = ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, posv, reps_t, nsh_t)
+    own, _, _ = pa.paged_attention(q, *pages["paged"], tables, kn, vn, posv)
+    torch.cuda.synchronize()
+    want, _, _ = ppa.prefix_paged_attention_plain(q, *pages["plain"], tables, kn, vn, posv, reps_t, nsh_t)
+    acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "prefix_paged_attention")
+    if not torch.equal(out, own):
+        raise AssertionError("prefix_paged_attention: output differs from paged_attention on the rows' own tables")
+    for i in (0, 1):
+        if not (torch.equal(pages["kernel"][i][1:], pages["paged"][i][1:])
+                and torch.equal(pages["kernel"][i][1:], pages["plain"][i][1:])):
+            raise AssertionError("prefix_paged_attention: appended pages differ")
+    # bytes: the shared run's K/V once for the group, each row's other keys
+    # once, q, new K/V and out once, the appended slots written once
+    shared_keys = shared * bs
+    keys = shared_keys + sum(int(p) + 1 - (shared_keys if b >= 1 else 0) for b, p in enumerate(pos))
+    nbytes = 2 * (2 * keys * H * hd + 4 * B * H * hd + 2 * B * H * hd)
+    b_ms, b_by = bound(nbytes, 4 * hd * H * int((pos + 1).sum()))
+    kpk, vpk = pages["kernel"]
+    kpp, vpp = pages["paged"]
+    return {
+        "name": "prefix_paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prefix_paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:237",
+        "shape": f"B={B} C=1 H={H} hd={hd} bs={bs} table {nb}, rows 1-7 share {shared} pages, pos {pos.min()}-"
+                 f"{pos.max()} bf16",
+        **acc, "bit_equal_to_paged": True,
+        "ms": cuda_ms(lambda: ppa.prefix_paged_attention(q, kpk, vpk, tables, kn, vn, posv, reps_t, nsh_t), 200),
+        "plain_ms": cuda_ms(
+            lambda: ppa.prefix_paged_attention_plain(q, kpp, vpp, tables, kn, vn, posv, reps_t, nsh_t), 20),
+        "paged_ms": cuda_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv), 200),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
+    }
 
 
 def prompts(cfg):
@@ -251,7 +383,7 @@ def phase_serve(cfg, params) -> dict:
     }
     if launches != expect:
         raise AssertionError(f"serve: launches {launches}, expected {expect}")
-    refs = {k: n for k, n in dispatch.items() if "ref" in k}
+    refs = ref_ops(dispatch)
     if refs:
         raise AssertionError(f"serve: ref ops ran on the main path: {refs}")
     per_batch = comps[::MAX_BATCH]  # one completion per batch: uids fill batches in order
@@ -314,6 +446,75 @@ def phase_agree(cfg, params, serve) -> None:
         raise AssertionError(f"agree: hopper and ref logits differ beyond the bf16 tolerance: {res}")
 
 
+def cont_requests(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    system = rng.integers(1, cfg.vocab_size, CONT_SYSTEM).tolist()
+    return [
+        (system + rng.integers(1, cfg.vocab_size, CONT_OWN).tolist(), CONT_MAX_NEW[i % len(CONT_MAX_NEW)])
+        for i in range(CONT_REQUESTS)
+    ]
+
+
+def phase_continuous(cfg, params) -> dict:
+    """Serve the continuous traffic with the prefix cache off, then on."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceEngine, Request
+
+    reqs = cont_requests(cfg)
+    L = cfg.num_layers
+    runs = {}
+    for pc in (False, True):
+        eng = InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=pc)
+        for p, g in reqs:
+            eng.submit(Request(prompt=p, max_new_tokens=g))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        comps = eng.serve_continuous()
+        wall = time.perf_counter() - t0
+        launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+        name = "prefix" if pc else "plain"
+        if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
+            raise AssertionError(f"continuous ({name}): a request did not get its budget")
+        if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
+            raise AssertionError(f"continuous ({name}): a token outside the vocabulary")
+        refs = ref_ops(dispatch)
+        if refs:
+            raise AssertionError(f"continuous ({name}): ref ops ran on the main path: {refs}")
+        expect = {
+            "paged_attention": (st.prefill_chunks + (0 if pc else st.decode_steps)) * L,
+            "grouped_matmul": (st.prefill_chunks + st.decode_steps) * 3 * L,
+        }
+        if pc:
+            expect["prefix_paged_attention"] = st.decode_steps * L
+        if launches != expect:
+            raise AssertionError(f"continuous ({name}): launches {launches}, expected {expect}")
+        if pc and st.prefix_hit_blocks <= 0:
+            raise AssertionError("continuous (prefix): no prefix block was shared")
+        if pc and st.prefix_grouped_steps <= 0:
+            raise AssertionError("continuous (prefix): no decode step read a shared run through a group")
+        tokens = sum(len(c.tokens) for c in comps)
+        res = {
+            "phase": "continuous", "prefix_cache": pc, "model": cfg.name, "layers": L, "requests": len(comps),
+            "max_batch": CONT_MAX_BATCH, "kv_block_size": CONT_BLOCK, "kv_pool_blocks": eng.kv_pool_blocks,
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps, "decode_step_ms_max": st.decode_step_ms_max,
+            "prefill_ms": [c.prefill_ms for c in comps], "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "stats": dataclasses.asdict(st), "launches": launches, "dispatch": dispatch,
+        }
+        emit(res)
+        runs[pc] = (res, [c.tokens for c in comps])
+    if runs[True][1] != runs[False][1]:
+        diff = [i for i, (a, b) in enumerate(zip(runs[True][1], runs[False][1])) if a != b]
+        raise AssertionError(f"continuous: prefix-cache tokens differ from the plain run's for requests {diff}")
+    return runs[True][0]
+
+
 def main() -> int:
     import torch
 
@@ -339,8 +540,15 @@ def main() -> int:
           "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated()})
     serve = phase_serve(cfg, params)
     phase_agree(cfg, params, serve)
+    cont = phase_continuous(cfg, params)
     for r in rows:
+        # launches on the path the kernel serves: the static serve phase for
+        # the first slice's kernels, the prefix-cache continuous run for the
+        # prefix kernel; each row also carries the continuous run's count
         r["launches"] = serve["launches"].get(r["name"], 0)
+        r["launches_continuous"] = cont["launches"].get(r["name"], 0)
+        if r["name"] == "prefix_paged_attention":
+            r["launches"] = r["launches_continuous"]
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -31,7 +31,13 @@ from typing import List, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("errors.cu", "flash_attention.cu", "paged_attention.cu", "grouped_matmul.cu")
+SOURCES = (
+    "errors.cu",
+    "flash_attention.cu",
+    "paged_attention.cu",
+    "prefix_paged_attention.cu",
+    "grouped_matmul.cu",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode",
@@ -140,6 +146,7 @@ _SIGNATURES = {
     + [_I] * 9
     + [_F, _F, _P],
     "grouped_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "prefix_paged_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
 }
 
 

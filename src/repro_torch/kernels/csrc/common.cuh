@@ -104,15 +104,22 @@ __device__ inline void att_init(const AttSmem& sm, float* acc) {
   for (int i = 0; i < ATT_ACC; ++i) acc[i] = 0.f;
 }
 
-// One tile step: keys k0 .. k0+nk-1 are loaded in sm.k / sm.v (slots nk..
-// ATT_TILE_K-1 absent). Mask: causal (kpos <= qpos), window > 0 limits to
-// qpos - kpos < window. Ends with a barrier, so the caller may reload.
-__device__ inline void att_tile(const AttSmem& sm, float* acc, int R, int hd, int k0, int nk,
-                                float scale, float softcap, bool causal, int window) {
+// One tile step over query rows r_lo .. r_hi-1, for those rows r where
+// active(r) holds (the others keep their m, l and accumulators): keys k0 ..
+// k0+nk-1 are loaded in sm.k / sm.v (slots nk..ATT_TILE_K-1 absent). Mask:
+// causal (kpos <= qpos), window > 0 limits to qpos - kpos < window. Each
+// active row's arithmetic is the same whatever the other rows do, so a row
+// given the same tiles in the same order gets the same bits. Ends with a
+// barrier, so the caller may reload.
+template <typename Active>
+__device__ inline void att_tile_rows(const AttSmem& sm, float* acc, int r_lo, int r_hi, int hd,
+                                     int k0, int nk, float scale, float softcap, bool causal,
+                                     int window, Active active) {
   const int tid = threadIdx.x;
   // scores: one (row, key) pair per thread per step
-  for (int idx = tid; idx < R * ATT_TILE_K; idx += ATT_THREADS) {
-    const int r = idx / ATT_TILE_K, j = idx % ATT_TILE_K;
+  for (int idx = tid; idx < (r_hi - r_lo) * ATT_TILE_K; idx += ATT_THREADS) {
+    const int r = r_lo + idx / ATT_TILE_K, j = idx % ATT_TILE_K;
+    if (!active(r)) continue;
     float s = neg_inf();
     if (j < nk) {
       const float* qr = sm.q + r * hd;
@@ -134,7 +141,8 @@ __device__ inline void att_tile(const AttSmem& sm, float* acc, int R, int hd, in
   __syncthreads();
   // row statistics: one warp per row, one key per lane
   const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < R; r += ATT_THREADS / 32) {
+  for (int r = r_lo + warp; r < r_hi; r += ATT_THREADS / 32) {
+    if (!active(r)) continue;  // the same r for the whole warp
     float* sr = sm.s + r * (ATT_TILE_K + 1);
     const float s = sr[lane];
     const float m_prev = sm.m[r];
@@ -155,7 +163,7 @@ __device__ inline void att_tile(const AttSmem& sm, float* acc, int R, int hd, in
   for (int i = 0; i < ATT_ACC; ++i) {
     const int idx = tid + i * ATT_THREADS;
     const int r = idx / hd, d = idx % hd;
-    if (r < R) {
+    if (r >= r_lo && r < r_hi && active(r)) {
       const float* pr = sm.s + r * (ATT_TILE_K + 1);
       float o = acc[i] * sm.alpha[r];
       for (int j = 0; j < nk; ++j) o = fmaf(pr[j], sm.v[j * hd + d], o);
@@ -163,6 +171,50 @@ __device__ inline void att_tile(const AttSmem& sm, float* acc, int R, int hd, in
     }
   }
   __syncthreads();
+}
+
+// The tile step for all R rows of the block.
+__device__ inline void att_tile(const AttSmem& sm, float* acc, int R, int hd, int k0, int nk,
+                                float scale, float softcap, bool causal, int window) {
+  att_tile_rows(sm, acc, 0, R, hd, k0, nk, scale, softcap, causal, window,
+                [](int) { return true; });
+}
+
+// The keys a paged-decode block walks: its query rows r0 .. r0+R-1 of one
+// batch row (row r is chunk token r / G) sit at positions p0 + r / G. Keys
+// past the last query, and before the first query's sliding window, are
+// skipped: each row keeps its own position as a valid key, so the result is
+// the full walk's. Returns [begin, end) with begin a multiple of ATT_TILE_K.
+__device__ inline int2 att_key_range(int p0, int r0, int R, int G, int width, int window) {
+  const int c_lo = r0 / G, c_hi = (r0 + R - 1) / G;
+  int k_begin = 0, k_end = width;
+  if (p0 >= 0) {
+    k_end = min(width, p0 + c_hi + 1);
+    if (window > 0) k_begin = max(0, p0 + c_lo - window + 1);
+  }
+  return make_int2(k_begin - k_begin % ATT_TILE_K, k_end);
+}
+
+// Load keys k0 .. k0+nk-1 of KV head h from a block pool (N, bs, Hkv, hd)
+// into sm.k / sm.v, resolving each key's page through `table` (one row of
+// a block table); slots nk.. are zero. The caller syncs before using them.
+template <typename T>
+__device__ inline void att_load_pages(const AttSmem& sm, const T* k_pages, const T* v_pages,
+                                      const int* table, int k0, int nk, int bs, int Hkv, int hd,
+                                      int h) {
+  const long long page_stride = (long long)bs * Hkv * hd, slot_stride = (long long)Hkv * hd;
+  for (int idx = threadIdx.x; idx < ATT_TILE_K * hd; idx += ATT_THREADS) {
+    const int j = idx / hd, d = idx % hd;
+    float kv = 0.f, vv = 0.f;
+    if (j < nk) {
+      const int t = k0 + j;
+      const long long a = table[t / bs] * page_stride + (t % bs) * slot_stride + h * hd + d;
+      kv = to_f32(k_pages[a]);
+      vv = to_f32(v_pages[a]);
+    }
+    sm.k[j * (hd + 1) + d] = kv;
+    sm.v[j * hd + d] = vv;
+  }
 }
 
 // out(r, d) = acc / max(l, 1e-30), written through a caller-given address.

@@ -81,27 +81,10 @@ __global__ void __launch_bounds__(ATT_THREADS)
   __syncthreads();  // the appended K/V are visible to every thread below
 
   // 3. walk the keys that can be valid for some row of this block
-  const int c_lo = r0 / G, c_hi = (r0 + R - 1) / G;
-  int k_begin = 0, k_end = width;
-  if (p0 >= 0) {
-    k_end = min(width, p0 + c_hi + 1);
-    if (window > 0) k_begin = max(0, p0 + c_lo - window + 1);
-  }
-  k_begin -= k_begin % ATT_TILE_K;
-  for (int k0 = k_begin; k0 < k_end; k0 += ATT_TILE_K) {
+  const int2 keys = att_key_range(p0, r0, R, G, width, window);
+  for (int k0 = keys.x; k0 < keys.y; k0 += ATT_TILE_K) {
     const int nk = min(ATT_TILE_K, width - k0);
-    for (int idx = threadIdx.x; idx < ATT_TILE_K * hd; idx += ATT_THREADS) {
-      const int j = idx / hd, d = idx % hd;
-      float kv = 0.f, vv = 0.f;
-      if (j < nk) {
-        const int t = k0 + j;
-        const long long a = table[t / bs] * page_stride + (t % bs) * slot_stride + h * hd + d;
-        kv = to_f32(k_pages[a]);
-        vv = to_f32(v_pages[a]);
-      }
-      sm.k[j * (hd + 1) + d] = kv;
-      sm.v[j * hd + d] = vv;
-    }
+    att_load_pages(sm, k_pages, v_pages, table, k0, nk, bs, Hkv, hd, h);
     __syncthreads();
     att_tile(sm, acc, R, hd, k0, nk, scale, softcap, true, window);
   }

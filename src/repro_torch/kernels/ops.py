@@ -34,6 +34,7 @@ from ._build import LAUNCH_COUNTS  # noqa: F401 (re-export)
 from .flash_attention import flash_attention as _flash_hopper
 from .grouped_matmul import grouped_matmul as _gmm_hopper
 from .paged_attention import paged_attention as _paged_hopper
+from .prefix_paged_attention import prefix_paged_attention as _prefix_hopper
 
 
 class KernelBackend(str, enum.Enum):
@@ -128,7 +129,7 @@ def flash_attention(
 
 
 def decode_attention(
-    q, k_cache, v_cache, k_new, v_new, pos, *, block_tables=None,
+    q, k_cache, v_cache, k_new, v_new, pos, *, block_tables=None, prefix_groups=None,
     scale: Optional[float] = None, softcap: float = 0.0, window: int = 0,
     is_global=True, trash_block: int = 0, backend: BackendSpec = None,
 ):
@@ -141,6 +142,12 @@ def decode_attention(
     row behind the identity table; otherwise shared ``(N, bs, Hkv, hd)``
     pages addressed through the ``(B, max_blocks)`` table. The caches are
     updated in place. Returns ``(out, k_cache, v_cache)``.
+
+    ``prefix_groups`` (paged only) is the prefix cache's ``(2, B)`` int32
+    grouping: row 0 each row's group representative, row 1 its shared
+    leading block count (DESIGN.md §4d). It routes to the prefix kernel,
+    which reads each shared page once per group; the result is exactly the
+    unshared one.
     """
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     if pos.ndim > 1:
@@ -151,9 +158,17 @@ def decode_attention(
             f"contiguous multi-token append is lockstep-only: a C={C} chunk needs a "
             f"scalar pos, got shape {tuple(pos.shape)}; pass block_tables for per-row chunks"
         )
+    if prefix_groups is not None and block_tables is None:
+        raise ValueError("prefix_groups requires a paged cache (block_tables)")
     if resolve_backend(backend, q.device) is KernelBackend.HOPPER:
-        record("decode.hopper")
         posv = torch.broadcast_to(pos.reshape(-1), (B,)).contiguous()
+        if prefix_groups is not None:
+            record("decode.hopper_prefix")
+            return _prefix_hopper(
+                q, k_cache, v_cache, block_tables, k_new, v_new, posv, prefix_groups[0], prefix_groups[1],
+                is_global, scale=scale, softcap=softcap, window=window,
+            )
+        record("decode.hopper")
         tables = (
             torch.arange(B, dtype=torch.int32, device=q.device)[:, None]  # one page per row
             if block_tables is None
@@ -162,6 +177,12 @@ def decode_attention(
         return _paged_hopper(
             q, k_cache, v_cache, tables, k_new, v_new, posv, is_global,
             scale=scale, softcap=softcap, window=window,
+        )
+    if prefix_groups is not None:
+        record("decode.ref_prefix")
+        return ref.prefix_paged_attention_ref(
+            q, k_cache, v_cache, block_tables, k_new, v_new, pos, prefix_groups[0], prefix_groups[1],
+            is_global, scale=scale, softcap=softcap, window=window, trash_block=trash_block,
         )
     if block_tables is not None:
         record("decode.ref_paged")

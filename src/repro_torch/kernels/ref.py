@@ -195,6 +195,43 @@ def paged_attention_ref(
     return out, k_pages, v_pages
 
 
+def prefix_paged_attention_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pos: torch.Tensor,
+    group_reps: torch.Tensor,
+    shared_blocks: torch.Tensor,
+    is_global=True,
+    *,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+    window: int = 0,
+    trash_block: int = 0,
+):
+    """Prefix-group paged attention (the prefix kernel's oracle).
+
+    ``group_reps`` (B,) names each row's prefix-group representative (a
+    row with no shared prefix is its own) and ``shared_blocks`` (B,) how
+    many leading table entries the row shares with it. Under the engine's
+    contract (DESIGN.md §4d) those entries hold the same physical ids as
+    the representative's and every write lands past them, so routing them
+    through the representative's table and deferring to
+    ``paged_attention_ref`` gives exactly the unshared result.
+    """
+    j = torch.arange(block_tables.shape[1], device=block_tables.device)[None, :]
+    eff = torch.where(
+        j < shared_blocks[:, None], block_tables[group_reps.long()], block_tables
+    )
+    return paged_attention_ref(
+        q, k_pages, v_pages, eff, k_new, v_new, pos, is_global,
+        scale=scale, softcap=softcap, window=window, trash_block=trash_block,
+    )
+
+
 def append_attention_ref(
     q: torch.Tensor,
     k_cache: torch.Tensor,

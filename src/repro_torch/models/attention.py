@@ -162,13 +162,17 @@ def attention_block(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global, 
 
 
 def decode_attention(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos, backend=None) -> tuple:
-    """Cache-appending attention over a contiguous cache: one decode token
-    (C == 1) or a lockstep chunk written at ``pos .. pos+C-1``.
+                     v_cache: torch.Tensor, pos, block_tables=None, prefix_groups=None, backend=None) -> tuple:
+    """Cache-appending attention: one decode token (C == 1) or a chunk
+    written at ``pos .. pos+C-1``.
 
-    x: (B, C, d); caches (B, Smax, Hkv, hd), updated in place; ``pos`` an
-    int or an int32 tensor (a scalar, or (B,) per row with C == 1).
-    Returns (out (B,C,d), k_cache, v_cache).
+    x: (B, C, d); ``pos`` an int or an int32 tensor, a scalar (lockstep) or
+    (B,) per row. Caches are contiguous (B, Smax, Hkv, hd) when
+    ``block_tables`` is None (per-row positions then take C == 1), else
+    (N, bs, Hkv, hd) pages addressed through the (B, max_blocks) table;
+    ``prefix_groups`` (2, B) routes shared prefix blocks through their
+    group representative's table (paged only). The caches are updated in
+    place. Returns (out (B,C,d), k_cache, v_cache).
     """
     B, C = x.shape[0], x.shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -176,8 +180,9 @@ def decode_attention(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global,
     q_pos = base + torch.arange(C, dtype=torch.int32, device=x.device)  # (B|1, C)
     q, k_new, v_new = qkv_project(x, w, cfg, q_pos)
     out, k_cache, v_cache = kernel_ops.decode_attention(
-        q, k_cache, v_cache, k_new, v_new, pos, scale=_scale(cfg),
-        softcap=cfg.attn_logit_softcap, window=cfg.sliding_window, is_global=is_global, backend=backend,
+        q, k_cache, v_cache, k_new, v_new, pos, block_tables=block_tables, prefix_groups=prefix_groups,
+        scale=_scale(cfg), softcap=cfg.attn_logit_softcap, window=cfg.sliding_window, is_global=is_global,
+        backend=backend,
     )
     o = out.reshape(B, C, -1).to(x.dtype) @ w.wo
     return o, k_cache, v_cache

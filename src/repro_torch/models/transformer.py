@@ -1,18 +1,20 @@
 """The stacked-layer decoder (the port of ``repro.models.transformer`` for
-attention-only families, one device, contiguous KV cache).
+attention-only families, one device).
 
 JAX scans one layer body over the stacked parameters; here a Python loop
 walks the leading L axis. Entry points:
 
-  prefill      full forward over the prompt: last-position logits plus a
-               primed decode cache
-  decode_step  one cache-appending step
+  prefill           full forward over the prompt: last-position logits plus
+                    a primed contiguous decode cache
+  init_paged_cache  an empty block-pooled cache for continuous batching
+  decode_step       one cache-appending step (a token or a prefill chunk),
+                    over either layout
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -26,11 +28,23 @@ from .params import layer_slice, torch_dtype
 
 @dataclasses.dataclass
 class DecodeCache:
-    """Decode-time state of an attention-only model, contiguous layout."""
+    """Decode-time state of an attention-only model.
 
-    k: torch.Tensor  # (L, B, Smax, Hkv, hd)
+    Contiguous: k/v are (L, B, Smax, Hkv, hd) and ``pos`` an int, the same
+    for every row (a lockstep batch). Paged (continuous batching): k/v are
+    (L, num_blocks, block_size, Hkv, hd) pages shared by all rows,
+    ``block_tables`` (B, max_blocks) int32 maps each row's logical positions
+    to pages (unused entries point at trash block 0) and ``pos`` is a (B,)
+    int32 tensor of per-row depths. ``prefix_groups`` (2, B) int32, paged
+    only, is the prefix cache's grouping (row 0 each row's representative,
+    row 1 its shared leading block count); None leaves the prefix kernel off.
+    """
+
+    k: torch.Tensor
     v: torch.Tensor
-    pos: int  # tokens written so far, the same for every row (lockstep batch)
+    pos: Union[int, torch.Tensor]
+    block_tables: Optional[torch.Tensor] = None
+    prefix_groups: Optional[torch.Tensor] = None
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -89,6 +103,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     )
 
 
+def init_paged_cache(cfg: ModelConfig, nslots: int, num_blocks: int, block_size: int, max_blocks: int,
+                     dtype=torch.bfloat16, device=None) -> DecodeCache:
+    """A block-pooled decode cache (DESIGN.md §4b): K/V pages shared by all
+    ``nslots`` rows, addressed through per-row block tables. ``num_blocks``
+    includes the reserved trash block 0 (``repro_torch.serving.kv_cache``)."""
+    kv_dt = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else dtype
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return DecodeCache(
+        k=torch.zeros(shape, dtype=kv_dt, device=device),
+        v=torch.zeros(shape, dtype=kv_dt, device=device),
+        pos=torch.zeros((nslots,), dtype=torch.int32, device=device),
+        block_tables=torch.zeros((nslots, max_blocks), dtype=torch.int32, device=device),
+    )
+
+
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: int,
             backend=None) -> Tuple[torch.Tensor, DecodeCache]:
     """Process the prompt ``batch["tokens"]`` (B, S); return (last-position
@@ -125,24 +154,26 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
                 backend=None) -> Tuple[torch.Tensor, DecodeCache]:
     """One cache-appending step: token (B, C) -> (last-position logits
     (B, V), the cache advanced by C). C == 1 is plain decode; C > 1 appends
-    a lockstep chunk. The cache tensors are updated in place (JAX returned
-    new ones); the returned cache shares them with ``pos + C``."""
+    a chunk: in lockstep on a contiguous cache, or at each row's own
+    position on a paged one (chunked prefill). The cache tensors are updated
+    in place (JAX returned new ones); the returned cache shares them, with
+    ``pos + C``. Callers that freeze drained rows (the continuous engine)
+    pin ``pos`` again before the next step."""
     _check_family(cfg)
     C = token.shape[1]
     x = embed_tokens(params, cfg, token)
-    pos = torch.full((), cache.pos, dtype=torch.int32, device=x.device)
+    pos = torch.as_tensor(cache.pos, dtype=torch.int32, device=x.device)
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
         lp = layer_slice(params["layers"], layer)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         out, _, _ = attn_mod.decode_attention(
             h, attn_mod.AttnTemps(**lp["attn"]), cfg, flags[layer], cache.k[layer], cache.v[layer], pos,
-            backend=backend,
+            block_tables=cache.block_tables, prefix_groups=cache.prefix_groups, backend=backend,
         )
         if cfg.use_post_norm:
             out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
         x = x + out
         x = x + _ffn(x, lp, cfg, backend)
     logits = unembed(params, cfg, x[:, -1:, :])
-    return logits[:, 0], DecodeCache(k=cache.k, v=cache.v, pos=cache.pos + C)
-
+    return logits[:, 0], dataclasses.replace(cache, pos=cache.pos + C)

@@ -1,11 +1,31 @@
-"""Static-batching inference engine (the port of
-``repro.serving.engine.InferenceEngine.run``, null plan, one device).
+"""Inference engine (the port of ``repro.serving.engine.InferenceEngine``,
+null plan, one device). Two serving loops share it (DESIGN.md §4/§4b):
 
-``submit`` queues requests; ``run`` drains the queue batch by batch: the
-scheduler left-pads a batch to its prompt bucket, ``prefill`` primes a
-contiguous KV cache, and a greedy ``decode_step`` loop decodes the batch
-in lockstep until every request has its tokens. The planner, the Eq.-6
-transitions and continuous batching come in later slices of the port.
+  ``run()``              static batching: the scheduler left-pads a batch to
+                         its prompt bucket, ``prefill`` primes a contiguous
+                         KV cache and a greedy ``decode_step`` loop decodes
+                         the batch in lockstep until every request stops.
+  ``serve_continuous()`` continuous batching over a paged KV pool: queued
+                         requests join at step boundaries (``admit``), each
+                         iteration runs one step (``step``: the head
+                         joiner's next prefill chunk, fused with a decode
+                         step over the full slot set when rows are live),
+                         and finished rows free their blocks (``retire``).
+
+Continuous KV memory is a shared block pool (``kv_cache``): admission
+reserves each request's worst-case block need, blocks materialise as chunks
+land and decode advances, and go back at retirement. Prompts are prefilled
+in ``prefill_chunk``-token chunks through ``decode_step``. With
+``prefix_cache=True`` a joiner adopts the blocks of a registered prompt
+prefix (``prefix_cache``), skips their chunks, forks a shared block
+copy-on-write before its first write into it, and every decode step runs
+the prefix kernel, which reads each shared page once per group.
+
+Host state (positions, block tables, the prefix grouping) lives in numpy
+and goes to the card as one int32 copy each per step; the only sync of a
+step reads back the sampled tokens. The planner, the Eq.-6 transitions,
+the robustness layer and the contiguous continuous fallback come in later
+slices; their knobs raise ``NotImplementedError`` naming the ROADMAP item.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 CUDA device and no ``device`` it raises rather than fall back. The kernel
@@ -17,35 +37,101 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step, prefill
+from repro_torch.models import DecodeCache, decode_step, init_paged_cache, prefill
 
+from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, blocks_for
+from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, sample
-from .scheduler import FifoScheduler, QueuedRequest
+from .scheduler import ContinuousScheduler, QueuedRequest, round_up
 
 
 @dataclasses.dataclass
 class Request:
     prompt: Sequence[int]
     max_new_tokens: int = 32
+    deadline_ms: Optional[float] = None  # not ported yet (ROADMAP A.8)
 
 
 @dataclasses.dataclass
 class Completion:
     uid: int
     tokens: List[int]
-    prefill_ms: float  # the request's batch: prefill, host clock after a sync
-    decode_ms: float  # the request's batch: the whole decode loop
+    # static: the request's batch, host clock after a sync; continuous: the
+    # request's own unfused prefill chunks, and the decode steps it took
+    prefill_ms: float
+    decode_ms: float
 
 
 @dataclasses.dataclass
 class EngineStats:
-    batches: int = 0  # static batches run
+    batches: int = 0  # static batches / continuous live-batch generations
+    joins: int = 0  # continuous: requests admitted mid-stream
+    decode_steps: int = 0  # continuous: decode steps executed
+    prefill_chunks: int = 0  # continuous: prefill chunks processed
+    fused_steps: int = 0  # continuous: chunk+decode fused iterations
+    # prefix-cache accounting (DESIGN.md §4d; zeros with the cache off):
+    prefix_hit_blocks: int = 0  # KV blocks adopted instead of recomputed
+    prefix_hit_tokens: int = 0  # prefill positions skipped via sharing
+    cow_copies: int = 0  # shared blocks forked at first write
+    raw_block_need: int = 0  # sum of unshared worst-case admission needs
+    effective_block_need: int = 0  # sum of post-sharing admission charges
+    # the port's own (the JAX engine has no such counters):
+    prefix_grouped_steps: int = 0  # decode steps where a row read its shared run through another's table
+    decode_step_ms_sum: float = 0.0  # host clock of the decode steps, fused ones included
+    decode_step_ms_max: float = 0.0
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Per-request in-flight state (one live batch row)."""
+
+    req: QueuedRequest
+    start: int  # padded prompt length = first decode position
+    table: BlockTable
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False  # decode-sampled EOS seen
+    prefill_ms: float = 0.0
+    decode_ms: float = 0.0
+    pending: List[np.ndarray] = dataclasses.field(default_factory=list)
+    filled: int = 0  # prompt tokens in the cache (starts past an adopted prefix)
+    # the host table mirror holds this row's blocks: False until its first
+    # chunk, so that until then the row joins no prefix group and the fused
+    # decode half's dead writes land in the trash block, never a shared page
+    mirrored: bool = False
+
+    @property
+    def prefilling(self) -> bool:
+        return bool(self.pending)
+
+
+@dataclasses.dataclass
+class _LiveBatch:
+    """The in-flight set: per-slot state, the block pool and its host
+    mirrors (``pos`` per row, ``tables`` trash-padded), pinned into the
+    cache before every step so drained rows stay frozen."""
+
+    kv_capacity: int  # logical per-row KV length (tokens)
+    slots: List[Optional[_Slot]]
+    cache: DecodeCache
+    pos: np.ndarray  # (nslots,) int32
+    next_tok: np.ndarray  # (nslots,) int32
+    allocator: BlockAllocator
+    max_blocks: int  # block-table width
+    tables: np.ndarray  # (nslots, max_blocks) int32
+    prefix: Optional[PrefixCache] = None  # prompt-prefix index over the pool
+
+    def active(self) -> List[int]:
+        """Rows decoding this step: admitted, prefill complete, not done."""
+        return [i for i, s in enumerate(self.slots) if s is not None and not s.done and not s.prefilling]
+
+    def prefilling(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is not None and s.prefilling]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,20 +146,78 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
 class InferenceEngine:
-    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8, eos_id: int = -1,
-                 kernel_backend: Optional[str] = None, device=None):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        *,
+        max_batch: int = 8,
+        eos_id: int = -1,
+        paged: Optional[bool] = None,
+        kv_block_size: int = 16,
+        kv_blocks: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        prefix_cache: bool = False,
+        kernel_backend: Optional[str] = None,
+        device=None,
+        session=None,
+        kv_overcommit: Optional[float] = None,
+        faults=None,
+        replicate_experts: int = 0,
+        prefetch: bool = False,
+    ):
+        if session is not None:
+            raise _not_ported("the HAPSession planner, re-planning and transitions", "A.5")
+        if kv_overcommit is not None or faults is not None:
+            raise _not_ported("kv_overcommit, preemption and fault injection (DESIGN.md §4f)", "A.8")
+        if replicate_experts or prefetch:
+            raise _not_ported("the routing tracker (expert replication, prefetch)", "A.7")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.eos_id = eos_id
         self.kernel_backend = kernel_backend
-        self.scheduler = FifoScheduler(max_batch=max_batch, bucket=64)
+        self.scheduler = ContinuousScheduler(max_batch=max_batch, bucket=64)
         self.stats = EngineStats()
+        if paged and not (cfg.has_attention and not cfg.has_mamba):
+            raise ValueError("paged KV serving requires an attention-only model")
+        if kv_block_size < 1:
+            raise ValueError("kv_block_size must be positive")
+        if prefix_cache and paged is False:
+            raise ValueError("prefix_cache requires the paged KV path")
+        if paged is False:
+            raise _not_ported("the contiguous continuous fallback (paged=False)", "A.4")
+        self.kv_block_size = kv_block_size
+        self.kv_blocks = kv_blocks  # pool size override (blocks, sans trash)
+        self.prefill_chunk = prefill_chunk  # None => one chunk per bucket
+        self.prefix_caching = bool(prefix_cache)
+        self._live: Optional[_LiveBatch] = None
+        self.kv_pool_blocks = 0  # the newest generation's pool, trash block excluded
 
     def submit(self, req: Request) -> int:
+        if req.deadline_ms is not None:
+            raise _not_ported("request deadlines (DESIGN.md §4f)", "A.8")
         return self.scheduler.submit(req.prompt, req.max_new_tokens)
 
+    def cancel(self, uid: int) -> bool:
+        raise _not_ported("request cancellation (DESIGN.md §4f)", "A.8")
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _generator(self, sampling: SamplingParams) -> Optional[torch.Generator]:
+        """One explicit generator per serving call (temperature > 0 only)."""
+        if sampling.temperature <= 0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(sampling.seed)
+
+    # -- static batching ----------------------------------------------------
     def run(self, sampling: Optional[SamplingParams] = None) -> List[Completion]:
         """Drain the queue; returns completions in uid order."""
         sampling = sampling if sampling is not None else SamplingParams()
@@ -85,10 +229,6 @@ class InferenceEngine:
             out.extend(self._run_batch(batch, sampling))
         return sorted(out, key=lambda c: c.uid)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _run_batch(self, batch: List[QueuedRequest], sampling: SamplingParams) -> List[Completion]:
         toks, _ = self.scheduler.pad_batch(batch)
         B, S = toks.shape
@@ -96,9 +236,7 @@ class InferenceEngine:
         max_len = S + max_new + 1
         self.stats.batches += 1
         be = self.kernel_backend
-        gen = None
-        if sampling.temperature > 0:
-            gen = torch.Generator(device=self.device).manual_seed(sampling.seed)
+        gen = self._generator(sampling)
 
         with torch.inference_mode():
             self._sync()
@@ -131,4 +269,313 @@ class InferenceEngine:
             n = min(r.max_new_tokens, max_new)
             toks_out = [int(t) for t in generated[i, :n] if t != self.eos_id or self.eos_id < 0]
             comps.append(Completion(r.uid, toks_out, prefill_ms, decode_ms))
+        return comps
+
+    # -- continuous batching --------------------------------------------------
+    def serve_continuous(self, sampling: Optional[SamplingParams] = None) -> List[Completion]:
+        """Drain the queue with continuous batching; uid-ordered completions.
+
+        Each iteration admits whatever fits the pool, runs one step and
+        retires finished rows. Greedy outputs equal the JAX engine's: every
+        request is prefilled at its own prompt bucket and chunk boundaries
+        only re-tile the same causal attention.
+        """
+        sampling = sampling if sampling is not None else SamplingParams()
+        gen = self._generator(sampling)
+        out: List[Completion] = []
+        with torch.inference_mode():
+            while len(self.scheduler) or self._live is not None:
+                out.extend(self.retire())
+                if self._live is None:
+                    if not len(self.scheduler):
+                        break
+                    self._begin_live_batch()
+                self.admit()
+                out.extend(self.retire())  # zero-token budgets end here
+                if not self.step(sampling, gen):
+                    # nothing runnable: the queue head outgrows this
+                    # generation's tables; drain and resize
+                    self._live = None
+                    continue
+                out.extend(self.retire())
+        return sorted(out, key=lambda c: c.uid)
+
+    def _begin_live_batch(self) -> None:
+        """Size a fresh live batch from the queue: tables as wide as the
+        largest queued need, a pool holding the sum of queued needs (capped
+        at every slot full-length, never below the head's own need)."""
+        sch = self.scheduler
+        queued = sch.queued()
+        cap = round_up(max(sch.kv_need(r) for r in queued), sch.bucket)
+        nslots = sch.max_batch
+        bs = self.kv_block_size
+        max_blocks = blocks_for(cap, bs)
+        needs = [blocks_for(sch.kv_need(r), bs) for r in queued]
+        pool = self.kv_blocks if self.kv_blocks is not None else min(sum(needs), nslots * max_blocks)
+        pool = max(pool, max(needs))  # the head must stay admittable
+        allocator = BlockAllocator(pool + 1, bs)
+        self.kv_pool_blocks = pool
+        self._live = _LiveBatch(
+            kv_capacity=max_blocks * bs,
+            slots=[None] * nslots,
+            cache=init_paged_cache(
+                self.cfg, nslots, pool + 1, bs, max_blocks, dtype=self.params["embed"].dtype, device=self.device
+            ),
+            pos=np.zeros((nslots,), np.int32),
+            next_tok=np.zeros((nslots,), np.int32),
+            allocator=allocator,
+            max_blocks=max_blocks,
+            tables=np.full((nslots, max_blocks), TRASH_BLOCK, np.int32),
+            prefix=PrefixCache(allocator) if self.prefix_caching else None,
+        )
+        self.stats.batches += 1
+
+    def admit(self) -> List[int]:
+        """Admit queue-head requests into free slots (strict FIFO) while the
+        pool can reserve their blocks; their prompts queue as chunks.
+        Returns the joined slot indices."""
+        live = self._live
+        joined: List[int] = []
+        while True:
+            free = [i for i, s in enumerate(live.slots) if s is None]
+            if not free:
+                break
+            r = self.scheduler.next_fit_blocks(live.allocator, live.kv_capacity, prefix_cache=live.prefix)
+            if r is None:
+                break
+            self._admit_one(free[0], r)
+            joined.append(free[0])
+        return joined
+
+    def _admit_one(self, i: int, r: QueuedRequest) -> None:
+        live = self._live
+        charge = self.scheduler.kv_need(r)  # worst case: OutOfBlocks cannot follow
+        toks, _ = self.scheduler.pad_batch([r])
+        skip = 0
+        if live.prefix is not None:
+            # the plan matches the admission check's (nothing registers or
+            # evicts in between); the table starts with the adopted blocks
+            ap = live.prefix.plan_admission(toks[0], charge)
+            skip = ap.skip
+            table = BlockTable(
+                live.allocator, charge, shared_blocks=ap.adopt, shared_partial=ap.adopt_partial,
+                owner=f"uid={r.uid}",
+            )
+            self.stats.prefix_hit_blocks += len(ap.adopt)
+            self.stats.prefix_hit_tokens += skip
+            self.stats.raw_block_need += ap.raw_blocks
+            self.stats.effective_block_need += ap.reserve_blocks
+        else:
+            table = BlockTable(live.allocator, charge, owner=f"uid={r.uid}")
+        slot = _Slot(req=r, start=self.scheduler.padded_len(r), table=table)
+        chunk = self.prefill_chunk or self.scheduler.bucket
+        slot.pending = [toks[0, o : o + chunk] for o in range(skip, toks.shape[1], chunk)]
+        slot.filled = skip
+        live.slots[i] = slot
+        live.tables[i, :] = TRASH_BLOCK  # until the first chunk lands
+        live.pos[i] = skip
+        live.next_tok[i] = 0
+        self.stats.joins += 1
+
+    def step(self, sampling: SamplingParams, gen=None) -> bool:
+        """One iteration: the FIFO-first joiner's next prefill chunk, fused
+        with a decode step when live rows exist, else a decode step. Returns
+        False when nothing is runnable (drain-and-resize)."""
+        live = self._live
+        pending = live.prefilling()
+        active = live.active()
+        if not pending and not active:
+            return False
+        if pending:
+            i = min(pending, key=lambda j: live.slots[j].req.uid)
+            self._prefill_chunk_step(i, active, sampling, gen)
+        else:
+            self.step_decode(sampling, gen)
+        return True
+
+    def _ensure_blocks(self, i: int, n_tokens: int, write_from: Optional[int] = None) -> None:
+        """Grow row ``i``'s table to cover ``n_tokens`` and refresh the host
+        mirror. ``write_from`` is the first position the caller is about to
+        write: any shared block at or past it is forked first, and the page
+        copies are queued on the card before that write."""
+        live = self._live
+        s = live.slots[i]
+        if s is None:
+            return
+        dirty = not s.mirrored
+        if write_from is not None:
+            copies = s.table.ensure_writable(write_from)
+            if copies:
+                src = torch.tensor([c[0] for c in copies], dtype=torch.long, device=self.device)
+                dst = torch.tensor([c[1] for c in copies], dtype=torch.long, device=self.device)
+                # in place, every layer in one indexed copy (JAX returned new
+                # page arrays); source and destination pages never overlap
+                live.cache.k[:, dst] = live.cache.k[:, src]
+                live.cache.v[:, dst] = live.cache.v[:, src]
+                self.stats.cow_copies += len(copies)
+                dirty = True
+        if s.table.capacity_tokens < n_tokens:
+            s.table.ensure_tokens(n_tokens)
+            dirty = True
+        if dirty:
+            live.tables[i] = s.table.padded(live.max_blocks)
+            s.mirrored = True
+
+    def _prefix_group_arrays(self) -> np.ndarray:
+        """The (2, nslots) prefix-group operand of the decode kernel: row 0
+        maps every slot to its group representative (itself when unshared),
+        row 1 holds the leading shared-block count. Rows whose first
+        ``n_shared`` blocks are identical form one group. Only mirrored
+        slots take part: before its first chunk a row's mirror is all-trash
+        and must not anchor or join a group."""
+        live = self._live
+        n = len(live.slots)
+        reps = np.arange(n, dtype=np.int32)
+        nsh = np.zeros((n,), np.int32)
+        first: Dict[tuple, int] = {}
+        for i, s in enumerate(live.slots):
+            if s is None or not s.mirrored or s.table.n_shared == 0:
+                continue
+            key = tuple(s.table.blocks[: s.table.n_shared])
+            rep = first.setdefault(key, i)
+            if rep != i:
+                reps[i] = rep
+                nsh[i] = s.table.n_shared
+        return np.stack([reps, nsh])
+
+    def _pinned_cache(self, decode: bool) -> DecodeCache:
+        """The live cache with the host's positions, tables and (with the
+        prefix cache on) group map pinned in, one int32 copy each. ``decode``:
+        a decode step reads the group map (a lone chunk does not)."""
+        live = self._live
+        dev = self.device
+        groups = None
+        if live.prefix is not None:
+            arrays = self._prefix_group_arrays()
+            if decode and (arrays[0] != np.arange(arrays.shape[1])).any():
+                self.stats.prefix_grouped_steps += 1
+            groups = torch.tensor(arrays, device=dev)
+        return dataclasses.replace(
+            live.cache,
+            pos=torch.tensor(live.pos, device=dev),
+            block_tables=torch.tensor(live.tables, device=dev),
+            prefix_groups=groups,
+        )
+
+    def _chunk_append(self, tok: torch.Tensor, i: int, cache: DecodeCache) -> torch.Tensor:
+        """Append a (1, C) prompt chunk through row ``i``'s table; returns the
+        last position's logits (1, V). The row's table already holds any
+        adopted blocks, so the chunk takes no group indirection."""
+        sub = dataclasses.replace(
+            cache, pos=cache.pos[i : i + 1], block_tables=cache.block_tables[i : i + 1], prefix_groups=None
+        )
+        logits, _ = decode_step(self.params, self.cfg, tok, sub, backend=self.kernel_backend)
+        return logits
+
+    def _prefill_chunk_step(self, i: int, active: List[int], sampling: SamplingParams, gen) -> None:
+        """Process joiner ``i``'s next prompt chunk; fuse it with a decode
+        step over the live rows when there are any and the chunk is not the
+        last (the last chunk's logits feed the joiner's first token)."""
+        live = self._live
+        s = live.slots[i]
+        chunk = s.pending[0]
+        C = len(chunk)
+        final = len(s.pending) == 1
+        fused = bool(active) and not final
+        self._ensure_blocks(i, s.filled + C, write_from=s.filled)
+        if fused:
+            for j in active:
+                self._ensure_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
+        s.pending.pop(0)
+        self.stats.prefill_chunks += 1
+        cache = self._pinned_cache(decode=fused)
+        tok = torch.tensor(chunk[None, :], dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        logits = self._chunk_append(tok, i, cache)
+        s.filled += C
+        live.pos[i] = s.filled
+        if fused:
+            # the decode half sees the joiner past its chunk, as the
+            # reference's fused step does; tables and groups are unchanged
+            cache = dataclasses.replace(cache, pos=torch.tensor(live.pos, device=self.device))
+            next_tok = torch.tensor(live.next_tok, dtype=torch.long, device=self.device)
+            logits, _ = decode_step(self.params, self.cfg, next_tok[:, None], cache, backend=self.kernel_backend)
+            toks = sample(logits, sampling, gen).cpu().numpy()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            # booked once, as the live rows' decode step; the joiner's
+            # prefill_ms counts only its unfused chunks
+            self.stats.decode_steps += 1
+            self.stats.fused_steps += 1
+            self._apply_sampled(toks, active, step_ms)
+            return
+        if final:
+            tok0 = int(sample(logits, sampling, gen).cpu()[0])
+        else:
+            self._sync()
+        s.prefill_ms += (time.perf_counter() - t0) * 1e3
+        if final:
+            live.next_tok[i] = tok0
+            if s.req.max_new_tokens >= 1:
+                s.tokens.append(tok0)
+            if live.prefix is not None:
+                # index the completed prompt; the cache takes its own block
+                # references, so the run outlives this request until evicted
+                live.prefix.register(self.scheduler.pad_batch([s.req])[0][0], s.table.blocks)
+
+    def _apply_sampled(self, toks: np.ndarray, active: List[int], step_ms: float) -> None:
+        live = self._live
+        self.stats.decode_step_ms_sum += step_ms
+        self.stats.decode_step_ms_max = max(self.stats.decode_step_ms_max, step_ms)
+        for i in active:
+            s = live.slots[i]
+            live.pos[i] += 1
+            s.decode_ms += step_ms
+            t = int(toks[i])
+            live.next_tok[i] = t
+            if self.eos_id >= 0 and t == self.eos_id:
+                s.done = True  # stop; EOS is never emitted
+                continue
+            s.tokens.append(t)
+
+    def step_decode(self, sampling: SamplingParams, gen=None) -> None:
+        """One decode step over the full slot set (drained rows frozen on the
+        host, writing to the trash block): constant shapes per slot count."""
+        live = self._live
+        active = live.active()
+        for j in active:
+            self._ensure_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
+        cache = self._pinned_cache(decode=True)
+        next_tok = torch.tensor(live.next_tok, dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        logits, _ = decode_step(self.params, self.cfg, next_tok[:, None], cache, backend=self.kernel_backend)
+        toks = sample(logits, sampling, gen).cpu().numpy()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        self.stats.decode_steps += 1
+        self._apply_sampled(toks, active, step_ms)
+
+    def _free_slot(self, i: int) -> _Slot:
+        """Release row ``i``'s blocks, point its mirror at the trash block and
+        empty the slot; returns the old slot state."""
+        live = self._live
+        s = live.slots[i]
+        s.table.free()
+        live.tables[i, :] = TRASH_BLOCK
+        s.pending = []
+        live.slots[i] = None
+        live.next_tok[i] = 0
+        return s
+
+    def retire(self) -> List[Completion]:
+        """Free slots whose request hit EOS or its output budget; returns
+        their completions. Their blocks go back to the pool."""
+        live = self._live
+        if live is None:
+            return []
+        comps = []
+        for i, s in enumerate(live.slots):
+            if s is None or not (s.done or len(s.tokens) >= s.req.max_new_tokens):
+                continue
+            toks = [t for t in s.tokens if t != self.eos_id or self.eos_id < 0]
+            comps.append(Completion(s.req.uid, toks, s.prefill_ms, s.decode_ms))
+            self._free_slot(i)
         return comps

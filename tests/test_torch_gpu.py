@@ -171,3 +171,106 @@ def test_engine_hopper_matches_ref_on_the_card():
             assert not any(".ref" in k or k.startswith("prefill.ref") for k in ops.DISPATCH_COUNTS)
     for a, b in zip(runs["hopper"][0], runs["ref"][0]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _prefix_inputs(rng, B, C, Hq, Hkv, hd, bs, nb, groups, dtype, dev):
+    """A block pool where each row owns nb pages, then each group
+    ``(rep, members, n_shared)`` gives its members the representative's
+    first n_shared pages. Every row writes past its shared run."""
+    N = B * nb + 1  # page 0 is the trash page
+    tables = np.arange(1, N, dtype=np.int32).reshape(B, nb)
+    reps, nsh = np.arange(B, dtype=np.int32), np.zeros((B,), np.int32)
+    pos = np.zeros((B,), np.int32)
+    free = nb * bs - C  # the last position a chunk may start at
+    for b in range(B):
+        pos[b] = free - (7 * b) % (bs + 3)
+    for rep, members, n_shared in groups:
+        for m in members:
+            tables[m, :n_shared] = tables[rep, :n_shared]
+            reps[m], nsh[m] = rep, n_shared
+        assert pos[[rep, *members]].min() >= n_shared * bs
+    q = _randn(rng, (B, C, Hq, hd), dtype, dev)
+    kp = _randn(rng, (N, bs, Hkv, hd), dtype, dev)
+    vp = _randn(rng, (N, bs, Hkv, hd), dtype, dev)
+    kn = _randn(rng, (B, C, Hkv, hd), dtype, dev)
+    vn = _randn(rng, (B, C, Hkv, hd), dtype, dev)
+    tables, pos, reps, nsh = (torch.from_numpy(a).to(dev) for a in (tables, pos, reps, nsh))
+    return q, kp, vp, tables, kn, vn, pos, reps, nsh
+
+
+# (B, C, Hq, Hkv, hd, bs, nb), groups, window, is_global, softcap
+PREFIX_CASES = {
+    # main path: 7 rows share 12 pages (192 keys, whole 32-key tiles) with rep 1
+    "decode_main": ((8, 1, 16, 16, 128, 16, 20), [(1, range(2, 8), 12)], 0, True, 0.0),
+    # a shared run of 40 keys: the tile over keys 32..63 straddles its end
+    "straddle": ((4, 1, 4, 2, 64, 8, 10), [(0, (1, 2), 5)], 0, True, 0.0),
+    # chunk + GQA: 5 members x 5 tokens x 4 heads = 100 rows, two blocks
+    "chunk_gqa_two_blocks": ((5, 5, 8, 2, 32, 16, 6), [(0, range(1, 5), 3)], 0, True, 0.0),
+    # 70 decode rows in one group, more than a block's 64
+    "large_group": ((70, 1, 2, 2, 32, 4, 8), [(3, [b for b in range(70) if b != 3], 5)], 0, True, 0.0),
+    "window_softcap": ((4, 2, 4, 2, 64, 8, 12), [(2, (0, 3), 6)], 24, False, 30.0),
+    "identity": ((3, 1, 4, 2, 64, 16, 4), [], 0, True, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PREFIX_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefix_paged_attention_kernel(name, dtype):
+    """Against its plain version at the stated tolerance, and bit for bit
+    against the paged kernel on the rows' own tables, pages included."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefix_paged_attention as ppa
+    from repro_torch.kernels._build import LAUNCH_COUNTS
+
+    dev = _card()
+    shape, groups, window, is_global, softcap = PREFIX_CASES[name]
+    q, kp, vp, tables, kn, vn, pos, reps, nsh = _prefix_inputs(
+        np.random.default_rng(4), *shape, groups, dtype, dev
+    )
+    kw = dict(scale=shape[4] ** -0.5, softcap=softcap, window=window)
+    pages = {k: (kp.clone(), vp.clone()) for k in ("kernel", "paged", "plain")}
+    n0 = LAUNCH_COUNTS["prefix_paged_attention"]
+    out, kp_o, _ = ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, pos, reps, nsh, is_global, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["prefix_paged_attention"] == n0 + 1 and kp_o is pages["kernel"][0]
+    own, _, _ = pa.paged_attention(q, *pages["paged"], tables, kn, vn, pos, is_global, **kw)
+    want, _, _ = ppa.prefix_paged_attention_plain(q, *pages["plain"], tables, kn, vn, pos, reps, nsh, is_global, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, own)
+    tol = _tol(out.dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    for i in (0, 1):
+        assert torch.equal(pages["kernel"][i][1:], pages["paged"][i][1:])
+        assert torch.equal(pages["kernel"][i][1:], pages["plain"][i][1:])
+
+
+def test_engine_prefix_cache_on_the_card():
+    """Reduced DeepSeekMoE-16B in float32 on the hopper backend, the scenario
+    of tests/test_prefix_cache.py:326: the prefix cache on gives the tokens of
+    the cache off, forks the shared tail twice and decodes through the
+    prefix kernel; no ref op runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine, Request
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), dtype="float32", capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompt = list(range(1, 21)) + [40, 41]
+    outs = {}
+    for pc in (False, True):
+        eng = InferenceEngine(cfg, params, max_batch=3, prefill_chunk=8, kv_block_size=8, kv_blocks=9, prefix_cache=pc)
+        eng.scheduler.bucket = 16
+        for g in (6, 4, 4):
+            eng.submit(Request(prompt=prompt, max_new_tokens=g))
+        ops.reset_counts()
+        outs[pc] = [c.tokens for c in eng.serve_continuous()]
+        assert not any(k.split(".")[1].startswith("ref") for k in ops.DISPATCH_COUNTS)
+        assert ops.DISPATCH_COUNTS["decode.hopper_prefix" if pc else "decode.hopper"] > 0
+        assert (ops.LAUNCH_COUNTS["prefix_paged_attention"] > 0) == pc
+        if pc:
+            assert eng.stats.cow_copies == 2 and eng.stats.prefix_hit_blocks == 8
+            assert eng.stats.prefix_grouped_steps > 0
+    assert outs[True] == outs[False]
+    assert [len(t) for t in outs[True]] == [6, 4, 4]

@@ -137,7 +137,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 17
+    assert len(files) >= 25
     bad = [
         (f.relative_to(ROOT).as_posix(), m)
         for f in files

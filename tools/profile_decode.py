@@ -14,6 +14,13 @@ batch) and then reports, as JSON lines:
   device idle share of the traced wall time, and the launches per step;
 - ``top``: the operations with the most device time and the most host time.
 
+With ``--continuous`` it profiles ``chip_smoke.py``'s continuous traffic
+instead: 16 requests of 256 tokens sharing a 192-token system prompt through
+``InferenceEngine(max_batch=8, kv_block_size=16, prefix_cache=True)
+.serve_continuous()``. It reports ``timing`` (one
+unprofiled run: wall s, decode steps, prefill chunks), ``profile`` (one traced
+run: device busy s, idle share, device events) and ``top``.
+
 The profiler adds host overhead of its own, so the idle share it shows is
 an upper bound; ``timing`` is the undisturbed wall clock.
 """
@@ -39,6 +46,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="decode steps traced")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--continuous", action="store_true", help="profile the continuous traffic instead")
     args = ap.parse_args()
 
     import numpy as np
@@ -54,6 +62,9 @@ def main() -> int:
     cfg = get_config("deepseek-moe-16b")
     dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if args.continuous:
+        profile_continuous(cfg, params)
+        return 0
     B, S, new = 4, 128, 16
     toks = torch.from_numpy(np.random.default_rng(args.seed).integers(1, cfg.vocab_size, (B, S))).to(dev)
 
@@ -88,25 +99,70 @@ def main() -> int:
                 fn()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            device_events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-            busy = sum(e.device_time_total for e in device_events) / 1e3
-            emit({
-                "phase": "profile", "what": name, "calls": n, "wall_ms_per_call": wall / n,
-                "device_busy_ms_per_call": busy / n, "device_idle_share": 1 - busy / wall if wall else None,
-                "device_events_per_call": len(device_events) / n,
-            })
-            avg = prof.key_averages()
-            by_dev = sorted(avg, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-            by_cpu = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-            emit({
-                "phase": "top", "what": name,
-                "device_ms_per_call": [[e.key[:60], e.self_device_time_total / 1e3 / n, e.count / n] for e in by_dev],
-                "host_ms_per_call": [[e.key[:60], e.self_cpu_time_total / 1e3 / n, e.count / n] for e in by_cpu],
-            })
+            report(prof, name, wall, n)
+    print_card()
+    return 0
+
+
+def print_card() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    return 0
+
+
+def report(prof, what: str, wall_ms: float, calls: int, **extra) -> None:
+    """The ``profile`` and ``top`` lines of one traced window."""
+    device_events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in device_events) / 1e3
+    emit({
+        "phase": "profile", "what": what, "calls": calls, "wall_ms_per_call": wall_ms / calls,
+        "device_busy_ms_per_call": busy / calls, "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
+        "device_events_per_call": len(device_events) / calls, **extra,
+    })
+    avg = prof.key_averages()
+    by_dev = sorted(avg, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    by_cpu = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    emit({
+        "phase": "top", "what": what,
+        "device_ms_per_call": [[e.key[:60], e.self_device_time_total / 1e3 / calls, e.count / calls] for e in by_dev],
+        "host_ms_per_call": [[e.key[:60], e.self_cpu_time_total / 1e3 / calls, e.count / calls] for e in by_cpu],
+    })
+
+
+def profile_continuous(cfg, params) -> None:
+    """One unprofiled and one traced ``serve_continuous`` of the chip smoke
+    test's continuous traffic with the prefix cache on; the traced window is
+    the whole run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import CONT_BLOCK, CONT_MAX_BATCH, cont_requests
+    from repro_torch.serving import InferenceEngine, Request
+
+    def serve():
+        eng = InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK,
+                              prefix_cache=True)
+        for p, g in cont_requests(cfg):
+            eng.submit(Request(prompt=p, max_new_tokens=g))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve_continuous()
+        torch.cuda.synchronize()
+        return eng, (time.perf_counter() - t0) * 1e3
+
+    what = "continuous_prefix"
+    with torch.inference_mode():
+        serve()  # warm-up
+        eng, wall = serve()
+        st = eng.stats
+        emit({"phase": "timing", "what": what, "wall_ms": wall, "decode_steps": st.decode_steps,
+              "prefill_chunks": st.prefill_chunks, "fused_steps": st.fused_steps,
+              "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps})
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng, wall = serve()
+    report(prof, what, wall, 1, decode_steps=eng.stats.decode_steps, prefill_chunks=eng.stats.prefill_chunks)
+    print_card()
 
 
 if __name__ == "__main__":
