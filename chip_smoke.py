@@ -19,6 +19,20 @@ printing one JSON line:
              16 requests whose 256-token prompts share a 192-token system
              prompt, served with the prefix cache off, then on; the tokens
              must be equal and the launch counts exact
+6. resident - the same model from resident INT4 experts through
+             ``HAPSession(cfg, "h100", 1, source=fixed_plan("TP1", "TP2",
+             "EP2", mechanism="int4_upload")).engine(params, max_batch=4,
+             resident_int4=True, use_int4_transition=True)``: the serve
+             phase's 8 requests through ``run()`` with async transitions on,
+             then off (equal tokens; one int4_dequant launch per expert
+             matmul); then the dense params' expert leaves are overwritten
+             in place with the dequantized backup and a dense engine must
+             give the resident tokens; then the continuous traffic with the
+             prefix cache on, resident against dense round-trip
+7. transitions - 4 layers at full width, dense expert leaves, the same
+             pinned plan with ``use_int4_transition=True``: async and sync
+             tokens equal, restored leaves bit-equal to the numpy dequant
+             of the same backup, the restores' int4_dequant launches counted
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``.
@@ -41,6 +55,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # float32 outside the tensor cores
 
 SEED = 0
 N_REQUESTS = 8
@@ -92,8 +107,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -232,9 +247,48 @@ def phase_kernels(cfg) -> list:
         "name": "grouped_matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul.py:45", **main, "library": "torch.bmm", "also": also,
     })
+    rows.append(int4_row(cfg, rng, dev))
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "rows": rows})
     return rows
+
+
+def int4_row(cfg, rng, dev) -> dict:
+    """The dequant kernel at the main path's shape, one layer's expert leaf
+    in 128-wide groups, into bf16 (the serving type) and into float32; each
+    bit-equal to the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import int4_dequant as dq
+
+    gs = 128
+    G = cfg.n_routed_experts * cfg.d_model * cfg.moe_d_ff // gs
+    packed = torch.from_numpy(rng.integers(0, 256, (G, gs // 2), dtype=np.uint8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(1e-3, 0.1, (G, 1)).astype(np.float32)).to(dev)
+    zeros = torch.from_numpy(rng.uniform(-1.0, 1.0, (G, 1)).astype(np.float32)).to(dev)
+    out_rows = []
+    for dt, nb in ((torch.bfloat16, 2), (torch.float32, 4)):
+        out = dq.int4_dequant(packed, scales, zeros, out_dtype=dt)
+        torch.cuda.synchronize()
+        want = dq.int4_dequant_plain(packed, scales, zeros, dt)
+        if not torch.equal(out, want):
+            raise AssertionError(f"int4_dequant ({dt}): not bit-equal to its plain version")
+        acc = compare(out, want, 0.0, 0.0, f"int4_dequant ({dt})")
+        del out, want
+        # packed bytes, scales and zeros read once, the output written once;
+        # a multiply and an add per output element, in float32
+        b_ms, b_by = bound(G * gs // 2 + 8 * G + nb * G * gs, 2 * G * gs, FP32_FLOPS)
+        out_rows.append({
+            "shape": f"G={G} gs={gs} -> {str(dt).split('.')[1]}", **acc, "bit_equal": True,
+            "ms": cuda_ms(lambda: dq.int4_dequant(packed, scales, zeros, out_dtype=dt), 20),
+            "plain_ms": cuda_ms(lambda: dq.int4_dequant_plain(packed, scales, zeros, dt), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    return {
+        "name": "int4_dequant", "route": "cuda", "source": "src/repro_torch/kernels/csrc/int4_dequant.cu",
+        "replaces": "src/repro/kernels/int4_dequant.py:39", **out_rows[0], "library": None, "also": out_rows[1:],
+    }
 
 
 def _pages(rng, n, bs, cfg, dev):
@@ -515,6 +569,225 @@ def phase_continuous(cfg, params) -> dict:
     return runs[True][0]
 
 
+RESIDENT_PLAN = ("TP1", "TP2", "EP2")  # switching; both layouts are the identity on one card
+TRANSITION_LAYERS = 4  # dense INT4 transitions: the async barrier holds a second set of dense leaves
+CHECK_STRIDE = 7  # restored groups held against the numpy dequant: every 7th, over every layer
+
+
+def _session(cfg):
+    """The pinned switching INT4 plan; the 64-token prompt bucket gives the
+    serve phase's shapes (prompts of 100-128 tokens pad to 128)."""
+    from repro_torch.core import HAPSession, fixed_plan
+
+    return HAPSession(cfg, "h100", 1, source=fixed_plan(*RESIDENT_PLAN, mechanism="int4_upload"), prompt_bucket=64)
+
+
+def _serve_static(eng, cfg, name: str) -> dict:
+    """``run()`` the serve phase's requests; the launch and dispatch counts
+    and the transition accounting of that run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+
+    for p in prompts(cfg):
+        eng.submit(Request(prompt=p, max_new_tokens=MAX_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    comps = eng.run()
+    wall = time.perf_counter() - t0
+    launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    if len(comps) != N_REQUESTS or any(len(c.tokens) != MAX_NEW for c in comps):
+        raise AssertionError(f"{name}: expected {N_REQUESTS} completions of {MAX_NEW} tokens")
+    if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
+        raise AssertionError(f"{name}: a token outside the vocabulary")
+    refs = ref_ops(dispatch)
+    if refs:
+        raise AssertionError(f"{name}: ref ops ran on the main path: {refs}")
+    if st.restore_errors or st.background_errors:
+        raise AssertionError(f"{name}: a background restore failed: {dataclasses.asdict(st)}")
+    per_batch = comps[::MAX_BATCH]
+    steps = MAX_NEW - 1
+    return {
+        "layers": cfg.num_layers, "requests": len(comps), "batches": st.batches, "wall_s": wall,
+        "prefill_ms": [c.prefill_ms for c in per_batch], "decode_ms_per_step": [c.decode_ms / steps for c in per_batch],
+        "transition_ms": [c.transition_ms for c in per_batch], "transition_ms_total": st.transition_ms_total,
+        "restore_wait_ms": st.restore_wait_ms, "restore_overlap_ms": st.restore_overlap_ms,
+        "async_restores": st.async_restores, "resident_bytes_saved": st.resident_bytes_saved,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "dispatch": dispatch,
+        "tokens": [c.tokens for c in comps],
+    }
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _round_trip_in_place(params, backups) -> None:
+    """Overwrite the dense expert leaves with the dequantized INT4 backup,
+    layer by layer on the card (the bf16 values resident serving computes)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    moe = params["layers"]["moe"]
+    for name in ("wi_gate", "wi_up", "wo"):
+        qt = backups[f"moe/{name}"]
+        for layer in range(qt.packed.shape[0]):
+            w = ops.int4_dequant(*(t[layer].to(moe[name].device).reshape(-1, t.shape[-1]) for t in (qt.packed, qt.scales, qt.zeros)),
+                                 out_dtype=moe[name].dtype)
+            moe[name][layer].copy_(w.view(moe[name][layer].shape))
+    torch.cuda.synchronize()
+
+
+def phase_resident(cfg, params) -> dict:
+    """Resident INT4 at full width and depth through a HAPSession."""
+    from repro_torch.serving import InferenceEngine
+
+    L = cfg.num_layers
+    batches, steps = math.ceil(N_REQUESTS / MAX_BATCH), MAX_NEW - 1
+    gmm = batches * (1 + steps) * 3 * L  # 84 per forward pass
+    expect = {"flash_attention": batches * L, "paged_attention": batches * steps * L,
+              "grouped_matmul": gmm, "int4_dequant": gmm}
+    runs = {}
+    backups = None
+    for asy in (True, False):
+        t0 = time.perf_counter()
+        eng = _session(cfg).engine(params, max_batch=MAX_BATCH, resident_int4=True, use_int4_transition=True,
+                                   async_transitions=asy)
+        setup_s = time.perf_counter() - t0  # quantize on the card, pinned host backups, upload
+        res = _serve_static(eng, cfg, f"resident (async={asy})")
+        res["engine_setup_s"] = setup_s
+        if res["launches"] != expect:
+            raise AssertionError(f"resident (async={asy}): launches {res['launches']}, expected {expect}")
+        if asy and res["async_restores"] != batches:
+            raise AssertionError(f"resident: {res['async_restores']} async restores, expected {batches}")
+        emit({"phase": "resident", "run": "static", "async_transitions": asy, "model": cfg.name,
+              **{k: v for k, v in res.items() if k != "tokens"}})
+        runs[asy] = res
+        if asy:
+            backups = eng._tx._backups
+        eng.close()
+        del eng
+        _free()
+    if runs[True]["tokens"] != runs[False]["tokens"]:
+        raise AssertionError("resident: async-transition tokens differ from the sync ones")
+
+    # the dense weights the resident leaves stand for, bit for bit
+    _round_trip_in_place(params, backups)
+    del backups
+    dense = _serve_static(InferenceEngine(cfg, params, max_batch=MAX_BATCH), cfg, "resident (dense round trip)")
+    if dense["tokens"] != runs[True]["tokens"]:
+        raise AssertionError("resident: the dense engine on the round-tripped weights gives other tokens")
+    emit({"phase": "resident", "run": "dense_round_trip", **{k: v for k, v in dense.items() if k != "tokens"}})
+
+    cont = {}
+    for resident in (True, False):
+        eng = (_session(cfg).engine(params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=True,
+                                    resident_int4=True, use_int4_transition=True)
+               if resident else
+               InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=True))
+        res, toks = _serve_continuous(eng, cfg, f"resident continuous (resident={resident})")
+        if resident and res["launches"]["int4_dequant"] != res["launches"]["grouped_matmul"]:
+            raise AssertionError(f"resident continuous: launches {res['launches']}")
+        emit({"phase": "resident", "run": "continuous", "resident_int4": resident, **res})
+        cont[resident] = (res, toks)
+        eng.close()
+        del eng
+        _free()
+    if cont[True][1] != cont[False][1]:
+        raise AssertionError("resident continuous: tokens differ from the dense round-trip engine's")
+    return runs[True]
+
+
+def _serve_continuous(eng, cfg, name: str):
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+
+    reqs = cont_requests(cfg)
+    for p, g in reqs:
+        eng.submit(Request(prompt=p, max_new_tokens=g))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    comps = eng.serve_continuous()
+    wall = time.perf_counter() - t0
+    launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
+        raise AssertionError(f"{name}: a request did not get its budget")
+    refs = ref_ops(dispatch)
+    if refs:
+        raise AssertionError(f"{name}: ref ops ran on the main path: {refs}")
+    tokens = sum(len(c.tokens) for c in comps)
+    return {
+        "wall_s": wall, "tokens_per_s": tokens / wall, "decode_steps": st.decode_steps,
+        "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps, "prefill_chunks": st.prefill_chunks,
+        "transition_ms_total": st.transition_ms_total, "resident_bytes_saved": st.resident_bytes_saved,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
+    }, [c.tokens for c in comps]
+
+
+def _first_layers(tree, n: int):
+    return {k: _first_layers(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+
+
+def phase_transitions(cfg, params) -> dict:
+    """Dense INT4 transitions at full width and TRANSITION_LAYERS layers."""
+    import torch
+
+    from repro_torch.core import quantization as q
+
+    cfg4 = dataclasses.replace(cfg, num_layers=TRANSITION_LAYERS)
+    params4 = dict(params, layers=_first_layers(params["layers"], TRANSITION_LAYERS))
+    batches = math.ceil(N_REQUESTS / MAX_BATCH)
+    restores = 2 * batches - 1  # into the decode layout each batch, back to prefill between batches
+    runs, restored = {}, {}
+    for asy in (True, False):
+        eng = _session(cfg4).engine(params4, max_batch=MAX_BATCH, use_int4_transition=True, async_transitions=asy)
+        res = _serve_static(eng, cfg4, f"transitions (async={asy})")
+        if res["launches"].get("int4_dequant") != 3 * restores:
+            raise AssertionError(f"transitions (async={asy}): {res['launches']}, expected {3 * restores} int4_dequant")
+        leaves = {n: eng.params["layers"]["moe"][n] for n in ("wi_gate", "wi_up", "wo")}  # decode layout
+        checked = 0
+        if asy:
+            # every CHECK_STRIDE-th group of each leaf, across all its layers,
+            # against the numpy dequant of the same backup groups cast to
+            # bf16 on the host (a full numpy pass costs ~2 s per layer leaf)
+            for name, got in leaves.items():
+                qt = eng._tx._backups[f"moe/{name}"]
+                pick = slice(None, None, CHECK_STRIDE)
+                packed, scales, zeros = (t[pick].contiguous().numpy() for t in (qt.packed, qt.scales, qt.zeros))
+                host = q.dequantize_int4(q.QuantizedTensor(packed=packed, scales=scales, zeros=zeros,
+                                                           shape=(len(packed), qt.group_size), group_size=qt.group_size))
+                if not torch.equal(got.view(-1, qt.group_size)[pick].cpu(), torch.from_numpy(host).to(got.dtype)):
+                    raise AssertionError(f"transitions: restored {name} differs from the numpy dequant")
+                checked += len(packed)
+            restored = leaves
+        elif not all(torch.equal(leaves[n], restored[n]) for n in leaves):
+            raise AssertionError("transitions: the sync restore's leaves differ from the async restore's")
+        emit({"phase": "transitions", "async_transitions": asy, "model": cfg.name,
+              "reduced": {"num_layers": TRANSITION_LAYERS}, "groups_checked_against_numpy": checked,
+              **{k: v for k, v in res.items() if k != "tokens"}})
+        runs[asy] = res
+        eng.close()
+        del eng, leaves
+    del restored
+    _free()
+    if runs[True]["tokens"] != runs[False]["tokens"]:
+        raise AssertionError("transitions: async tokens differ from the sync ones")
+    return runs[True]
+
+
 def main() -> int:
     import torch
 
@@ -531,24 +804,41 @@ def main() -> int:
         return 1
 
     cfg = get_config("deepseek-moe-16b")
-    phase_build()
-    rows = phase_kernels(cfg)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, cfg)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     torch.cuda.synchronize()
     emit({"phase": "init", "seconds": time.perf_counter() - t0,
           "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated()})
-    serve = phase_serve(cfg, params)
-    phase_agree(cfg, params, serve)
-    cont = phase_continuous(cfg, params)
+    serve = timed("serve", phase_serve, cfg, params)
+    timed("agree", phase_agree, cfg, params, serve)
+    cont = timed("continuous", phase_continuous, cfg, params)
+    # the resident phase overwrites the expert leaves with their INT4 round trip
+    resident = timed("resident", phase_resident, cfg, params)
+    trans = timed("transitions", phase_transitions, cfg, params)
+    emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for
         # the first slice's kernels, the prefix-cache continuous run for the
-        # prefix kernel; each row also carries the continuous run's count
+        # prefix kernel, the resident async run for the dequant; each row
+        # also carries the other paths' counts
         r["launches"] = serve["launches"].get(r["name"], 0)
         r["launches_continuous"] = cont["launches"].get(r["name"], 0)
+        r["launches_resident"] = resident["launches"].get(r["name"], 0)
+        r["launches_transitions"] = trans["launches"].get(r["name"], 0)
         if r["name"] == "prefix_paged_attention":
             r["launches"] = r["launches_continuous"]
+        if r["name"] == "int4_dequant":
+            r["launches"] = r["launches_resident"]
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -37,6 +37,7 @@ SOURCES = (
     "paged_attention.cu",
     "prefix_paged_attention.cu",
     "grouped_matmul.cu",
+    "int4_dequant.cu",
 )
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -52,10 +53,25 @@ NVCC_FLAGS = (
 
 # Kernel launches by kernel name: each wrapper adds one where it launches
 # its kernel on the card, and nowhere else (plain CPU calls do not count).
+# The async INT4 restore launches from a worker thread, so every update
+# goes through ``count_launch``.
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+
+
+def count_launch(kernel: str) -> None:
+    """Add one launch of ``kernel`` to ``LAUNCH_COUNTS`` (thread-safe)."""
+    with _count_lock:
+        LAUNCH_COUNTS[kernel] += 1
+
+
+def reset_launch_counts() -> None:
+    """Zero ``LAUNCH_COUNTS``."""
+    with _count_lock:
+        LAUNCH_COUNTS.clear()
 
 
 def build_dir() -> Path:
@@ -147,6 +163,7 @@ _SIGNATURES = {
     + [_F, _F, _P],
     "grouped_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "prefix_paged_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
+    "int4_dequant_launch": [_P, _P, _P, _P, _I, _L, _I, _P],
 }
 
 

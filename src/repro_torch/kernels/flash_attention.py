@@ -86,5 +86,5 @@ def flash_attention(
             B, Hq, Hkv, Sq, Sk, hd, *strides, int(causal), int(window), float(softcap), float(scale), stream,
         )
     _build.check(status, "flash_attention")
-    _build.LAUNCH_COUNTS["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return o

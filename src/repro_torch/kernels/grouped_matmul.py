@@ -56,5 +56,5 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
             lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), _build.dtype_code(lhs.dtype), E, C, d, f, stream
         )
     _build.check(status, "grouped_matmul")
-    _build.LAUNCH_COUNTS["grouped_matmul"] += 1
+    _build.count_launch("grouped_matmul")
     return out

@@ -17,22 +17,31 @@ nothing on the serving path does.
 ``LAUNCH_COUNTS`` counts real kernel launches by kernel name (the wrappers
 bump it where they launch). ``DISPATCH_COUNTS`` counts which branch each
 call took, ``*.hopper`` or ``*.ref``, so a run can show that no ``ref`` op
-served it.
+served it. Both are updated under a lock: the async INT4 restore
+dispatches from a worker thread.
+
+The expert matmul also takes the INT4 formats (``QuantizedWeight``, the
+flat transition wire format, and ``QuantizedExpert``, the structured
+resident format): the weight is dequantized by ``int4_dequant`` into one
+transient dense buffer, then multiplied by the grouped-matmul kernel.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import enum
 import os
-from typing import Optional, Union
+import threading
+from typing import Optional, Tuple, Union
 
 import torch
 
-from . import ref
+from . import _build, ref
 from ._build import LAUNCH_COUNTS  # noqa: F401 (re-export)
 from .flash_attention import flash_attention as _flash_hopper
 from .grouped_matmul import grouped_matmul as _gmm_hopper
+from .int4_dequant import int4_dequant as _dequant_hopper
 from .paged_attention import paged_attention as _paged_hopper
 from .prefix_paged_attention import prefix_paged_attention as _prefix_hopper
 
@@ -47,18 +56,21 @@ class KernelBackend(str, enum.Enum):
 BACKEND_ENV = "REPRO_TORCH_KERNEL_BACKEND"
 
 DISPATCH_COUNTS: collections.Counter = collections.Counter()
+_dispatch_lock = threading.Lock()
 
 BackendSpec = Union[KernelBackend, str, None]
 
 
 def record(branch: str) -> None:
-    DISPATCH_COUNTS[branch] += 1
+    with _dispatch_lock:
+        DISPATCH_COUNTS[branch] += 1
 
 
 def reset_counts() -> None:
     """Zero ``DISPATCH_COUNTS`` and ``LAUNCH_COUNTS``."""
-    DISPATCH_COUNTS.clear()
-    LAUNCH_COUNTS.clear()
+    with _dispatch_lock:
+        DISPATCH_COUNTS.clear()
+    _build.reset_launch_counts()
 
 
 def default_backend(device) -> KernelBackend:
@@ -196,10 +208,109 @@ def decode_attention(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantizedWeight:
+    """A per-group INT4 weight in the flat transition format of
+    ``repro_torch.core.quantization`` (two nibbles per uint8, low nibble
+    first, per-group float32 scale and zero). ``shape`` is the unpacked
+    (E, d, f) the matmul sees."""
+
+    packed: torch.Tensor  # (G, gs // 2) uint8
+    scales: torch.Tensor  # (G, 1) float32
+    zeros: torch.Tensor  # (G, 1) float32
+    shape: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedExpert:
+    """Resident INT4 expert weight: the same nibble packing, with the groups
+    tiling the LAST weight dim and the leading dims kept explicit:
+
+        packed (*lead, n_groups, gs // 2) uint8
+        scales (*lead, n_groups, 1) float32
+        zeros  (*lead, n_groups, 1) float32
+
+    The unpacked shape is derived from the leaves, and indexing slices the
+    leading dims of all three, so ``models.params.layer_slice`` takes one
+    layer of a stacked (L, E, d, f) leaf as it takes a dense one.
+    """
+
+    packed: torch.Tensor
+    scales: torch.Tensor
+    zeros: torch.Tensor
+
+    @property
+    def group_size(self) -> int:
+        return 2 * self.packed.shape[-1]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        lead = tuple(self.packed.shape[:-2])
+        return lead + (self.packed.shape[-2] * self.group_size,)
+
+    @property
+    def ndim(self) -> int:
+        return self.packed.ndim - 1
+
+    @property
+    def nbytes(self) -> int:
+        return self.packed.nbytes + self.scales.nbytes + self.zeros.nbytes
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def __getitem__(self, idx) -> "QuantizedExpert":
+        return QuantizedExpert(self.packed[idx], self.scales[idx], self.zeros[idx])
+
+
+def quantize_weight(w: torch.Tensor, group_size: Optional[int] = None) -> QuantizedExpert:
+    """Quantize a dense weight into a resident ``QuantizedExpert`` on its
+    own device; groups tile the last dim (``pick_group_size`` when not
+    given). Bit-equal to the reference's host quantization."""
+    from repro_torch.core.quantization import quantize_int4_lastdim_torch
+
+    qt = quantize_int4_lastdim_torch(w, group_size)
+    return QuantizedExpert(packed=qt.packed, scales=qt.scales, zeros=qt.zeros)
+
+
+def int4_dequant(packed, scales, zeros, *, out_dtype=torch.bfloat16, backend: BackendSpec = None) -> torch.Tensor:
+    """packed (G, gs/2) uint8 + scales/zeros (G, 1) float32 -> (G, gs)."""
+    if resolve_backend(backend, packed.device) is KernelBackend.HOPPER:
+        record("int4_dequant.hopper")
+        return _dequant_hopper(packed, scales, zeros, out_dtype=out_dtype)
+    record("int4_dequant.ref")
+    return ref.int4_dequant_ref(packed, scales, zeros, out_dtype=out_dtype)
+
+
+def _dequant_weight(rhs, out_dtype, backend: BackendSpec = None):
+    """Materialize a quantized rhs (a dense tensor passes through): the
+    structured leaves flatten to the (G, gs/2) slab the dequant takes, and
+    the result takes the unpacked shape."""
+    if isinstance(rhs, QuantizedExpert):
+        half = rhs.packed.shape[-1]
+        packed = rhs.packed.reshape(-1, half)
+        scales = rhs.scales.reshape(-1, 1)
+        zeros = rhs.zeros.reshape(-1, 1)
+    elif isinstance(rhs, QuantizedWeight):
+        packed, scales, zeros = rhs.packed, rhs.scales, rhs.zeros
+    else:
+        return rhs
+    w = int4_dequant(packed, scales, zeros, out_dtype=out_dtype, backend=backend)
+    return w.reshape(rhs.shape)
+
+
 def grouped_matmul(lhs, rhs, *, backend: BackendSpec = None) -> torch.Tensor:
-    """(E, C, d) x (E, d, f) -> (E, C, f), the expert-FFN seam (dense rhs)."""
+    """(E, C, d) x (E, d, f) -> (E, C, f), the expert-FFN seam.
+
+    ``rhs`` may be dense, a ``QuantizedWeight`` or a ``QuantizedExpert``;
+    a quantized one is dequantized in the lhs dtype first (on the card one
+    ``int4_dequant`` launch per call). The multi-card branches that keep
+    the rhs packed through a shard map wait for ROADMAP A.6.
+    """
+    w = _dequant_weight(rhs, lhs.dtype, backend)
     if resolve_backend(backend, lhs.device) is KernelBackend.HOPPER:
         record("gmm.hopper")
-        return _gmm_hopper(lhs, rhs)
+        return _gmm_hopper(lhs, w)
     record("gmm.ref")
-    return ref.grouped_matmul_ref(lhs, rhs)
+    return ref.grouped_matmul_ref(lhs, w)

@@ -145,5 +145,5 @@ def paged_attention(
             float(softcap), float(scale), stream,
         )
     _build.check(status, "paged_attention")
-    _build.LAUNCH_COUNTS["paged_attention"] += 1
+    _build.count_launch("paged_attention")
     return out, k_pages, v_pages

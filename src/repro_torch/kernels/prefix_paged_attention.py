@@ -101,5 +101,5 @@ def prefix_paged_attention(
             float(softcap), float(scale), stream,
         )
     _build.check(status, "prefix_paged_attention")
-    _build.LAUNCH_COUNTS["prefix_paged_attention"] += 1
+    _build.count_launch("prefix_paged_attention")
     return out, k_pages, v_pages

@@ -291,3 +291,18 @@ def append_attention_ref(
 def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """(E, C, d) x (E, d, f) -> (E, C, f), f32 accumulation, lhs dtype out."""
     return torch.bmm(lhs.float(), rhs.float()).to(lhs.dtype)
+
+
+def int4_dequant_ref(
+    packed: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, out_dtype=torch.bfloat16
+) -> torch.Tensor:
+    """Unpack + dequantize per-group INT4.
+
+    packed: (G, gs // 2) uint8, two nibbles per byte (low nibble first).
+    scales/zeros: (G, 1) float32. Output: (G, gs) = scales * q + zeros, the
+    product and the sum each rounded in float32, then cast to ``out_dtype``.
+    """
+    low = (packed & 0xF).float()
+    high = (packed >> 4).float()
+    vals = torch.stack([low, high], dim=-1).reshape(packed.shape[0], -1)
+    return (vals * scales + zeros).to(out_dtype)

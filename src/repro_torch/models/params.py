@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import QuantizedExpert
 
 Params = Dict[str, Any]
 
@@ -117,13 +119,15 @@ def _init_leaf(name: str, shape, stacked: bool, generator, device, dt) -> torch.
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, dtype=None) -> Params:
-    """Seeded random weights at the config's shapes, on ``device``.
+    """Seeded random weights at the config's shapes, on ``device`` (the
+    card when None; raises without one).
 
     ``generator`` must live on ``device``. The values differ from the JAX
     package's (torch cannot replay ``jax.random``); tests that compare the
     two frameworks bridge the JAX weights with ``params_from_numpy``.
     """
     dt = torch_dtype(dtype or cfg.dtype)
+    device = resolve_device(device)
 
     def build(tree, stacked):
         return {
@@ -144,15 +148,30 @@ def _to_tensor(leaf, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _is_quantized(leaf) -> bool:
+    """A resident INT4 leaf of either package (duck-typed: the port does not
+    import the JAX package's ``QuantizedExpert``)."""
+    return all(hasattr(leaf, a) for a in ("packed", "scales", "zeros"))
+
+
 def params_from_numpy(tree: Dict[str, Any], device=None, dtype=None) -> Params:
     """The weight bridge: a nested dict of array-likes (numpy arrays, or
     anything ``np.asarray`` takes, such as the JAX package's pytree) ->
-    the same nested dict of torch tensors on ``device``."""
+    the same nested dict of torch tensors on ``device`` (the card when
+    None; raises without one). A resident INT4 leaf (anything with
+    ``packed``, ``scales`` and ``zeros``, such as the JAX package's
+    ``QuantizedExpert``) becomes the port's ``QuantizedExpert``, its
+    uint8 and float32 leaves kept as they are; ``dtype`` casts only the
+    dense leaves."""
+    device = resolve_device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
-    return {
-        k: params_from_numpy(v, device, dtype) if isinstance(v, dict) else _to_tensor(v, device, dt)
-        for k, v in tree.items()
-    }
+
+    def leaf(v):
+        if _is_quantized(v):
+            return QuantizedExpert(*(_to_tensor(getattr(v, a), device, None) for a in ("packed", "scales", "zeros")))
+        return _to_tensor(v, device, dt)
+
+    return {k: params_from_numpy(v, device, dtype) if isinstance(v, dict) else leaf(v) for k, v in tree.items()}
 
 
 def layer_slice(tree: Dict[str, Any], layer: int) -> Dict[str, Any]:

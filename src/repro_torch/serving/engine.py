@@ -23,9 +23,24 @@ the prefix kernel, which reads each shared page once per group.
 
 Host state (positions, block tables, the prefix grouping) lives in numpy
 and goes to the card as one int32 copy each per step; the only sync of a
-step reads back the sampled tokens. The planner, the Eq.-6 transitions,
-the robustness layer and the contiguous continuous fallback come in later
-slices; their knobs raise ``NotImplementedError`` naming the ROADMAP item.
+step reads back the sampled tokens.
+
+Bound to a ``HAPSession`` (or given a pinned ``hap_plan``) the engine
+follows the plan: each static batch, and each continuous admission,
+re-buckets its workload through the session, and where the plan's expert
+layouts differ the Eq.-6 transition moves the expert weights, by the
+INT4 restore from pinned host backups (``TransitionExecutor``) when the
+mechanism is ``int4_upload``. On one device every layout is the identity,
+so a switching plan exercises the INT4 round trip alone. With
+``async_transitions`` the decode-layout restore is kicked onto a
+background worker (its own CUDA stream) when the plan is decided, and
+``transition_expert_layout`` is the barrier. ``resident_int4`` makes INT4
+the serving format: the expert leaves stay packed on the card and every
+expert matmul dequantizes its weight with ``int4_dequant`` first.
+
+Multi-card meshes, the robustness layer, expert replication and prefetch,
+and the contiguous continuous fallback come in later slices; their knobs
+raise ``NotImplementedError`` naming the ROADMAP item.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 CUDA device and no ``device`` it raises rather than fall back. The kernel
@@ -36,19 +51,29 @@ the card, ``ref`` on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.flops import Workload
+from repro_torch.core.hap import HAPPlan
+from repro_torch.core.quantization import pick_group_size
+from repro_torch.core.transition import TransitionExecutor
+from repro_torch.device import resolve_device
 from repro_torch.models import DecodeCache, decode_step, init_paged_cache, prefill
 
 from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, blocks_for
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, sample
 from .scheduler import ContinuousScheduler, QueuedRequest, round_up
+
+log = logging.getLogger("repro_torch.serving")
+
+_EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
 
 
 @dataclasses.dataclass
@@ -66,11 +91,17 @@ class Completion:
     # request's own unfused prefill chunks, and the decode steps it took
     prefill_ms: float
     decode_ms: float
+    transition_ms: float  # Eq.-6 expert moves booked to this request's batch or admission
 
 
 @dataclasses.dataclass
 class EngineStats:
     batches: int = 0  # static batches / continuous live-batch generations
+    replans: int = 0  # batches whose active plan changed (the source ran only on cache misses)
+    plan_switches: int = 0  # plan changes whose strategies differed
+    cache_hits: int = 0
+    transition_ms_total: float = 0.0
+    last_transition_ms: float = 0.0
     joins: int = 0  # continuous: requests admitted mid-stream
     decode_steps: int = 0  # continuous: decode steps executed
     prefill_chunks: int = 0  # continuous: prefill chunks processed
@@ -81,6 +112,14 @@ class EngineStats:
     cow_copies: int = 0  # shared blocks forked at first write
     raw_block_need: int = 0  # sum of unshared worst-case admission needs
     effective_block_need: int = 0  # sum of post-sharing admission charges
+    resident_bytes_saved: int = 0  # dense-minus-packed expert residency delta
+    # async INT4 restore (overlap accounting; zeros with it off):
+    async_restores: int = 0  # background restores kicked at decision time
+    restore_wait_ms: float = 0.0  # residual barrier wait (the exposed cost)
+    restore_overlap_ms: float = 0.0  # kick->barrier window hidden by prefill
+    planner_fallbacks: int = 0  # solves degraded to the static plan
+    background_errors: int = 0  # background failures, all sites
+    restore_errors: int = 0  # async restores failed or timed out
     # the port's own (the JAX engine has no such counters):
     prefix_grouped_steps: int = 0  # decode steps where a row read its shared run through another's table
     decode_step_ms_sum: float = 0.0  # host clock of the decode steps, fused ones included
@@ -97,6 +136,7 @@ class _Slot:
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False  # decode-sampled EOS seen
     prefill_ms: float = 0.0
+    transition_ms: float = 0.0
     decode_ms: float = 0.0
     pending: List[np.ndarray] = dataclasses.field(default_factory=list)
     filled: int = 0  # prompt tokens in the cache (starts past an adopted prefix)
@@ -134,18 +174,6 @@ class _LiveBatch:
         return [i for i, s in enumerate(self.slots) if s is not None and s.prefilling]
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, or CUDA when it is None; never a silent CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: repro_torch runs on the card by default; "
-                'pass device="cpu" to run on the CPU'
-            )
-        device = "cuda"
-    return torch.device(device)
-
-
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
@@ -156,7 +184,10 @@ class InferenceEngine:
         cfg: ModelConfig,
         params,
         *,
+        session=None,
+        hap_plan: Optional[HAPPlan] = None,
         max_batch: int = 8,
+        use_int4_transition: Optional[bool] = None,
         eos_id: int = -1,
         paged: Optional[bool] = None,
         kv_block_size: int = 16,
@@ -164,15 +195,18 @@ class InferenceEngine:
         prefill_chunk: Optional[int] = None,
         prefix_cache: bool = False,
         kernel_backend: Optional[str] = None,
+        resident_int4: bool = False,
+        int4_group_size: Optional[int] = None,
+        async_transitions: bool = True,
+        restore_timeout_s: float = 30.0,
         device=None,
-        session=None,
         kv_overcommit: Optional[float] = None,
         faults=None,
         replicate_experts: int = 0,
         prefetch: bool = False,
     ):
-        if session is not None:
-            raise _not_ported("the HAPSession planner, re-planning and transitions", "A.5")
+        if session is not None and session.mesh is not None:
+            raise _not_ported("serving a HAPSession plan over a multi-card mesh", "A.6")
         if kv_overcommit is not None or faults is not None:
             raise _not_ported("kv_overcommit, preemption and fault injection (DESIGN.md §4f)", "A.8")
         if replicate_experts or prefetch:
@@ -180,9 +214,12 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
+        self.session = session  # HAPSession (adaptive mode) or None
+        self.hap_plan = hap_plan  # active HAPPlan (pinned, or per-batch)
         self.eos_id = eos_id
         self.kernel_backend = kernel_backend
-        self.scheduler = ContinuousScheduler(max_batch=max_batch, bucket=64)
+        bucket = session.prompt_bucket if session is not None else 64
+        self.scheduler = ContinuousScheduler(max_batch=max_batch, bucket=bucket, coalesce_buckets=session is not None)
         self.stats = EngineStats()
         if paged and not (cfg.has_attention and not cfg.has_mamba):
             raise ValueError("paged KV serving requires an attention-only model")
@@ -198,6 +235,244 @@ class InferenceEngine:
         self.prefix_caching = bool(prefix_cache)
         self._live: Optional[_LiveBatch] = None
         self.kv_pool_blocks = 0  # the newest generation's pool, trash block excluded
+        # False until a batch has executed under hap_plan: a pre-seeded plan
+        # counts as the *initial* plan, not as a previous batch's layout
+        self._plan_ran = False
+        self.use_int4_transition = use_int4_transition
+        self._tx = TransitionExecutor(self.device)
+        # async INT4 restore: kicked onto the executor's worker (and its own
+        # CUDA stream) when the plan is decided, so it overlaps the batch's
+        # prefill; transition_expert_layout() is the barrier
+        self.async_transitions = bool(async_transitions)
+        self.restore_timeout_s = float(restore_timeout_s)
+        self._pending_restore: Optional[tuple] = None
+        self.resident_int4 = bool(resident_int4)
+        self.int4_group_size = int4_group_size
+        if self.resident_int4 and not cfg.is_moe:
+            raise ValueError("resident_int4 requires an MoE config")
+        if self.resident_int4 and self._expert_leaves():
+            # the structured backups double as the transition backups (the
+            # reference first makes flat ones, which these then replace)
+            self._make_experts_resident()
+        elif use_int4_transition and cfg.is_moe:
+            self._backup_experts()
+
+    # -- transition machinery ---------------------------------------------
+    def _expert_leaves(self) -> Dict[str, Any]:
+        moe = self.params["layers"].get("moe")
+        if moe is None:
+            return {}
+        return {k: moe[k] for k in _EXPERT_LEAVES}
+
+    def _set_expert_leaves(self, leaves: Dict[str, Any]) -> None:
+        """Install new expert leaves in a shallow copy of the params tree
+        (the caller's dict is left as it was)."""
+        moe = dict(self.params["layers"]["moe"], **leaves)
+        self.params = dict(self.params, layers=dict(self.params["layers"], moe=moe))
+
+    def _backup_experts(self) -> None:
+        for name, w in self._expert_leaves().items():
+            self._tx.backup(f"moe/{name}", w)
+
+    def _make_experts_resident(self) -> None:
+        """Flip the expert FFN leaves to resident ``QuantizedExpert``s: the
+        dense weights are quantized once into structured host backups (which
+        the transitions re-upload), the packed leaves replace the dense ones
+        on the device, and every expert matmul dequantizes its weight."""
+        saved = 0
+        leaves = {}
+        for name, w in self._expert_leaves().items():
+            key = f"moe/{name}"
+            gs = pick_group_size(int(w.shape[-1]), self.int4_group_size or 128)
+            self._tx.backup_packed(key, w, gs)
+            leaves[name] = self._tx.restore_packed(key)
+            saved += w.nbytes - leaves[name].nbytes
+        self._set_expert_leaves(leaves)
+        self.stats.resident_bytes_saved = int(saved)
+        log.info("resident INT4 experts: %.2f MiB dense -> packed residency freed", saved / 2**20)
+
+    def _restore_leaf(self, name: str, dtype=None):
+        """One expert leaf from its INT4 backup: packed under residency,
+        else dequantized into ``dtype``."""
+        key = f"moe/{name}"
+        if self.resident_int4:
+            return self._tx.restore_packed(key)
+        return self._tx.restore(key, dtype=dtype)
+
+    def _relayout_experts(self, mechanism: str) -> float:
+        """Move the expert weights to a new layout; returns ms. ``reshard``
+        is the identity on one device; ``int4_upload`` restores the INT4
+        backups (resident leaves stay packed through it)."""
+        if not self.cfg.is_moe or not self._expert_leaves():
+            return 0.0
+        # a sync relayout supersedes an in-flight background restore: drain
+        # it (never install) so leaves cannot tear across layouts
+        self._drop_pending_restore()
+        t0 = time.perf_counter()
+        if mechanism == "int4_upload":
+            leaves = {}
+            for name, w in self._expert_leaves().items():
+                if not self.resident_int4 and f"moe/{name}" not in self._tx._backups:
+                    self._tx.backup(f"moe/{name}", w)
+                leaves[name] = self._restore_leaf(name, dtype=None if self.resident_int4 else w.dtype)
+            self._set_expert_leaves(leaves)
+            self._sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def _plan_mechanism(self) -> str:
+        """INT4 vs reshard for the active plan's phase switch.
+        ``use_int4_transition`` None follows the plan's Eq.-6 choice;
+        True/False force the mechanism (False: no lossy INT4 round trip)."""
+        if self.use_int4_transition is None:
+            return "int4_upload" if self.hap_plan.mechanism == "int4_upload" else "reshard"
+        return "int4_upload" if self.use_int4_transition else "reshard"
+
+    # -- async INT4 restore (overlap with prefill) ------------------------
+    def _drop_pending_restore(self) -> None:
+        """Drain an in-flight background restore without installing it; a
+        future that failed or stalls past the watchdog is counted and
+        abandoned."""
+        if self._pending_restore is None:
+            return
+        _, futures, _ = self._pending_restore
+        self._pending_restore = None
+        for f in futures.values():
+            try:
+                f.result(timeout=self.restore_timeout_s)
+            except Exception:
+                log.exception("dropped background restore failed")
+                self.stats.restore_errors += 1
+                self.stats.background_errors += 1
+
+    def _begin_async_restore(self, phase: str = "decode") -> None:
+        """Kick the INT4 expert restore for ``phase`` onto the background
+        worker when the active plan switches expert layouts by
+        ``int4_upload``; ``transition_expert_layout`` joins it."""
+        if not self.async_transitions:
+            return
+        if self.hap_plan is None or not self.hap_plan.switches:
+            return
+        if self._plan_mechanism() != "int4_upload":
+            return
+        if not self.cfg.is_moe or not self._expert_leaves():
+            return
+        if self._pending_restore is not None:
+            if self._pending_restore[0] == phase:
+                return  # the right restore is already in flight
+            self._drop_pending_restore()
+        futures = {}
+        for name, w in self._expert_leaves().items():
+            if not self.resident_int4 and f"moe/{name}" not in self._tx._backups:
+                self._tx.backup(f"moe/{name}", w)
+            futures[name] = self._tx.submit(self._restore_leaf, name, None if self.resident_int4 else w.dtype)
+        self._pending_restore = (phase, futures, time.perf_counter())
+        self.stats.async_restores += 1
+
+    def _join_async_restore(self, phase: str) -> Optional[float]:
+        """Completion barrier for a kicked restore: wait out the futures
+        (bounded by the watchdog), install every leaf at once behind the
+        side stream's event, and return the exposed wait in ms. None when
+        nothing usable is pending: a failure or timeout (counted), or a
+        restore for another phase; the caller then relayouts in sync."""
+        pending = self._pending_restore
+        if pending is None:
+            return None
+        self._pending_restore = None
+        p_phase, futures, t_kick = pending
+        t0 = time.perf_counter()
+        try:
+            deadline = t0 + self.restore_timeout_s
+            results = {n: f.result(timeout=max(deadline - time.perf_counter(), 0.0)) for n, f in futures.items()}
+        except Exception:
+            log.exception("async restore failed/timed out at the barrier; falling back to the sync relayout")
+            self.stats.restore_errors += 1
+            self.stats.background_errors += 1
+            return None
+        if p_phase != phase:
+            log.info("async restore discarded: target layout changed in flight")
+            return None
+        self._set_expert_leaves({n: r.install() for n, r in results.items()})
+        for r in results.values():
+            if r.event is not None:
+                r.event.synchronize()  # the wait the decode would otherwise absorb
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        self.stats.restore_wait_ms += wait_ms
+        self.stats.restore_overlap_ms += (t0 - t_kick) * 1e3
+        return wait_ms
+
+    def transition_expert_layout(self) -> float:
+        """Execute the prefill->decode expert-layout switch; returns ms. The
+        barrier of an async restore in flight (the residual wait), else a
+        sync relayout."""
+        if self.hap_plan is None or not self.hap_plan.switches:
+            return 0.0
+        ms = self._join_async_restore("decode")
+        if ms is not None:
+            return ms
+        return self._relayout_experts(self._plan_mechanism())
+
+    def _restore_prefill_layout(self) -> float:
+        """Undo the previous batch's prefill->decode switch so a reused
+        switching plan prefills under its prefill layout again; returns ms."""
+        if self.hap_plan is None or not self.hap_plan.switches:
+            return 0.0
+        return self._relayout_experts(self._plan_mechanism())
+
+    # -- adaptive re-planning ---------------------------------------------
+    def _activate_plan(self, batch_workload: Workload, phase: str = "prefill") -> float:
+        """Fetch/reuse the bucketed plan for this batch; run the Eq.-6
+        inter-batch transition when the active plan changes. Returns ms.
+
+        ``phase`` is the layout the caller is about to serve under: static
+        batches enter through their prefill layout, the paged continuous
+        path straight into the decode layout (fused chunk+decode steps run
+        there), so a reused plan whose experts sit in the decode layout
+        moves nothing."""
+        hits0 = self.session.hits
+        fb0 = self.session.fallbacks
+        new = self.session.plan_for(batch_workload)
+        self.stats.cache_hits += self.session.hits - hits0
+        self.stats.planner_fallbacks += self.session.fallbacks - fb0
+        old = self.hap_plan
+        bucket = self.session.bucket_of(batch_workload).describe()
+        if old is None or not self._plan_ran:
+            self.hap_plan = new
+            log.info("initial plan [%s]: %s", bucket, new.describe())
+            return self.transition_expert_layout() if phase == "decode" else 0.0
+        if new is old:
+            # a switching plan left the experts in the decode layout after
+            # the previous batch: a prefill-phase entry restores its layout
+            return self._restore_prefill_layout() if phase == "prefill" else 0.0
+        self.hap_plan = new
+        self.stats.replans += 1
+        if (new.attn, new.expert_prefill, new.expert_decode) == (old.attn, old.expert_prefill, old.expert_decode):
+            log.info("re-planned [%s]: strategies unchanged (%s)", bucket, new.describe())
+            return self._restore_prefill_layout() if phase == "prefill" else 0.0
+        mech, predicted = self.session.transition_between(old, new, batch_workload)
+        ms = 0.0
+        if mech != "none":
+            ms = self._relayout_experts(mech)
+        elif phase == "decode" and new.switches:
+            # Eq. 6 judged old-decode -> new-prefill free, but a decode-phase
+            # entry must land in the new plan's decode layout
+            ms = self.transition_expert_layout()
+        self.stats.plan_switches += 1
+        log.info(
+            "plan switch [%s]: %s -> %s via %s (%.1f ms, predicted %.1f ms)",
+            bucket, old.describe(), new.describe(), mech, ms, predicted * 1e3,
+        )
+        return ms
+
+    def _book_transition(self, ms: float) -> float:
+        self.stats.transition_ms_total += ms
+        self.stats.last_transition_ms = ms
+        return ms
+
+    def close(self) -> None:
+        """Drain an in-flight background restore and stop the executor's
+        worker thread."""
+        self._drop_pending_restore()
+        self._tx.close()
 
     def submit(self, req: Request) -> int:
         if req.deadline_ms is not None:
@@ -208,8 +483,11 @@ class InferenceEngine:
         raise _not_ported("request cancellation (DESIGN.md §4f)", "A.8")
 
     def _sync(self) -> None:
+        """Wait for the serving stream (the timers' end point). Not the whole
+        device: a background restore on the executor's stream must not be
+        booked to the prefill it overlaps."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _generator(self, sampling: SamplingParams) -> Optional[torch.Generator]:
         """One explicit generator per serving call (temperature > 0 only)."""
@@ -239,12 +517,20 @@ class InferenceEngine:
         gen = self._generator(sampling)
 
         with torch.inference_mode():
+            inter_ms = 0.0
+            if self.session is not None:
+                inter_ms = self._activate_plan(Workload(batch=B, prompt=S, gen=max_new))
+            self._plan_ran = True
+            # plan decided: kick the decode-layout INT4 restore onto the
+            # background worker so it overlaps this batch's prefill
+            self._begin_async_restore("decode")
             self._sync()
             t0 = time.perf_counter()
             tokens = torch.as_tensor(toks, dtype=torch.long).to(self.device)
             logits, cache = prefill(self.params, self.cfg, {"tokens": tokens}, max_len, backend=be)
             self._sync()
             prefill_ms = (time.perf_counter() - t0) * 1e3
+            transition_ms = self._book_transition(inter_ms + self.transition_expert_layout())
 
             generated = np.zeros((B, max_new), np.int32)
             t1 = time.perf_counter()
@@ -268,7 +554,7 @@ class InferenceEngine:
         for i, r in enumerate(batch):
             n = min(r.max_new_tokens, max_new)
             toks_out = [int(t) for t in generated[i, :n] if t != self.eos_id or self.eos_id < 0]
-            comps.append(Completion(r.uid, toks_out, prefill_ms, decode_ms))
+            comps.append(Completion(r.uid, toks_out, prefill_ms, decode_ms, transition_ms))
         return comps
 
     # -- continuous batching --------------------------------------------------
@@ -376,6 +662,33 @@ class InferenceEngine:
         live.pos[i] = skip
         live.next_tok[i] = 0
         self.stats.joins += 1
+        # decode-phase activation: a switching plan serves fused chunk+decode
+        # steps under its decode layout, and a reused plan's experts are
+        # already there
+        first = not self._plan_ran
+        slot.transition_ms = self._replan_on_join(phase="decode")
+        if self.session is None and first:
+            # sessionless engine with a pinned switching plan: enter the
+            # decode layout once, at the first admission
+            slot.transition_ms += self.transition_expert_layout()
+        self._book_transition(slot.transition_ms)
+
+    def _replan_on_join(self, phase: str = "prefill") -> float:
+        """Re-bucket the live workload through the session at admission time
+        (Eq.-6 transitions fire mid-stream); returns transition ms."""
+        inter_ms = 0.0
+        if self.session is not None:
+            rows = [s for s in self._live.slots if s is not None]
+            inter_ms = self._activate_plan(
+                Workload(
+                    batch=len(rows),
+                    prompt=max(s.start for s in rows),
+                    gen=max(s.req.max_new_tokens for s in rows),
+                ),
+                phase=phase,
+            )
+        self._plan_ran = True
+        return inter_ms
 
     def step(self, sampling: SamplingParams, gen=None) -> bool:
         """One iteration: the FIFO-first joiner's next prefill chunk, fused
@@ -576,6 +889,6 @@ class InferenceEngine:
             if s is None or not (s.done or len(s.tokens) >= s.req.max_new_tokens):
                 continue
             toks = [t for t in s.tokens if t != self.eos_id or self.eos_id < 0]
-            comps.append(Completion(s.req.uid, toks, s.prefill_ms, s.decode_ms))
+            comps.append(Completion(s.req.uid, toks, s.prefill_ms, s.decode_ms, s.transition_ms))
             self._free_slot(i)
         return comps

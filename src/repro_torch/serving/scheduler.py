@@ -4,8 +4,9 @@
 Static batching: requests queue up, the scheduler drains up to
 ``max_batch`` of them, left-pads the prompts to a shared bucket length, and
 the engine runs prefill once and decodes the batch in lockstep until every
-request stops. (Bucket coalescing serves the planner-driven session, which
-the port has not reached yet.)
+request stops. With ``coalesce_buckets=True`` (the adaptive-serving
+default) a batch only holds requests of one prompt bucket, so every batch
+maps onto one workload bucket of the session's plan cache.
 
 ``ContinuousScheduler`` adds decode-time admission (continuous batching,
 DESIGN.md §4b): the engine asks for the queue head at step boundaries and
@@ -23,11 +24,7 @@ from typing import Deque, List, Optional, Sequence
 
 import numpy as np
 
-
-def round_up(x: int, q: int) -> int:
-    """x rounded up to a multiple of q (>= 0), the bucketing rule (a copy of
-    ``repro.core.session.round_up``)."""
-    return q * -(-max(int(x), 0) // q)
+from repro_torch.core.session import round_up
 
 
 @dataclasses.dataclass
@@ -38,9 +35,10 @@ class QueuedRequest:
 
 
 class FifoScheduler:
-    def __init__(self, max_batch: int = 8, bucket: int = 64):
+    def __init__(self, max_batch: int = 8, bucket: int = 64, coalesce_buckets: bool = False):
         self.max_batch = max_batch
         self.bucket = max(1, bucket)
+        self.coalesce_buckets = coalesce_buckets
         self._q: Deque[QueuedRequest] = deque()
         self._next_uid = 0
 
@@ -71,11 +69,18 @@ class FifoScheduler:
         return list(self._q)
 
     def next_batch(self) -> Optional[List[QueuedRequest]]:
-        """Drain up to ``max_batch`` requests from the queue head."""
+        """Drain up to ``max_batch`` requests from the queue head; with
+        ``coalesce_buckets`` stop at the first request of another prompt
+        bucket (peek-then-pop: the rest of the queue keeps its order)."""
         if not self._q:
             return None
-        n = min(self.max_batch, len(self._q))
-        return [self._q.popleft() for _ in range(n)]
+        b0 = self.prompt_bucket(self._q[0])
+        batch: List[QueuedRequest] = []
+        while self._q and len(batch) < self.max_batch:
+            if batch and self.coalesce_buckets and self.prompt_bucket(self._q[0]) != b0:
+                break
+            batch.append(self._q.popleft())
+        return batch
 
     def pad_batch(self, batch: List[QueuedRequest], pad_id: int = 0):
         """Left-pad to a bucket multiple. Returns (tokens (B, S), lengths).

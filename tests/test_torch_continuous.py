@@ -13,6 +13,7 @@ same 16-token prompt bucket). The paths not ported yet raise
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -237,7 +238,7 @@ def test_engine_mirrors_and_groups(moe_setup):
         (dict(paged=False, prefix_cache=True), ValueError),
         (dict(kv_overcommit=0.5), NotImplementedError),
         (dict(faults=object()), NotImplementedError),
-        (dict(session=object()), NotImplementedError),
+        (dict(session=types.SimpleNamespace(mesh="a multi-card mesh")), NotImplementedError),  # A.6
         (dict(replicate_experts=2), NotImplementedError),
         (dict(prefetch=True), NotImplementedError),
         (dict(kv_block_size=0), ValueError),

@@ -274,3 +274,111 @@ def test_engine_prefix_cache_on_the_card():
             assert eng.stats.prefix_grouped_steps > 0
     assert outs[True] == outs[False]
     assert [len(t) for t in outs[True]] == [6, 4, 4]
+
+
+# ---------------------------------------------------------------------------
+# INT4: the dequant kernel, the card quantizer, resident and async serving
+# ---------------------------------------------------------------------------
+def _int4_inputs(rng, G, gs, dev):
+    packed = torch.from_numpy(rng.integers(0, 256, (G, gs // 2), dtype=np.uint8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(1e-3, 0.1, (G, 1)).astype(np.float32)).to(dev)
+    zeros = torch.from_numpy(rng.uniform(-1.0, 1.0, (G, 1)).astype(np.float32)).to(dev)
+    return packed, scales, zeros
+
+
+@pytest.mark.parametrize(
+    "G,gs",
+    [(8, 256), (16, 128), (32, 512), (7, 128), (5, 10), (3, 2), (129, 6), (1441792, 128)],  # last: main path
+)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_int4_dequant_kernel(G, gs, dtype):
+    """Bit-equal to its plain version, on aligned buffers and on a packed
+    buffer one byte off alignment (the kernel's byte-by-byte path)."""
+    from repro_torch.kernels import int4_dequant as dq
+    from repro_torch.kernels._build import LAUNCH_COUNTS
+
+    dev = _card()
+    dt = getattr(torch, dtype)
+    packed, scales, zeros = _int4_inputs(np.random.default_rng(5), G, gs, dev)
+    n0 = LAUNCH_COUNTS["int4_dequant"]
+    out = dq.int4_dequant(packed, scales, zeros, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["int4_dequant"] == n0 + 1
+    want = dq.int4_dequant_plain(packed, scales, zeros, dt)
+    assert out.shape == (G, gs) and out.dtype == dt
+    assert torch.equal(out, want)
+    buf = torch.empty(packed.numel() + 1, dtype=torch.uint8, device=dev)
+    odd = buf[1:].view(G, gs // 2)
+    odd.copy_(packed)
+    assert torch.equal(dq.int4_dequant(odd, scales, zeros, out_dtype=dt), want)
+
+
+def test_int4_quantizer_on_the_card_matches_numpy():
+    """The torch quantizer on the card gives the numpy quantizer's bytes,
+    scales and zeros bit for bit, flat and last-dim grouped, bf16 input."""
+    from repro_torch.core import quantization as q
+
+    dev = _card()
+    w = _randn(np.random.default_rng(6), (3, 4, 64, 176), "bfloat16", dev, std=0.05)
+    w_np = w.float().cpu().numpy()
+    for got, want in (
+        (q.quantize_int4_torch(w, 128), q.quantize_int4(w_np, "per_group", 128)),
+        (q.quantize_int4_lastdim_torch(w, out_device="cpu", pin=True), q.quantize_int4_lastdim(w_np)),
+    ):
+        assert got.shape == want.shape and got.group_size == want.group_size
+        for a in ("packed", "scales", "zeros"):
+            np.testing.assert_array_equal(getattr(got, a).cpu().numpy(), getattr(want, a))
+
+
+def test_grouped_matmul_quantized_on_the_card():
+    """A ``QuantizedExpert`` rhs: one dequant launch, then the gmm kernel on
+    the dequantized weight, equal to the gmm of that weight."""
+    from repro_torch.kernels import ops
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    w = _randn(rng, (4, 64, 96), "bfloat16", dev, std=0.1)
+    lhs = _randn(rng, (4, 8, 64), "bfloat16", dev)
+    qe = ops.quantize_weight(w)
+    ops.reset_counts()
+    out = ops.grouped_matmul(lhs, qe)
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCH_COUNTS) == {"int4_dequant": 1, "grouped_matmul": 1}
+    dense = ops._dequant_weight(qe, torch.bfloat16)
+    assert torch.equal(out, ops.grouped_matmul(lhs, dense))
+
+
+def test_async_restore_on_the_side_stream():
+    """Reduced DeepSeekMoE-16B in float32 on the card under a pinned switching
+    INT4 plan: the restore on the worker's own stream gives the sync tokens,
+    resident and dense, and the executor's async restore installs the sync
+    restore's values."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hap import fixed_plan
+    from repro_torch.core.transition import TransitionExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine, Request
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), dtype="float32", capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tx = TransitionExecutor(dev)
+    tx.backup("w", params["layers"]["moe"]["wi_gate"])
+    fut = tx.restore_async("w", torch.float32)
+    assert torch.equal(fut.result().install(), tx.restore("w", torch.float32))
+    for resident in (False, True):
+        toks = {}
+        for asy in (False, True):
+            plan = fixed_plan("TP1", "TP2", "EP2", mechanism="int4_upload")
+            eng = InferenceEngine(cfg, params, max_batch=2, hap_plan=plan, use_int4_transition=True,
+                                  resident_int4=resident, async_transitions=asy)
+            for p in ([1, 2, 3, 4], [5, 6, 7, 8, 9, 10], [11, 12, 13]):
+                eng.submit(Request(prompt=p, max_new_tokens=8))
+            ops.reset_counts()
+            toks[asy] = [c.tokens for c in eng.run()]
+            assert eng.stats.async_restores == (2 if asy else 0) and eng.stats.restore_errors == 0
+            assert not any(k.split(".")[1].startswith("ref") for k in ops.DISPATCH_COUNTS)
+            if resident:
+                assert ops.LAUNCH_COUNTS["int4_dequant"] == ops.LAUNCH_COUNTS["grouped_matmul"]
+        assert toks[True] == toks[False]

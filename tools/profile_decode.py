@@ -21,6 +21,11 @@ instead: 16 requests of 256 tokens sharing a 192-token system prompt through
 unprofiled run: wall s, decode steps, prefill chunks), ``profile`` (one traced
 run: device busy s, idle share, device events) and ``top``.
 
+With ``--resident`` the expert leaves are first quantized on the card into
+resident INT4 ``QuantizedExpert``s (``ops.quantize_weight``), so every
+expert matmul runs ``int4_dequant`` and then the grouped matmul; it combines
+with ``--continuous``.
+
 The profiler adds host overhead of its own, so the idle share it shows is
 an upper bound; ``timing`` is the undisturbed wall clock.
 """
@@ -47,6 +52,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=4, help="decode steps traced")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true", help="profile the continuous traffic instead")
+    ap.add_argument("--resident", action="store_true", help="serve the experts from resident INT4 leaves")
     args = ap.parse_args()
 
     import numpy as np
@@ -62,6 +68,14 @@ def main() -> int:
     cfg = get_config("deepseek-moe-16b")
     dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if args.resident:
+        from repro_torch.kernels import ops
+
+        moe = params["layers"]["moe"]
+        packed = {n: ops.quantize_weight(moe[n]) for n in ("wi_gate", "wi_up", "wo")}
+        params = dict(params, layers=dict(params["layers"], moe=dict(moe, **packed)))
+        del moe
+        torch.cuda.empty_cache()
     if args.continuous:
         profile_continuous(cfg, params)
         return 0
