@@ -8,7 +8,10 @@ printing one JSON line:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
 2. kernels - each kernel against its plain PyTorch version at the main
-             path's full-width shapes, with times, bounds and yardsticks
+             path's full-width shapes, with times, bounds and yardsticks;
+             flash and the grouped matmul also at a 2048-token prompt and at
+             the fused-step capacity, each row naming the variant its launch
+             plan took (wgmma / simt), two calls bit-equal
 3. serve   - DeepSeekMoE-16B at full width and depth (28 layers, bf16,
              seeded random weights): 8 requests through
              ``InferenceEngine.run()``, with the launch counts of that run
@@ -33,6 +36,15 @@ printing one JSON line:
              pinned plan with ``use_int4_transition=True``: async and sync
              tokens equal, restored leaves bit-equal to the numpy dequant
              of the same backup, the restores' int4_dequant launches counted
+
+Every serving phase also checks that each bfloat16 flash and grouped-matmul
+launch on its path took the ``wgmma`` variant (``_build.VARIANT_COUNTS``).
+
+Times: ``ms`` and ``library_ms`` are device times per call from CUDA events
+around a CUDA graph of back-to-back calls (the host's launch overhead left
+out, for the kernel and the library call alike); ``eager_ms`` is the same
+calls issued one by one from Python, and ``host_us`` the host's time to
+issue one call.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``.
@@ -107,6 +119,70 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int, replays: int = 3) -> float:
+    """Mean device time per call of ``fn`` captured ``reps`` times into one
+    CUDA graph: events around ``replays`` replays, after a warm-up call and
+    a warm-up replay."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(stop) / (replays * reps)
+
+
+def host_us(fn, reps: int = 20) -> float:
+    """Host microseconds to issue one call (the device is not waited for)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def timed_row(fn, library, reps: int) -> dict:
+    """The kernel and its library yardstick, each by graph and eagerly."""
+    return {
+        "ms": graph_ms(fn, reps), "eager_ms": cuda_ms(fn, reps), "host_us": host_us(fn),
+        "library_ms": graph_ms(library, reps), "library_eager_ms": cuda_ms(library, reps),
+        "library_host_us": host_us(library),
+    }
+
+
+def variant_counts() -> dict:
+    """``_build.VARIANT_COUNTS`` as ``{"kernel/variant": n}``."""
+    from repro_torch.kernels import _build
+
+    return {f"{k}/{v}": n for (k, v), n in sorted(_build.VARIANT_COUNTS.items())}
+
+
+def check_wgmma(name: str, launches: dict) -> dict:
+    """Every flash and grouped-matmul launch of the run just made took the
+    wgmma variant (the path is bfloat16 at widths TMA describes)."""
+    got = variant_counts()
+    for k in ("flash_attention", "grouped_matmul"):
+        if launches.get(k, 0) != got.get(f"{k}/wgmma", 0):
+            raise AssertionError(f"{name}: {k} launches {launches.get(k, 0)}, wgmma variant {got}")
+    return got
+
+
 def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -149,8 +225,16 @@ def phase_build():
     report = path.with_suffix(".log").read_text()
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
+    # per entry function: the wgmma kernels must not spill
+    entries = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                         report, re.S)
+    wgmma = [(int(sp), int(rg)) for name, sp, rg in entries if "wgmma" in name]
+    if not wgmma or any(sp for sp, _ in wgmma):
+        raise AssertionError(f"build: wgmma kernels missing or spilling: {wgmma}")
     emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path, ROOT),
-          "kernels_compiled": len(regs), "max_registers": max(regs), "spill_store_bytes": sum(spills)})
+          "kernels_compiled": len(regs), "max_registers": max(regs), "spill_store_bytes": sum(spills),
+          "wgmma_kernels": len(wgmma), "wgmma_max_registers": max(rg for _, rg in wgmma),
+          "wgmma_spill_store_bytes": 0})
 
 
 def phase_kernels(cfg) -> list:
@@ -159,6 +243,7 @@ def phase_kernels(cfg) -> list:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import paged_attention as pa
@@ -175,22 +260,33 @@ def phase_kernels(cfg) -> list:
 
     rows = []
 
-    # flash attention at the prefill shape, on the model layout's views
-    q, k, v = (randn(B, S, H, hd).transpose(1, 2) for _ in range(3))
-    out = fa.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    acc = compare(out, fa.flash_attention_plain(q, k, v), KERNEL_ATOL, KERNEL_RTOL, "flash_attention")
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound(4 * B * S * H * hd * 2, 4 * hd * B * H * pairs)
+    # flash attention at the prefill shape, on the model layout's views, and
+    # at one 2048-token prompt
+    flash_rows = []
+    for fb, fs in ((B, S), (1, 2048)):
+        q, k, v = (randn(fb, fs, H, hd).transpose(1, 2) for _ in range(3))
+        _build.VARIANT_COUNTS.clear()
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        variant = variant_counts()
+        acc = compare(out, fa.flash_attention_plain(q, k, v), KERNEL_ATOL, KERNEL_RTOL, f"flash_attention S={fs}")
+        if not torch.equal(out, fa.flash_attention(q, k, v)):
+            raise AssertionError(f"flash_attention S={fs}: two calls differ")
+        pairs = fs * (fs + 1) // 2
+        b_ms, b_by = bound(4 * fb * fs * H * hd * 2, 4 * hd * fb * H * pairs)
+        reps = 200 if fs <= 128 else 20
+        flash_rows.append({
+            "shape": f"B={fb} S={fs} H={H} hd={hd} bf16 causal", "variant": variant, **acc, "bit_equal_calls": True,
+            **timed_row(lambda: fa.flash_attention(q, k, v),
+                        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 20 if fs <= 128 else 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        del q, k, v, out
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:105", "shape": f"B={B} S={S} H={H} hd={hd} bf16 causal",
-        **acc,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 200),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 200),
-        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "replaces": "src/repro/kernels/flash_attention.py:105", **flash_rows[0],
+        "library": "torch.nn.functional.scaled_dot_product_attention", "also": flash_rows[1:],
     })
 
     # paged attention at a decode step: identity table over the contiguous cache
@@ -221,27 +317,45 @@ def phase_kernels(cfg) -> list:
     })
     rows.append(prefix_row(cfg, rng, dev))
 
-    # grouped matmul: decode (C=8) and prefill (C=64) capacities, both layers
+    # grouped matmul: decode (C=8), fused chunk + decode (C=16) and prefill
+    # (C=64) capacities, both layers
     E, d, f = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
     gmm_rows = []
-    for C, (k_in, n_out), which in ((8, (d, f), "wi"), (8, (f, d), "wo"), (64, (d, f), "wi"), (64, (f, d), "wo")):
-        lhs = randn(E, C, k_in)
-        lhs[:, -1] = 0  # an empty capacity slot
-        rhs = randn(E, k_in, n_out, std=k_in**-0.5)
-        out = gm.grouped_matmul(lhs, rhs)
-        torch.cuda.synchronize()
-        acc = compare(out, gm.grouped_matmul_plain(lhs, rhs), KERNEL_ATOL, KERNEL_RTOL, f"grouped_matmul C={C}")
-        if torch.count_nonzero(out[:, -1]):
-            raise AssertionError("grouped_matmul: an empty capacity slot came out non-zero")
-        b_ms, b_by = bound(2 * (E * C * k_in + E * k_in * n_out + E * C * n_out), 2 * E * C * k_in * n_out)
-        gmm_rows.append({
-            "shape": f"E={E} C={C} {k_in}x{n_out} ({which}) bf16", **acc,
-            "ms": cuda_ms(lambda: gm.grouped_matmul(lhs, rhs), 20),
-            "plain_ms": cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs), 5),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(lambda: torch.bmm(lhs, rhs), 20),
-        })
-        del lhs, rhs, out
+    for C in (8, 16, 64):
+        for (k_in, n_out), which in (((d, f), "wi"), ((f, d), "wo")):
+            lhs = randn(E, C, k_in)
+            lhs[:, -1] = 0  # an empty capacity slot
+            rhs = randn(E, k_in, n_out, std=k_in**-0.5)
+            _build.VARIANT_COUNTS.clear()
+            out = gm.grouped_matmul(lhs, rhs)
+            torch.cuda.synchronize()
+            variant = variant_counts()
+            acc = compare(out, gm.grouped_matmul_plain(lhs, rhs), KERNEL_ATOL, KERNEL_RTOL, f"grouped_matmul C={C}")
+            if torch.count_nonzero(out[:, -1]):
+                raise AssertionError("grouped_matmul: an empty capacity slot came out non-zero")
+            if not torch.equal(out, gm.grouped_matmul(lhs, rhs)):
+                raise AssertionError(f"grouped_matmul C={C} {which}: two calls differ")
+            b_ms, b_by = bound(2 * (E * C * k_in + E * k_in * n_out + E * C * n_out), 2 * E * C * k_in * n_out)
+            row = {
+                "shape": f"E={E} C={C} {k_in}x{n_out} ({which}) bf16", "variant": variant, **acc, "bit_equal_calls": True,
+                **timed_row(lambda: gm.grouped_matmul(lhs, rhs), lambda: torch.bmm(lhs, rhs), 20),
+                "plain_ms": cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs), 5),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            row["share_of_bound"] = b_ms / row["ms"]
+            if C == 8 and which == "wi":
+                # the host cost of a tensor-map encode: new lhs buffers each call
+                # (a map-cache miss) against the same buffer (a hit)
+                fresh = [torch.empty_like(lhs) for _ in range(20)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for x in fresh:
+                    gm.grouped_matmul(x, rhs)
+                row["host_us_new_buffers"] = (time.perf_counter() - t0) / len(fresh) * 1e6
+                torch.cuda.synchronize()
+                del fresh
+            gmm_rows.append(row)
+            del lhs, rhs, out
     main, also = gmm_rows[0], gmm_rows[1:]
     rows.append({
         "name": "grouped_matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
@@ -423,6 +537,7 @@ def phase_serve(cfg, params) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCH_COUNTS)
     dispatch = dict(ops.DISPATCH_COUNTS)
+    variants = check_wgmma("serve", launches)
 
     if len(comps) != N_REQUESTS or any(len(c.tokens) != MAX_NEW for c in comps):
         raise AssertionError(f"serve: expected {N_REQUESTS} completions of {MAX_NEW} tokens")
@@ -448,7 +563,7 @@ def phase_serve(cfg, params) -> dict:
         "phase": "serve", "model": cfg.name, "layers": L, "dtype": cfg.dtype, "requests": len(comps),
         "batches": eng.stats.batches, "tokens": tokens, "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
         "tokens_per_s": tokens / wall, "wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches, "dispatch": dispatch,
+        "launches": launches, "variants": variants, "dispatch": dispatch,
     }
     emit(res)
     res["first_batch_tokens"] = [c.tokens for c in comps[:MAX_BATCH]]
@@ -533,6 +648,7 @@ def phase_continuous(cfg, params) -> dict:
         wall = time.perf_counter() - t0
         launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
         name = "prefix" if pc else "plain"
+        variants = check_wgmma(f"continuous ({name})", launches)
         if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
             raise AssertionError(f"continuous ({name}): a request did not get its budget")
         if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
@@ -559,7 +675,7 @@ def phase_continuous(cfg, params) -> dict:
             "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
             "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps, "decode_step_ms_max": st.decode_step_ms_max,
             "prefill_ms": [c.prefill_ms for c in comps], "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "stats": dataclasses.asdict(st), "launches": launches, "dispatch": dispatch,
+            "stats": dataclasses.asdict(st), "launches": launches, "variants": variants, "dispatch": dispatch,
         }
         emit(res)
         runs[pc] = (res, [c.tokens for c in comps])
@@ -599,6 +715,7 @@ def _serve_static(eng, cfg, name: str) -> dict:
     comps = eng.run()
     wall = time.perf_counter() - t0
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    variants = check_wgmma(name, launches)
     if len(comps) != N_REQUESTS or any(len(c.tokens) != MAX_NEW for c in comps):
         raise AssertionError(f"{name}: expected {N_REQUESTS} completions of {MAX_NEW} tokens")
     if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
@@ -616,8 +733,8 @@ def _serve_static(eng, cfg, name: str) -> dict:
         "transition_ms": [c.transition_ms for c in per_batch], "transition_ms_total": st.transition_ms_total,
         "restore_wait_ms": st.restore_wait_ms, "restore_overlap_ms": st.restore_overlap_ms,
         "async_restores": st.async_restores, "resident_bytes_saved": st.resident_bytes_saved,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "dispatch": dispatch,
-        "tokens": [c.tokens for c in comps],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
+        "dispatch": dispatch, "tokens": [c.tokens for c in comps],
     }
 
 
@@ -723,6 +840,7 @@ def _serve_continuous(eng, cfg, name: str):
     comps = eng.serve_continuous()
     wall = time.perf_counter() - t0
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    variants = check_wgmma(name, launches)
     if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
         raise AssertionError(f"{name}: a request did not get its budget")
     refs = ref_ops(dispatch)
@@ -733,7 +851,7 @@ def _serve_continuous(eng, cfg, name: str):
         "wall_s": wall, "tokens_per_s": tokens / wall, "decode_steps": st.decode_steps,
         "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps, "prefill_chunks": st.prefill_chunks,
         "transition_ms_total": st.transition_ms_total, "resident_bytes_saved": st.resident_bytes_saved,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
     }, [c.tokens for c in comps]
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,7 +40,7 @@ SOURCES = (
     "grouped_matmul.cu",
     "int4_dequant.cu",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -56,22 +57,29 @@ NVCC_FLAGS = (
 # The async INT4 restore launches from a worker thread, so every update
 # goes through ``count_launch``.
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+# The same launches by (kernel name, variant) for the kernels whose launch
+# plan picks a variant (``wgmma`` or ``simt``): flash and grouped matmul.
+VARIANT_COUNTS: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def count_launch(kernel: str) -> None:
-    """Add one launch of ``kernel`` to ``LAUNCH_COUNTS`` (thread-safe)."""
+def count_launch(kernel: str, variant: Optional[str] = None) -> None:
+    """Add one launch of ``kernel`` to ``LAUNCH_COUNTS`` and, where a launch
+    plan chose a ``variant``, to ``VARIANT_COUNTS`` (thread-safe)."""
     with _count_lock:
         LAUNCH_COUNTS[kernel] += 1
+        if variant is not None:
+            VARIANT_COUNTS[(kernel, variant)] += 1
 
 
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCH_COUNTS``."""
+    """Zero ``LAUNCH_COUNTS`` and ``VARIANT_COUNTS``."""
     with _count_lock:
         LAUNCH_COUNTS.clear()
+        VARIANT_COUNTS.clear()
 
 
 def build_dir() -> Path:
@@ -157,11 +165,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
     + [_L] * 12
-    + [_I, _I, _F, _F, _P],
+    + [_I, _I, _F, _F]
+    + [_I] * 6
+    + [_P],
     "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P]
     + [_I] * 9
     + [_F, _F, _P],
-    "grouped_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grouped_matmul_launch": [_P, _P, _P] + [_I] * 5 + [_I] * 7 + [_P],
     "prefix_paged_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
     "int4_dequant_launch": [_P, _P, _P, _P, _I, _L, _I, _P],
 }
@@ -184,10 +194,34 @@ def library() -> ctypes.CDLL:
 
 
 def check(status: int, kernel: str) -> None:
-    """Raise if a launch entry returned a CUDA error."""
+    """Raise if a launch entry returned a CUDA error, a failed tensor-map
+    encode (1000 + CUresult) or a refused launch plan (2000)."""
     if status != 0:
         msg = library().repro_cuda_error_string(status).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {status} ({msg})")
+        raise RuntimeError(f"{kernel} launch failed: error {status} ({msg})")
+
+
+# Shared memory one block may use on an H100 (227 KB of the SM's 256 KB).
+SMEM_MAX = 232_448
+VARIANTS = ("wgmma", "simt")
+
+
+def check_plan(kernel: str, variant: str, smem_bytes: int, n: int) -> None:
+    """Raise ValueError for a launch plan no kernel takes: an unknown
+    variant, more than ``SMEM_MAX`` bytes of shared memory, or a wgmma width
+    ``n`` that is not a multiple of 8 in 8..256."""
+    if variant not in VARIANTS:
+        raise ValueError(f"{kernel}: unknown variant {variant!r}, expected one of {VARIANTS}")
+    if not 0 <= smem_bytes <= SMEM_MAX:
+        raise ValueError(f"{kernel}: plan needs {smem_bytes} B of shared memory, a block has at most {SMEM_MAX}")
+    if not (8 <= n <= 256 and n % 8 == 0):
+        raise ValueError(f"{kernel}: plan width N={n} is not a multiple of 8 in 8..256")
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dtype_code(dtype) -> int:

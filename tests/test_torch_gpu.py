@@ -38,6 +38,12 @@ def _randn(rng, shape, dtype, dev, std=1.0):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, getattr(torch, dtype))
 
 
+def _variant(dtype, wgmma_shape):
+    """The variant a launch plan picks: wgmma for bfloat16 on a shape TMA
+    can describe, simt otherwise."""
+    return "wgmma" if dtype == "bfloat16" and wgmma_shape else "simt"
+
+
 @pytest.mark.parametrize(
     "B,Hq,Hkv,Sq,Sk,hd,window,softcap",
     [
@@ -45,12 +51,17 @@ def _randn(rng, shape, dtype, dev, std=1.0):
         (1, 4, 4, 70, 100, 64, 16, 30.0),
         (3, 8, 2, 1, 65, 16, 0, 0.0),
         (4, 16, 16, 128, 128, 128, 0, 0.0),  # main path: DeepSeekMoE-16B prefill
+        (2, 4, 4, 1, 50, 128, 0, 0.0),  # one query row
+        (2, 4, 4, 100, 300, 96, 0, 0.0),  # Sq < Sk, 64-byte swizzle in three column blocks
+        (1, 2, 1, 130, 200, 48, 40, 0.0),  # GQA, window, a ragged third q tile
+        (1, 2, 2, 300, 300, 128, 100, 20.0),  # window + softcap over five key tiles
+        (2, 4, 2, 37, 37, 40, 0, 0.0),  # head dim not a multiple of 16: simt in bf16 too
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel(B, Hq, Hkv, Sq, Sk, hd, window, softcap, dtype):
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels._build import LAUNCH_COUNTS
+    from repro_torch.kernels._build import LAUNCH_COUNTS, VARIANT_COUNTS
 
     dev = _card()
     rng = np.random.default_rng(0)
@@ -60,9 +71,11 @@ def test_flash_attention_kernel(B, Hq, Hkv, Sq, Sk, hd, window, softcap, dtype):
         for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))
     )
     n0 = LAUNCH_COUNTS["flash_attention"]
+    key = ("flash_attention", _variant(dtype, hd % 16 == 0))
+    v0 = VARIANT_COUNTS[key]
     out = fa.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
-    assert LAUNCH_COUNTS["flash_attention"] == n0 + 1
+    assert LAUNCH_COUNTS["flash_attention"] == n0 + 1 and VARIANT_COUNTS[key] == v0 + 1
     want = fa.flash_attention_plain(q, k, v, window=window, softcap=softcap)
     tol = _tol(out.dtype)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
@@ -112,28 +125,53 @@ def test_paged_attention_kernel(B, C, Hq, Hkv, hd, bs, nb, window, is_global, so
 @pytest.mark.parametrize(
     "E,C,d,f",
     [
-        (4, 5, 40, 33),  # ragged C, d and f tiles
-        (8, 24, 256, 200),
+        (4, 5, 40, 33),  # ragged C, d and f tiles (simt in bf16 too: f % 8)
+        (8, 24, 256, 200),  # ragged f tile
         (3, 100, 96, 130),  # C > 64: two row passes
         (64, 8, 2048, 1408),  # main path: decode wi_gate / wi_up
         (64, 64, 1408, 2048),  # main path: prefill wo
+        (1, 8, 16, 64),  # one wgmma atom: m64n8k16
+        (2, 1, 1400, 136),  # C = 1; d not a multiple of the 64-deep stage
+        (8, 16, 2048, 1408),  # fused chunk + decode capacity
+        (2, 65, 96, 1400),  # C = 65 (N = 80), d = 96, ragged f
+        (2, 256, 128, 200),  # two passes of 128 rows
+        (2, 300, 1400, 64),  # three passes, the last ragged; one 64-column f tile
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_grouped_matmul_kernel(E, C, d, f, dtype):
     from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels._build import VARIANT_COUNTS
 
     dev = _card()
     rng = np.random.default_rng(2)
     lhs = _randn(rng, (E, C, d), dtype, dev)
     lhs[:, C - 1] = 0  # the empty-slot sentinel row
     rhs = _randn(rng, (E, d, f), dtype, dev, std=d**-0.5)
+    key = ("grouped_matmul", _variant(dtype, d % 8 == 0 and f % 8 == 0))
+    v0 = VARIANT_COUNTS[key]
     out = gm.grouped_matmul(lhs, rhs)
     torch.cuda.synchronize()
+    assert VARIANT_COUNTS[key] == v0 + 1
     want = gm.grouped_matmul_plain(lhs, rhs)
     tol = _tol(out.dtype)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     assert torch.count_nonzero(out[:, C - 1]) == 0
+
+
+def test_tensor_core_kernels_are_deterministic():
+    """Two calls on the same inputs give the same bits: each output element
+    is summed by one warpgroup in one order (no split-K, no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+
+    dev = _card()
+    rng = np.random.default_rng(8)
+    lhs = _randn(rng, (64, 64, 1408), "bfloat16", dev)
+    rhs = _randn(rng, (64, 1408, 2048), "bfloat16", dev, std=1408**-0.5)
+    assert torch.equal(gm.grouped_matmul(lhs, rhs), gm.grouped_matmul(lhs, rhs))
+    q, k, v = (_randn(rng, (4, 128, 16, 128), "bfloat16", dev).transpose(1, 2) for _ in range(3))
+    assert torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
 
 
 def test_backend_resolves_hopper_on_the_card():
