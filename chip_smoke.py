@@ -10,8 +10,9 @@ printing one JSON line:
 2. kernels - each kernel against its plain PyTorch version at the main
              path's full-width shapes, with times, bounds and yardsticks;
              flash and the grouped matmul also at a 2048-token prompt and at
-             the fused-step capacity, each row naming the variant its launch
-             plan took (wgmma / simt), two calls bit-equal
+             the fused-step capacity, the paged kernel also at a 64-token
+             prefill chunk; each row naming the variant its launch plan took
+             (wgmma / split / simt), two calls bit-equal
 3. serve   - DeepSeekMoE-16B at full width and depth (28 layers, bf16,
              seeded random weights): 8 requests through
              ``InferenceEngine.run()``, with the launch counts of that run
@@ -38,13 +39,15 @@ printing one JSON line:
              of the same backup, the restores' int4_dequant launches counted
 
 Every serving phase also checks that each bfloat16 flash and grouped-matmul
-launch on its path took the ``wgmma`` variant (``_build.VARIANT_COUNTS``).
+launch on its path took the ``wgmma`` variant, and each paged and
+prefix-paged launch the ``split`` variant (``_build.VARIANT_COUNTS``).
 
-Times: ``ms`` and ``library_ms`` are device times per call from CUDA events
-around a CUDA graph of back-to-back calls (the host's launch overhead left
-out, for the kernel and the library call alike); ``eager_ms`` is the same
-calls issued one by one from Python, and ``host_us`` the host's time to
-issue one call.
+Times: ``ms`` and ``library_ms`` (and the prefix row's ``paged_ms``) are
+device times per call from CUDA events around a CUDA graph of back-to-back
+calls (the host's launch overhead left out, for the kernel and the library
+call alike); ``eager_ms`` is the same calls issued one by one from Python,
+and ``host_us`` the host's time to issue one call. Plain versions are timed
+eagerly (``plain_ms``).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``.
@@ -166,6 +169,11 @@ def timed_row(fn, library, reps: int) -> dict:
     }
 
 
+def kernel_times(fn, reps: int) -> dict:
+    """A kernel with no library yardstick, by graph and eagerly."""
+    return {"ms": graph_ms(fn, reps), "eager_ms": cuda_ms(fn, reps), "host_us": host_us(fn)}
+
+
 def variant_counts() -> dict:
     """``_build.VARIANT_COUNTS`` as ``{"kernel/variant": n}``."""
     from repro_torch.kernels import _build
@@ -173,13 +181,19 @@ def variant_counts() -> dict:
     return {f"{k}/{v}": n for (k, v), n in sorted(_build.VARIANT_COUNTS.items())}
 
 
-def check_wgmma(name: str, launches: dict) -> dict:
+# the variant every launch of a kernel on the bfloat16 serving path takes
+PATH_VARIANTS = {"flash_attention": "wgmma", "grouped_matmul": "wgmma", "paged_attention": "split",
+                 "prefix_paged_attention": "split"}
+
+
+def check_variants(name: str, launches: dict) -> dict:
     """Every flash and grouped-matmul launch of the run just made took the
-    wgmma variant (the path is bfloat16 at widths TMA describes)."""
+    wgmma variant, every paged and prefix-paged launch the split variant
+    (the path is bfloat16 at widths TMA and 16-byte loads describe)."""
     got = variant_counts()
-    for k in ("flash_attention", "grouped_matmul"):
-        if launches.get(k, 0) != got.get(f"{k}/wgmma", 0):
-            raise AssertionError(f"{name}: {k} launches {launches.get(k, 0)}, wgmma variant {got}")
+    for k, v in PATH_VARIANTS.items():
+        if launches.get(k, 0) != got.get(f"{k}/{v}", 0):
+            raise AssertionError(f"{name}: {k} launches {launches.get(k, 0)}, {v} variant {got}")
     return got
 
 
@@ -296,12 +310,16 @@ def phase_kernels(cfg) -> list:
     tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
     posv = torch.full((B,), pos0, dtype=torch.int32, device=dev)
     kc2, vc2 = kc.clone(), vc.clone()
+    _build.VARIANT_COUNTS.clear()
     out, _, _ = pa.paged_attention(qd, kc, vc, tables, kn, vn, posv)
     torch.cuda.synchronize()
+    variant = variant_counts()
     want, kw, vw = pa.paged_attention_plain(qd, kc2, vc2, tables, kn, vn, posv)
     acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "paged_attention")
     if not (torch.equal(kc, kw) and torch.equal(vc, vw)):
         raise AssertionError("paged_attention: appended pages differ from the plain version's")
+    if not torch.equal(out, pa.paged_attention(qd, kc, vc, tables, kn, vn, posv)[0]):
+        raise AssertionError("paged_attention: two calls differ")
     # q, k_new, v_new and out once; the cached K/V below pos0 read once;
     # the appended slot written once; 4 flops per (query, key, dim)
     nbytes = 2 * (4 * B * H * hd + 2 * B * pos0 * H * hd + 2 * B * H * hd)
@@ -309,8 +327,8 @@ def phase_kernels(cfg) -> list:
     rows.append({
         "name": "paged_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:336",
-        "shape": f"B={B} C=1 H={H} hd={hd} Smax={Smax} pos={pos0} identity table bf16", **acc,
-        "ms": cuda_ms(lambda: pa.paged_attention(qd, kc, vc, tables, kn, vn, posv), 200),
+        "shape": f"B={B} C=1 H={H} hd={hd} Smax={Smax} pos={pos0} identity table bf16", "variant": variant, **acc,
+        "bit_equal_calls": True, **kernel_times(lambda: pa.paged_attention(qd, kc, vc, tables, kn, vn, posv), 200),
         "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(qd, kc2, vc2, tables, kn, vn, posv), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
         "also": [paged_chunk_row(cfg, rng, dev)],
@@ -428,6 +446,7 @@ def paged_chunk_row(cfg, rng, dev) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
 
     H, hd, bs, nb, C, p0 = cfg.num_heads, cfg.head_dim, CONT_BLOCK, _cont_table_width(), 64, CONT_SYSTEM
@@ -438,19 +457,23 @@ def paged_chunk_row(cfg, rng, dev) -> dict:
                  for _ in range(3))
     posv = torch.tensor([p0], dtype=torch.int32, device=dev)
     kp2, vp2 = kp.clone(), vp.clone()
+    _build.VARIANT_COUNTS.clear()
     out, _, _ = pa.paged_attention(q, kp, vp, tables, kn, vn, posv)
     torch.cuda.synchronize()
+    variant = variant_counts()
     want, kw, vw = pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv)
     acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "paged_attention (chunk)")
     if not (torch.equal(kp[1:], kw[1:]) and torch.equal(vp[1:], vw[1:])):
         raise AssertionError("paged_attention (chunk): appended pages differ from the plain version's")
+    if not torch.equal(out, pa.paged_attention(q, kp, vp, tables, kn, vn, posv)[0]):
+        raise AssertionError("paged_attention (chunk): two calls differ")
     # q, new K/V and out once, the p0 cached keys' K/V once, the chunk's K/V
     # written once; 4 flops per (query, valid key, dim)
     pairs = sum(p0 + c + 1 for c in range(C))
     b_ms, b_by = bound(2 * (4 * C * H * hd + 2 * p0 * H * hd + 2 * C * H * hd), 4 * hd * H * pairs)
     return {
-        "shape": f"B=1 C={C} H={H} hd={hd} bs={bs} table {nb} scattered pages pos={p0} bf16", **acc,
-        "ms": cuda_ms(lambda: pa.paged_attention(q, kp, vp, tables, kn, vn, posv), 200),
+        "shape": f"B=1 C={C} H={H} hd={hd} bs={bs} table {nb} scattered pages pos={p0} bf16", "variant": variant,
+        **acc, "bit_equal_calls": True, **kernel_times(lambda: pa.paged_attention(q, kp, vp, tables, kn, vn, posv), 200),
         "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
@@ -463,6 +486,7 @@ def prefix_row(cfg, rng, dev) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import prefix_paged_attention as ppa
 
@@ -478,9 +502,14 @@ def prefix_row(cfg, rng, dev) -> dict:
                  for _ in range(3))
     tables, posv, reps_t, nsh_t = (torch.from_numpy(a).to(dev) for a in (t, pos, reps, nsh))
     pages = {k: (kp.clone(), vp.clone()) for k in ("kernel", "paged", "plain")}
+    _build.VARIANT_COUNTS.clear()
     out, _, _ = ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, posv, reps_t, nsh_t)
+    torch.cuda.synchronize()
+    variant = variant_counts()
     own, _, _ = pa.paged_attention(q, *pages["paged"], tables, kn, vn, posv)
     torch.cuda.synchronize()
+    if not torch.equal(out, ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, posv, reps_t, nsh_t)[0]):
+        raise AssertionError("prefix_paged_attention: two calls differ")
     want, _, _ = ppa.prefix_paged_attention_plain(q, *pages["plain"], tables, kn, vn, posv, reps_t, nsh_t)
     acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "prefix_paged_attention")
     if not torch.equal(out, own):
@@ -503,11 +532,12 @@ def prefix_row(cfg, rng, dev) -> dict:
         "replaces": "src/repro/kernels/paged_attention.py:237",
         "shape": f"B={B} C=1 H={H} hd={hd} bs={bs} table {nb}, rows 1-7 share {shared} pages, pos {pos.min()}-"
                  f"{pos.max()} bf16",
-        **acc, "bit_equal_to_paged": True,
-        "ms": cuda_ms(lambda: ppa.prefix_paged_attention(q, kpk, vpk, tables, kn, vn, posv, reps_t, nsh_t), 200),
+        "variant": variant, **acc, "bit_equal_to_paged": True, "bit_equal_calls": True,
+        **kernel_times(lambda: ppa.prefix_paged_attention(q, kpk, vpk, tables, kn, vn, posv, reps_t, nsh_t), 200),
         "plain_ms": cuda_ms(
             lambda: ppa.prefix_paged_attention_plain(q, kpp, vpp, tables, kn, vn, posv, reps_t, nsh_t), 20),
-        "paged_ms": cuda_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv), 200),
+        "paged_ms": graph_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv), 200),
+        "paged_eager_ms": cuda_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv), 200),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
     }
 
@@ -537,7 +567,7 @@ def phase_serve(cfg, params) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCH_COUNTS)
     dispatch = dict(ops.DISPATCH_COUNTS)
-    variants = check_wgmma("serve", launches)
+    variants = check_variants("serve", launches)
 
     if len(comps) != N_REQUESTS or any(len(c.tokens) != MAX_NEW for c in comps):
         raise AssertionError(f"serve: expected {N_REQUESTS} completions of {MAX_NEW} tokens")
@@ -648,7 +678,7 @@ def phase_continuous(cfg, params) -> dict:
         wall = time.perf_counter() - t0
         launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
         name = "prefix" if pc else "plain"
-        variants = check_wgmma(f"continuous ({name})", launches)
+        variants = check_variants(f"continuous ({name})", launches)
         if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
             raise AssertionError(f"continuous ({name}): a request did not get its budget")
         if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
@@ -715,7 +745,7 @@ def _serve_static(eng, cfg, name: str) -> dict:
     comps = eng.run()
     wall = time.perf_counter() - t0
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
-    variants = check_wgmma(name, launches)
+    variants = check_variants(name, launches)
     if len(comps) != N_REQUESTS or any(len(c.tokens) != MAX_NEW for c in comps):
         raise AssertionError(f"{name}: expected {N_REQUESTS} completions of {MAX_NEW} tokens")
     if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
@@ -840,7 +870,7 @@ def _serve_continuous(eng, cfg, name: str):
     comps = eng.serve_continuous()
     wall = time.perf_counter() - t0
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
-    variants = check_wgmma(name, launches)
+    variants = check_variants(name, launches)
     if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
         raise AssertionError(f"{name}: a request did not get its budget")
     refs = ref_ops(dispatch)

@@ -27,7 +27,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -40,7 +40,7 @@ SOURCES = (
     "grouped_matmul.cu",
     "int4_dequant.cu",
 )
-HEADERS = ("common.cuh", "sm90.cuh")
+HEADERS = ("common.cuh", "decode.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -58,7 +58,8 @@ NVCC_FLAGS = (
 # goes through ``count_launch``.
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 # The same launches by (kernel name, variant) for the kernels whose launch
-# plan picks a variant (``wgmma`` or ``simt``): flash and grouped matmul.
+# plan picks a variant: flash and grouped matmul (``wgmma`` or ``simt``),
+# paged and prefix-paged attention (``split`` or ``simt``).
 VARIANT_COUNTS: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
 
@@ -170,9 +171,9 @@ _SIGNATURES = {
     + [_P],
     "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P]
     + [_I] * 9
-    + [_F, _F, _P],
+    + [_F, _F, _I, _I, _I, _P, _P],
     "grouped_matmul_launch": [_P, _P, _P] + [_I] * 5 + [_I] * 7 + [_P],
-    "prefix_paged_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
+    "prefix_paged_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _I, _P, _P],
     "int4_dequant_launch": [_P, _P, _P, _P, _I, _L, _I, _P],
 }
 
@@ -206,15 +207,16 @@ SMEM_MAX = 232_448
 VARIANTS = ("wgmma", "simt")
 
 
-def check_plan(kernel: str, variant: str, smem_bytes: int, n: int) -> None:
-    """Raise ValueError for a launch plan no kernel takes: an unknown
-    variant, more than ``SMEM_MAX`` bytes of shared memory, or a wgmma width
-    ``n`` that is not a multiple of 8 in 8..256."""
-    if variant not in VARIANTS:
-        raise ValueError(f"{kernel}: unknown variant {variant!r}, expected one of {VARIANTS}")
+def check_plan(kernel: str, variant: str, smem_bytes: int, n: Optional[int] = None,
+               variants: Tuple[str, ...] = VARIANTS) -> None:
+    """Raise ValueError for a launch plan no kernel takes: a variant not in
+    ``variants``, more than ``SMEM_MAX`` bytes of shared memory, or (where
+    given) a wgmma width ``n`` that is not a multiple of 8 in 8..256."""
+    if variant not in variants:
+        raise ValueError(f"{kernel}: unknown variant {variant!r}, expected one of {variants}")
     if not 0 <= smem_bytes <= SMEM_MAX:
         raise ValueError(f"{kernel}: plan needs {smem_bytes} B of shared memory, a block has at most {SMEM_MAX}")
-    if not (8 <= n <= 256 and n % 8 == 0):
+    if n is not None and not (8 <= n <= 256 and n % 8 == 0):
         raise ValueError(f"{kernel}: plan width N={n} is not a multiple of 8 in 8..256")
 
 

@@ -12,6 +12,12 @@ names row b's representative, ``shared_blocks[b]`` how many leading table
 entries row b shares with it (the same physical ids), every write lands past
 them, and a representative has ``shared_blocks`` 0. The wrapper does not
 read the grouping back from the card.
+
+The launch follows ``paged_attention.decode_plan(..., prefix=True)``: the
+same variant, splits and workspace as the paged kernel on the same shapes,
+plus shared blocks for the groups. Each call counts one launch in
+``_build.LAUNCH_COUNTS["prefix_paged_attention"]`` and in
+``_build.VARIANT_COUNTS[("prefix_paged_attention", variant)]``.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 
 from . import _build
 from .paged_attention import _check as _check_paged
-from .paged_attention import paged_attention_plain
+from .paged_attention import aligned, decode_plan, paged_attention_plain, workspace
 
 
 def prefix_paged_attention_plain(
@@ -49,9 +55,6 @@ def _check(q, k_pages, v_pages, block_tables, k_new, v_new, pos, group_reps, sha
             raise ValueError(f"{name} must be a (B={B},) int32 vector, got {tuple(t.shape)} {t.dtype}")
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous and on the operands' device")
-    rows = B * q.shape[1] * (q.shape[2] // k_pages.shape[2])
-    if -(-rows // 64) > 65535:
-        raise ValueError(f"prefix_paged_attention: {rows} query rows per KV head exceed the grid")
 
 
 def prefix_paged_attention(
@@ -90,16 +93,20 @@ def prefix_paged_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out, k_pages, v_pages
+    plan = decode_plan(B, C, Hq, Hkv, hd, bs, block_tables.shape[1], q.dtype, True,
+                       aligned(q, k_pages, v_pages, k_new, v_new))
     lib = _build.library()
     with torch.cuda.device(q.device):
+        ws = workspace(q.device, plan.workspace_floats)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.prefix_paged_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(), group_reps.data_ptr(),
             shared_blocks.data_ptr(), out.data_ptr(), _build.dtype_code(q.dtype),
             B, C, Hq, Hkv, hd, bs, block_tables.shape[1], 0 if bool(is_global) else int(window),
-            float(softcap), float(scale), stream,
+            float(softcap), float(scale), int(plan.variant == "split"), plan.grid_x, plan.smem_bytes, ws,
+            stream,
         )
     _build.check(status, "prefix_paged_attention")
-    _build.count_launch("prefix_paged_attention")
+    _build.count_launch("prefix_paged_attention", plan.variant)
     return out, k_pages, v_pages

@@ -44,6 +44,12 @@ def _variant(dtype, wgmma_shape):
     return "wgmma" if dtype == "bfloat16" and wgmma_shape else "simt"
 
 
+def _decode_variant(dtype, hd):
+    """The paged kernels' variant: split for bfloat16 at head dims that are
+    multiples of 16 (aligned operands), simt otherwise."""
+    return "split" if dtype == "bfloat16" and hd % 16 == 0 else "simt"
+
+
 @pytest.mark.parametrize(
     "B,Hq,Hkv,Sq,Sk,hd,window,softcap",
     [
@@ -120,6 +126,71 @@ def test_paged_attention_kernel(B, C, Hq, Hkv, hd, bs, nb, window, is_global, so
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     live = slice(0, N) if nb == 1 else slice(1, N)
     assert torch.equal(kp[live], kp_w[live]) and torch.equal(vp[live], vp_w[live])
+
+
+def _scattered(rng, B, nb, N):
+    """Each row's table: nb distinct pages of 1..N-1 in random order."""
+    return rng.permutation(np.arange(1, N))[: B * nb].reshape(B, nb).astype(np.int32)
+
+
+# B, C, Hq, Hkv, hd, bs, nb, pos, window: the split variant's edges
+# (64-key splits aligned at 0), the identity table with a 145-token page,
+# the continuous chunk on scattered pages, a grid of 70 rows, and a
+# 4,096-token context
+SPLIT_CASES = {
+    "pos_split_minus_1": (3, 1, 8, 2, 128, 16, 8, [63, 63, 62], 0),
+    "pos_split": (3, 1, 8, 2, 128, 16, 8, [64, 64, 0], 0),
+    "pos_split_plus_1": (3, 1, 8, 2, 128, 16, 8, [65, 1, 127], 0),
+    "chunk_across_split": (2, 3, 4, 4, 64, 16, 8, [62, 127], 0),
+    "identity_bs145": (4, 1, 16, 16, 128, 145, 1, [135, 0, 64, 144], 0),
+    "chunk64_scattered": (1, 64, 16, 16, 128, 16, 20, [192], 0),
+    "chunk64_window": (1, 64, 16, 16, 128, 16, 20, [150], 70),
+    "large_batch": (70, 1, 4, 2, 64, 8, 12, [(13 * b) % 95 for b in range(70)], 0),
+    # 64 splits x 8 rows x 16 heads: many more blocks than fit on the card at once
+    "long_context": (8, 1, 16, 16, 128, 16, 256, [4095 - 37 * b for b in range(8)], 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_split_edges(name, dtype):
+    """Against the plain version, pages included, and two calls bit-equal."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels._build import VARIANT_COUNTS
+
+    dev = _card()
+    B, C, Hq, Hkv, hd, bs, nb, pos, window = SPLIT_CASES[name]
+    rng = np.random.default_rng(9)
+    if nb == 1:
+        N, tables = B, np.arange(B, dtype=np.int32)[:, None]
+    else:
+        N = B * nb + 1
+        tables = _scattered(rng, B, nb, N)
+    q = _randn(rng, (B, C, Hq, hd), dtype, dev)
+    kp = _randn(rng, (N, bs, Hkv, hd), dtype, dev)
+    vp = _randn(rng, (N, bs, Hkv, hd), dtype, dev)
+    kn = _randn(rng, (B, C, Hkv, hd), dtype, dev)
+    vn = _randn(rng, (B, C, Hkv, hd), dtype, dev)
+    tables = torch.from_numpy(tables).to(dev)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(scale=hd**-0.5, window=window)
+    is_global = window == 0
+    pages = {k: (kp.clone(), vp.clone()) for k in ("kernel", "again", "plain")}
+    key = ("paged_attention", _decode_variant(dtype, hd))
+    v0 = VARIANT_COUNTS[key]
+    out, _, _ = pa.paged_attention(q, *pages["kernel"], tables, kn, vn, posv, is_global, **kw)
+    torch.cuda.synchronize()
+    assert VARIANT_COUNTS[key] == v0 + 1
+    again, _, _ = pa.paged_attention(q, *pages["again"], tables, kn, vn, posv, is_global, **kw)
+    want, _, _ = pa.paged_attention_plain(q, *pages["plain"], tables, kn, vn, posv, is_global, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    tol = _tol(out.dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    live = slice(0, N) if nb == 1 else slice(1, N)
+    for i in (0, 1):
+        assert torch.equal(pages["kernel"][i][live], pages["plain"][i][live])
+        assert torch.equal(pages["kernel"][i], pages["again"][i])
 
 
 @pytest.mark.parametrize(
@@ -248,6 +319,10 @@ PREFIX_CASES = {
     "large_group": ((70, 1, 2, 2, 32, 4, 8), [(3, [b for b in range(70) if b != 3], 5)], 0, True, 0.0),
     "window_softcap": ((4, 2, 4, 2, 64, 8, 12), [(2, (0, 3), 6)], 24, False, 30.0),
     "identity": ((3, 1, 4, 2, 64, 16, 4), [], 0, True, 0.0),
+    # shared runs of 80 and 144 keys end inside a 64-key split (the split
+    # variant's split 1 and 2); in rep 2's group row 3 shares only 48 keys
+    "run_ends_mid_split": ((7, 1, 16, 16, 128, 16, 12), [(2, (0, 1), 5), (2, (3,), 3), (5, (4, 6), 9)], 0, True,
+                           0.0),
 }
 
 
@@ -260,17 +335,24 @@ def test_prefix_paged_attention_kernel(name, dtype):
     from repro_torch.kernels import prefix_paged_attention as ppa
     from repro_torch.kernels._build import LAUNCH_COUNTS
 
+    from repro_torch.kernels._build import VARIANT_COUNTS
+
     dev = _card()
     shape, groups, window, is_global, softcap = PREFIX_CASES[name]
     q, kp, vp, tables, kn, vn, pos, reps, nsh = _prefix_inputs(
         np.random.default_rng(4), *shape, groups, dtype, dev
     )
     kw = dict(scale=shape[4] ** -0.5, softcap=softcap, window=window)
-    pages = {k: (kp.clone(), vp.clone()) for k in ("kernel", "paged", "plain")}
+    pages = {k: (kp.clone(), vp.clone()) for k in ("kernel", "paged", "plain", "again")}
     n0 = LAUNCH_COUNTS["prefix_paged_attention"]
+    key = ("prefix_paged_attention", _decode_variant(dtype, shape[4]))
+    v0 = VARIANT_COUNTS[key]
     out, kp_o, _ = ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, pos, reps, nsh, is_global, **kw)
     torch.cuda.synchronize()
     assert LAUNCH_COUNTS["prefix_paged_attention"] == n0 + 1 and kp_o is pages["kernel"][0]
+    assert VARIANT_COUNTS[key] == v0 + 1
+    again, _, _ = ppa.prefix_paged_attention(q, *pages["again"], tables, kn, vn, pos, reps, nsh, is_global, **kw)
+    assert torch.equal(out, again)
     own, _, _ = pa.paged_attention(q, *pages["paged"], tables, kn, vn, pos, is_global, **kw)
     want, _, _ = ppa.prefix_paged_attention_plain(q, *pages["plain"], tables, kn, vn, pos, reps, nsh, is_global, **kw)
     torch.cuda.synchronize()

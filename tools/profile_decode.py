@@ -12,7 +12,8 @@ batch) and then reports, as JSON lines:
 - ``profile``: for one traced prefill and ``--steps`` traced decode steps,
   the device busy ms (the sum of kernel and copy times on the card), the
   device idle share of the traced wall time, and the launches per step;
-- ``top``: the operations with the most device time and the most host time.
+- ``top``: the operations with the most device time and the most host time,
+  and the device time of each of the repo's own kernels.
 
 With ``--continuous`` it profiles ``chip_smoke.py``'s continuous traffic
 instead: 16 requests of 256 tokens sharing a 192-token system prompt through
@@ -125,7 +126,8 @@ def print_card() -> None:
 
 
 def report(prof, what: str, wall_ms: float, calls: int, **extra) -> None:
-    """The ``profile`` and ``top`` lines of one traced window."""
+    """The ``profile`` and ``top`` lines of one traced window; ``top`` also
+    gives every kernel of the repo's own library (``repro::``) by name."""
     device_events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.device_time_total for e in device_events) / 1e3
     emit({
@@ -134,12 +136,15 @@ def report(prof, what: str, wall_ms: float, calls: int, **extra) -> None:
         "device_events_per_call": len(device_events) / calls, **extra,
     })
     avg = prof.key_averages()
-    by_dev = sorted(avg, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    by_dev_all = sorted(avg, key=lambda e: e.self_device_time_total, reverse=True)
+    by_dev = by_dev_all[:12]
     by_cpu = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
     emit({
         "phase": "top", "what": what,
         "device_ms_per_call": [[e.key[:60], e.self_device_time_total / 1e3 / calls, e.count / calls] for e in by_dev],
         "host_ms_per_call": [[e.key[:60], e.self_cpu_time_total / 1e3 / calls, e.count / calls] for e in by_cpu],
+        "repro_kernels_ms_per_call": [[e.key[:60], e.self_device_time_total / 1e3 / calls, e.count / calls]
+                                      for e in by_dev_all if "repro::" in e.key],
     })
 
 
