@@ -38,6 +38,17 @@ printing one JSON line:
              tokens equal, restored leaves bit-equal to the numpy dequant
              of the same backup, the restores' int4_dequant launches counted
 
+Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
+default on the card; ``repro_torch.serving.step_cache``). The serve phase,
+both continuous runs and the resident phase's async static run are each
+served four times on fresh engines, eager (``capture_steps=False``), captured,
+captured, eager: the tokens and the launch, variant and dispatch counts must
+be equal across the four (a replay counts as the launches it replays); each
+run prints its decode ms per step, prefill ms, tokens/s, peak memory, graphs
+captured, capture ms and replays. The resident phase's other runs (sync, the
+dense round trip, the continuous traffic) are captured, the resident
+continuous run also eager.
+
 Every serving phase also checks that each bfloat16 flash and grouped-matmul
 launch on its path took the ``wgmma`` variant, and each paged and
 prefix-paged launch the ``split`` variant (``_build.VARIANT_COUNTS``).
@@ -550,29 +561,112 @@ def prompts(cfg):
     return [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
 
 
-def phase_serve(cfg, params) -> dict:
+# the order of every eager/captured A/B: each mode first once and last once
+AB_ORDER = (False, True, True, False)
+
+
+def step_stats(eng) -> dict:
+    """What the engine's step cache did: graphs captured, their capture
+    time, replays, eager runs and graphs dropped by a new generation."""
+    return dataclasses.asdict(eng.steps.stats)
+
+
+def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER) -> dict:
+    """Serve one workload on fresh engines, eager (``capture_steps=False``)
+    and captured, in ``order``; one JSON line per run. Every run must give
+    the same tokens and the same launch, variant and dispatch counts. Where
+    ``order`` has both modes, ``logits_ab`` then compares the logits in two
+    more runs, outside the timed ones. Returns the first captured run's
+    result (the main path) with ``ab`` = the per-run numbers."""
     import torch
 
-    from repro_torch.kernels import ops
-    from repro_torch.serving import InferenceEngine, Request
+    results = []
+    for capture in order:
+        eng = make(capture)
+        res = serve(eng)
+        res["capture_steps"] = capture
+        res["steps"] = step_stats(eng)
+        res["device"] = torch.cuda.get_device_name(0)
+        if capture and (res["steps"]["captures"] == 0 or res["steps"]["replays"] == 0):
+            raise AssertionError(f"{phase} ({name}): the captured run captured or replayed nothing: {res['steps']}")
+        if not capture and res["steps"]["captures"]:
+            raise AssertionError(f"{phase} ({name}): the eager run captured a step")
+        emit({"phase": phase, "run": name, **{k: v for k, v in res.items() if k != "tokens"}})
+        results.append(res)
+        eng.close()
+        del eng
+        _free()
+    main = next(r for r in results if r["capture_steps"])
+    for r in results:
+        if r["tokens"] != main["tokens"]:
+            raise AssertionError(f"{phase} ({name}): captured and eager tokens differ")
+        for k in ("launches", "variants", "dispatch"):
+            if r[k] != main[k]:
+                raise AssertionError(f"{phase} ({name}): {k} differ, captured {main[k]} against {r[k]}")
+    keys = ("wall_s", "tokens_per_s", "decode_ms_per_step", "decode_step_ms_mean", "prefill_ms",
+            "max_memory_allocated")
+    main = dict(main, ab=[{"capture_steps": r["capture_steps"], **{k: r[k] for k in keys if k in r},
+                           "captures": r["steps"]["captures"], "capture_ms": r["steps"]["capture_ms"],
+                           "replays": r["steps"]["replays"]} for r in results])
+    logits = logits_ab(phase, name, make, serve, main["tokens"]) if len(set(order)) == 2 else {}
+    emit({"phase": phase, "run": name, "ab_order": ["captured" if c else "eager" for c in order],
+          "tokens_equal": True, "counts_equal": True, **logits, "ab": main["ab"]})
+    return main
 
-    eng = InferenceEngine(cfg, params, max_batch=MAX_BATCH)
-    for p in prompts(cfg):
-        eng.submit(Request(prompt=p, max_new_tokens=MAX_NEW))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_counts()
-    t0 = time.perf_counter()
-    comps = eng.run()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCH_COUNTS)
-    dispatch = dict(ops.DISPATCH_COUNTS)
-    variants = check_variants("serve", launches)
 
-    if len(comps) != N_REQUESTS or any(len(c.tokens) != MAX_NEW for c in comps):
-        raise AssertionError(f"serve: expected {N_REQUESTS} completions of {MAX_NEW} tokens")
-    if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
-        raise AssertionError("serve: a token outside the vocabulary")
+def logits_ab(phase: str, name: str, make, serve, tokens) -> dict:
+    """One eager and one captured run, untimed, that keep every logits
+    tensor the engine samples from and compare them bit for bit (reported,
+    not gated: the tokens are the gate, and must equal ``tokens``). The
+    spy clones each step's logits on the card, so it stays out of the timed
+    runs and their peak memory."""
+    import torch
+
+    from repro_torch.serving import engine as engine_mod
+
+    sample, apply = engine_mod.sample, engine_mod.InferenceEngine._apply_sampled
+    kept = {}
+    for capture in (False, True):
+        seen = []
+
+        def keep(lg, params, generator=None, seen=seen):  # every logits tensor the engine samples from
+            seen.append(lg.clone())
+            return sample(lg, params, generator)
+
+        def keep_rows(self, toks, active, step_ms, seen=seen):
+            # a continuous step's rows whose tokens are used: an empty or
+            # drained slot reads and writes the shared trash page, which
+            # several such rows write in one launch, so its logits are not
+            # defined
+            seen[-1] = seen[-1][active]
+            return apply(self, toks, active, step_ms)
+
+        eng = make(capture)
+        engine_mod.sample, engine_mod.InferenceEngine._apply_sampled = keep, keep_rows
+        try:
+            res = serve(eng)
+        finally:
+            engine_mod.sample, engine_mod.InferenceEngine._apply_sampled = sample, apply
+        eng.close()
+        del eng
+        if res["tokens"] != tokens:
+            raise AssertionError(f"{phase} ({name}): the logits pass (capture={capture}) gave other tokens")
+        kept[capture] = seen
+        _free()
+    eager, captured = kept[False], kept[True]
+    if len(eager) != len(captured):
+        raise AssertionError(f"{phase} ({name}): {len(captured)} sampled steps against {len(eager)}")
+    res = {"logits_steps": len(eager), "logits_bit_equal": all(torch.equal(a, b) for a, b in zip(eager, captured)),
+           "logits_max_abs_diff": max((a.float() - b.float()).abs().max().item() for a, b in zip(eager, captured))}
+    del kept, eager, captured
+    _free()
+    return res
+
+
+def phase_serve(cfg, params) -> dict:
+    """``run()`` of the 8 requests on a plain engine, eager and captured."""
+    from repro_torch.serving import InferenceEngine
+
     batches = math.ceil(N_REQUESTS / MAX_BATCH)
     L, steps = cfg.num_layers, MAX_NEW - 1
     expect = {
@@ -580,23 +674,16 @@ def phase_serve(cfg, params) -> dict:
         "paged_attention": batches * steps * L,
         "grouped_matmul": batches * (1 + steps) * 3 * L,
     }
-    if launches != expect:
-        raise AssertionError(f"serve: launches {launches}, expected {expect}")
-    refs = ref_ops(dispatch)
-    if refs:
-        raise AssertionError(f"serve: ref ops ran on the main path: {refs}")
-    per_batch = comps[::MAX_BATCH]  # one completion per batch: uids fill batches in order
-    prefill_ms = [c.prefill_ms for c in per_batch]
-    step_ms = [c.decode_ms / steps for c in per_batch]
-    tokens = sum(len(c.tokens) for c in comps)
-    res = {
-        "phase": "serve", "model": cfg.name, "layers": L, "dtype": cfg.dtype, "requests": len(comps),
-        "batches": eng.stats.batches, "tokens": tokens, "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
-        "tokens_per_s": tokens / wall, "wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches, "variants": variants, "dispatch": dispatch,
-    }
-    emit(res)
-    res["first_batch_tokens"] = [c.tokens for c in comps[:MAX_BATCH]]
+
+    def serve(eng):
+        res = _serve_static(eng, cfg, "serve")
+        if res["launches"] != expect:
+            raise AssertionError(f"serve: launches {res['launches']}, expected {expect}")
+        return res
+
+    res = ab_runs("serve", "static", lambda cap: InferenceEngine(cfg, params, max_batch=MAX_BATCH, capture_steps=cap),
+                  serve)
+    res["first_batch_tokens"] = res["tokens"][:MAX_BATCH]
     return res
 
 
@@ -657,62 +744,38 @@ def cont_requests(cfg):
 
 
 def phase_continuous(cfg, params) -> dict:
-    """Serve the continuous traffic with the prefix cache off, then on."""
-    import torch
+    """Serve the continuous traffic with the prefix cache off, then on, each
+    eager and captured; returns the captured prefix-cache run."""
+    from repro_torch.serving import InferenceEngine
 
-    from repro_torch.kernels import ops
-    from repro_torch.serving import InferenceEngine, Request
-
-    reqs = cont_requests(cfg)
     L = cfg.num_layers
     runs = {}
     for pc in (False, True):
-        eng = InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=pc)
-        for p, g in reqs:
-            eng.submit(Request(prompt=p, max_new_tokens=g))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_counts()
-        t0 = time.perf_counter()
-        comps = eng.serve_continuous()
-        wall = time.perf_counter() - t0
-        launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
         name = "prefix" if pc else "plain"
-        variants = check_variants(f"continuous ({name})", launches)
-        if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
-            raise AssertionError(f"continuous ({name}): a request did not get its budget")
-        if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
-            raise AssertionError(f"continuous ({name}): a token outside the vocabulary")
-        refs = ref_ops(dispatch)
-        if refs:
-            raise AssertionError(f"continuous ({name}): ref ops ran on the main path: {refs}")
-        expect = {
-            "paged_attention": (st.prefill_chunks + (0 if pc else st.decode_steps)) * L,
-            "grouped_matmul": (st.prefill_chunks + st.decode_steps) * 3 * L,
-        }
-        if pc:
-            expect["prefix_paged_attention"] = st.decode_steps * L
-        if launches != expect:
-            raise AssertionError(f"continuous ({name}): launches {launches}, expected {expect}")
-        if pc and st.prefix_hit_blocks <= 0:
-            raise AssertionError("continuous (prefix): no prefix block was shared")
-        if pc and st.prefix_grouped_steps <= 0:
-            raise AssertionError("continuous (prefix): no decode step read a shared run through a group")
-        tokens = sum(len(c.tokens) for c in comps)
-        res = {
-            "phase": "continuous", "prefix_cache": pc, "model": cfg.name, "layers": L, "requests": len(comps),
-            "max_batch": CONT_MAX_BATCH, "kv_block_size": CONT_BLOCK, "kv_pool_blocks": eng.kv_pool_blocks,
-            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
-            "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps, "decode_step_ms_max": st.decode_step_ms_max,
-            "prefill_ms": [c.prefill_ms for c in comps], "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "stats": dataclasses.asdict(st), "launches": launches, "variants": variants, "dispatch": dispatch,
-        }
-        emit(res)
-        runs[pc] = (res, [c.tokens for c in comps])
-    if runs[True][1] != runs[False][1]:
-        diff = [i for i, (a, b) in enumerate(zip(runs[True][1], runs[False][1])) if a != b]
+
+        def serve(eng, pc=pc, name=name):
+            res, toks = _serve_continuous(eng, cfg, f"continuous ({name})")
+            st = res["stats"]
+            expect = {
+                "paged_attention": (st["prefill_chunks"] + (0 if pc else st["decode_steps"])) * L,
+                "grouped_matmul": (st["prefill_chunks"] + st["decode_steps"]) * 3 * L,
+            }
+            if pc:
+                expect["prefix_paged_attention"] = st["decode_steps"] * L
+            if res["launches"] != expect:
+                raise AssertionError(f"continuous ({name}): launches {res['launches']}, expected {expect}")
+            if pc and st["prefix_hit_blocks"] <= 0:
+                raise AssertionError("continuous (prefix): no prefix block was shared")
+            if pc and st["prefix_grouped_steps"] <= 0:
+                raise AssertionError("continuous (prefix): no decode step read a shared run through a group")
+            return dict(res, prefix_cache=pc, tokens=toks)
+
+        runs[pc] = ab_runs("continuous", name, lambda cap, pc=pc: InferenceEngine(
+            cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=pc, capture_steps=cap), serve)
+    if runs[True]["tokens"] != runs[False]["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(runs[True]["tokens"], runs[False]["tokens"])) if a != b]
         raise AssertionError(f"continuous: prefix-cache tokens differ from the plain run's for requests {diff}")
-    return runs[True][0]
+    return runs[True]
 
 
 RESIDENT_PLAN = ("TP1", "TP2", "EP2")  # switching; both layouts are the identity on one card
@@ -755,10 +818,12 @@ def _serve_static(eng, cfg, name: str) -> dict:
         raise AssertionError(f"{name}: ref ops ran on the main path: {refs}")
     if st.restore_errors or st.background_errors:
         raise AssertionError(f"{name}: a background restore failed: {dataclasses.asdict(st)}")
-    per_batch = comps[::MAX_BATCH]
+    per_batch = comps[::MAX_BATCH]  # one completion per batch: uids fill batches in order
     steps = MAX_NEW - 1
+    tokens = sum(len(c.tokens) for c in comps)
     return {
-        "layers": cfg.num_layers, "requests": len(comps), "batches": st.batches, "wall_s": wall,
+        "model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "requests": len(comps), "batches": st.batches,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
         "prefill_ms": [c.prefill_ms for c in per_batch], "decode_ms_per_step": [c.decode_ms / steps for c in per_batch],
         "transition_ms": [c.transition_ms for c in per_batch], "transition_ms_total": st.transition_ms_total,
         "restore_wait_ms": st.restore_wait_ms, "restore_overlap_ms": st.restore_overlap_ms,
@@ -804,52 +869,59 @@ def phase_resident(cfg, params) -> dict:
     expect = {"flash_attention": batches * L, "paged_attention": batches * steps * L,
               "grouped_matmul": gmm, "int4_dequant": gmm}
     runs = {}
-    backups = None
+    backups = []
     for asy in (True, False):
-        t0 = time.perf_counter()
-        eng = _session(cfg).engine(params, max_batch=MAX_BATCH, resident_int4=True, use_int4_transition=True,
-                                   async_transitions=asy)
-        setup_s = time.perf_counter() - t0  # quantize on the card, pinned host backups, upload
-        res = _serve_static(eng, cfg, f"resident (async={asy})")
-        res["engine_setup_s"] = setup_s
-        if res["launches"] != expect:
-            raise AssertionError(f"resident (async={asy}): launches {res['launches']}, expected {expect}")
-        if asy and res["async_restores"] != batches:
-            raise AssertionError(f"resident: {res['async_restores']} async restores, expected {batches}")
-        emit({"phase": "resident", "run": "static", "async_transitions": asy, "model": cfg.name,
-              **{k: v for k, v in res.items() if k != "tokens"}})
-        runs[asy] = res
-        if asy:
-            backups = eng._tx._backups
-        eng.close()
-        del eng
-        _free()
+        def make(capture, asy=asy):
+            t0 = time.perf_counter()
+            eng = _session(cfg).engine(params, max_batch=MAX_BATCH, resident_int4=True, use_int4_transition=True,
+                                       async_transitions=asy, capture_steps=capture)
+            eng.setup_s = time.perf_counter() - t0  # quantize on the card, pinned host backups, upload
+            if asy and not backups:
+                backups.append(eng._tx._backups)
+            return eng
+
+        def serve(eng, asy=asy):
+            name = f"resident (async={asy})"
+            res = _serve_static(eng, cfg, name)
+            res["engine_setup_s"] = eng.setup_s
+            if res["launches"] != expect:
+                raise AssertionError(f"{name}: launches {res['launches']}, expected {expect}")
+            if asy and res["async_restores"] != batches:
+                raise AssertionError(f"resident: {res['async_restores']} async restores, expected {batches}")
+            return res
+
+        # async: the resident cell's eager/captured A/B; sync: captured only
+        runs[asy] = ab_runs("resident", f"static_async={asy}", make, serve, AB_ORDER if asy else (True,))
     if runs[True]["tokens"] != runs[False]["tokens"]:
         raise AssertionError("resident: async-transition tokens differ from the sync ones")
 
     # the dense weights the resident leaves stand for, bit for bit
-    _round_trip_in_place(params, backups)
-    del backups
-    dense = _serve_static(InferenceEngine(cfg, params, max_batch=MAX_BATCH), cfg, "resident (dense round trip)")
+    _round_trip_in_place(params, backups.pop())
+    dense = ab_runs("resident", "dense_round_trip", lambda cap: InferenceEngine(
+        cfg, params, max_batch=MAX_BATCH, capture_steps=cap), lambda eng: _serve_static(
+        eng, cfg, "resident (dense round trip)"), (True,))
     if dense["tokens"] != runs[True]["tokens"]:
         raise AssertionError("resident: the dense engine on the round-tripped weights gives other tokens")
-    emit({"phase": "resident", "run": "dense_round_trip", **{k: v for k, v in dense.items() if k != "tokens"}})
 
     cont = {}
     for resident in (True, False):
-        eng = (_session(cfg).engine(params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=True,
-                                    resident_int4=True, use_int4_transition=True)
-               if resident else
-               InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=True))
-        res, toks = _serve_continuous(eng, cfg, f"resident continuous (resident={resident})")
-        if resident and res["launches"]["int4_dequant"] != res["launches"]["grouped_matmul"]:
-            raise AssertionError(f"resident continuous: launches {res['launches']}")
-        emit({"phase": "resident", "run": "continuous", "resident_int4": resident, **res})
-        cont[resident] = (res, toks)
-        eng.close()
-        del eng
-        _free()
-    if cont[True][1] != cont[False][1]:
+        def make(capture, resident=resident):
+            if resident:
+                return _session(cfg).engine(params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK,
+                                            prefix_cache=True, resident_int4=True, use_int4_transition=True,
+                                            capture_steps=capture)
+            return InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=True,
+                                   capture_steps=capture)
+
+        def serve(eng, resident=resident):
+            res, toks = _serve_continuous(eng, cfg, f"resident continuous (resident={resident})")
+            if resident and res["launches"]["int4_dequant"] != res["launches"]["grouped_matmul"]:
+                raise AssertionError(f"resident continuous: launches {res['launches']}")
+            return dict(res, resident_int4=resident, tokens=toks)
+
+        cont[resident] = ab_runs("resident", f"continuous_resident={resident}", make, serve,
+                                 (False, True) if resident else (True,))
+    if cont[True]["tokens"] != cont[False]["tokens"]:
         raise AssertionError("resident continuous: tokens differ from the dense round-trip engine's")
     return runs[True]
 
@@ -876,12 +948,18 @@ def _serve_continuous(eng, cfg, name: str):
     refs = ref_ops(dispatch)
     if refs:
         raise AssertionError(f"{name}: ref ops ran on the main path: {refs}")
+    if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
+        raise AssertionError(f"{name}: a token outside the vocabulary")
     tokens = sum(len(c.tokens) for c in comps)
     return {
-        "wall_s": wall, "tokens_per_s": tokens / wall, "decode_steps": st.decode_steps,
-        "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps, "prefill_chunks": st.prefill_chunks,
+        "model": cfg.name, "layers": cfg.num_layers, "requests": len(comps), "max_batch": CONT_MAX_BATCH,
+        "kv_block_size": CONT_BLOCK, "kv_pool_blocks": eng.kv_pool_blocks, "tokens_generated": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "decode_steps": st.decode_steps,
+        "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps, "decode_step_ms_max": st.decode_step_ms_max,
+        "prefill_chunks": st.prefill_chunks, "prefill_ms": [c.prefill_ms for c in comps],
         "transition_ms_total": st.transition_ms_total, "resident_bytes_saved": st.resident_bytes_saved,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "stats": dataclasses.asdict(st),
+        "launches": launches, "variants": variants, "dispatch": dispatch,
     }, [c.tokens for c in comps]
 
 

@@ -14,7 +14,7 @@ length, batch), it:
  4. solves the ILP (ilp.py) for (attention k, expert-prefill i,
     expert-decode j) minimizing Eq. 4,
  5. returns a HAPPlan; ``to_sharding_plan`` gives the null plan on one
-    device (the mesh bridge waits for ROADMAP A.6).
+    device (the mesh bridge waits for ROADMAP A.3).
 
 The ILP solver runtime is recorded and — as in the paper's methodology —
 included in the end-to-end latency the benchmarks report.
@@ -63,13 +63,13 @@ class HAPPlan:
         """The execution layout of ``phase`` on ``mesh``. With ``mesh=None``
         this is None, the null plan (unsharded single-device execution),
         where every expert layout is the identity. Mapping degrees onto a
-        multi-card mesh is not ported yet (ROADMAP A.6)."""
+        multi-card mesh is not ported yet (ROADMAP A.3)."""
         if phase not in ("prefill", "decode"):
             raise ValueError(f"phase must be prefill|decode, got {phase!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "mapping a HAPPlan onto a multi-card mesh is not ported to "
-                "repro_torch yet (ROADMAP A.6)")
+                "repro_torch yet (ROADMAP A.3)")
         return None
 
 

@@ -165,7 +165,7 @@ class TransitionExecutor:
     of its own and records an event after them; ``Restored.install`` is
     the barrier that makes the caller's stream wait on it. One worker on
     purpose: restores stay ordered. ``reshard`` is the identity on one
-    device (multi-card layouts wait for ROADMAP A.6).
+    device (multi-card layouts wait for ROADMAP A.3).
     """
 
     def __init__(self, device=None, group_size: int = 128):
@@ -263,9 +263,9 @@ class TransitionExecutor:
 
     @staticmethod
     def reshard(w, sharding=None):
-        """The identity on one device; a layout on a mesh is ROADMAP A.6."""
+        """The identity on one device; a layout on a mesh is ROADMAP A.3."""
         if sharding is not None:
             raise NotImplementedError(
                 "resharding onto a multi-card layout is not ported to "
-                "repro_torch yet (ROADMAP A.6)")
+                "repro_torch yet (ROADMAP A.3)")
         return w

@@ -18,7 +18,9 @@ raises; there is no fallback.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -61,26 +63,81 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 # plan picks a variant: flash and grouped matmul (``wgmma`` or ``simt``),
 # paged and prefix-paged attention (``split`` or ``simt``).
 VARIANT_COUNTS: collections.Counter = collections.Counter()
+# Which branch each seam call took (``op.hopper`` / ``op.ref``), kept here
+# beside the launch counts so that a step capture can record all three
+# (``repro_torch.kernels.ops`` re-exports it).
+DISPATCH_COUNTS: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
+_capturing = threading.local()
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
+@dataclasses.dataclass
+class Counts:
+    """Launch, variant and dispatch counts that a CUDA-graph capture would
+    have made; each replay of the graph adds them to the global counters."""
+
+    launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    variants: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    dispatch: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+
+    def add_to_globals(self) -> None:
+        with _count_lock:
+            LAUNCH_COUNTS.update(self.launches)
+            VARIANT_COUNTS.update(self.variants)
+            DISPATCH_COUNTS.update(self.dispatch)
+
+
+@contextlib.contextmanager
+def recording():
+    """Suspend counting on the calling thread only, and yield the ``Counts``
+    its calls would have made. A step capture runs inside it: the kernels
+    it records run only when the graph is replayed. Other threads (the
+    async INT4 restore's worker) keep counting as they launch."""
+    counts = Counts()
+    outer = getattr(_capturing, "counts", None)
+    _capturing.counts = counts
+    try:
+        yield counts
+    finally:
+        _capturing.counts = outer
+
+
 def count_launch(kernel: str, variant: Optional[str] = None) -> None:
     """Add one launch of ``kernel`` to ``LAUNCH_COUNTS`` and, where a launch
-    plan chose a ``variant``, to ``VARIANT_COUNTS`` (thread-safe)."""
+    plan chose a ``variant``, to ``VARIANT_COUNTS`` (thread-safe); under
+    ``recording()`` to that thread's ``Counts`` instead."""
+    counts = getattr(_capturing, "counts", None)
+    if counts is not None:
+        counts.launches[kernel] += 1
+        if variant is not None:
+            counts.variants[(kernel, variant)] += 1
+        return
     with _count_lock:
         LAUNCH_COUNTS[kernel] += 1
         if variant is not None:
             VARIANT_COUNTS[(kernel, variant)] += 1
 
 
+def count_dispatch(branch: str) -> None:
+    """Add one call of the seam branch ``branch`` to ``DISPATCH_COUNTS``
+    (thread-safe); under ``recording()`` to that thread's ``Counts``."""
+    counts = getattr(_capturing, "counts", None)
+    if counts is not None:
+        counts.dispatch[branch] += 1
+        return
+    with _count_lock:
+        DISPATCH_COUNTS[branch] += 1
+
+
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCH_COUNTS`` and ``VARIANT_COUNTS``."""
+    """Zero ``LAUNCH_COUNTS``, ``VARIANT_COUNTS`` and ``DISPATCH_COUNTS``."""
     with _count_lock:
         LAUNCH_COUNTS.clear()
         VARIANT_COUNTS.clear()
+        DISPATCH_COUNTS.clear()
 
 
 def build_dir() -> Path:

@@ -17,8 +17,10 @@ nothing on the serving path does.
 ``LAUNCH_COUNTS`` counts real kernel launches by kernel name (the wrappers
 bump it where they launch). ``DISPATCH_COUNTS`` counts which branch each
 call took, ``*.hopper`` or ``*.ref``, so a run can show that no ``ref`` op
-served it. Both are updated under a lock: the async INT4 restore
-dispatches from a worker thread.
+served it. Both live in ``_build`` and are updated under a lock: the async
+INT4 restore dispatches from a worker thread. While a step is captured into
+a CUDA graph its thread's counts are recorded, not added, and every replay
+adds the recorded counts (``repro_torch.serving.step_cache``).
 
 The expert matmul also takes the INT4 formats (``QuantizedWeight``, the
 flat transition wire format, and ``QuantizedExpert``, the structured
@@ -28,17 +30,15 @@ transient dense buffer, then multiplied by the grouped-matmul kernel.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import enum
 import os
-import threading
 from typing import Optional, Tuple, Union
 
 import torch
 
 from . import _build, ref
-from ._build import LAUNCH_COUNTS  # noqa: F401 (re-export)
+from ._build import DISPATCH_COUNTS, LAUNCH_COUNTS  # noqa: F401 (re-export)
 from .flash_attention import flash_attention as _flash_hopper
 from .grouped_matmul import grouped_matmul as _gmm_hopper
 from .int4_dequant import int4_dequant as _dequant_hopper
@@ -55,21 +55,13 @@ class KernelBackend(str, enum.Enum):
 
 BACKEND_ENV = "REPRO_TORCH_KERNEL_BACKEND"
 
-DISPATCH_COUNTS: collections.Counter = collections.Counter()
-_dispatch_lock = threading.Lock()
-
 BackendSpec = Union[KernelBackend, str, None]
 
-
-def record(branch: str) -> None:
-    with _dispatch_lock:
-        DISPATCH_COUNTS[branch] += 1
+record = _build.count_dispatch
 
 
 def reset_counts() -> None:
-    """Zero ``DISPATCH_COUNTS`` and ``LAUNCH_COUNTS``."""
-    with _dispatch_lock:
-        DISPATCH_COUNTS.clear()
+    """Zero ``DISPATCH_COUNTS``, ``LAUNCH_COUNTS`` and ``VARIANT_COUNTS``."""
     _build.reset_launch_counts()
 
 
@@ -306,7 +298,7 @@ def grouped_matmul(lhs, rhs, *, backend: BackendSpec = None) -> torch.Tensor:
     ``rhs`` may be dense, a ``QuantizedWeight`` or a ``QuantizedExpert``;
     a quantized one is dequantized in the lhs dtype first (on the card one
     ``int4_dequant`` launch per call). The multi-card branches that keep
-    the rhs packed through a shard map wait for ROADMAP A.6.
+    the rhs packed through a shard map wait for ROADMAP A.3.
     """
     w = _dequant_weight(rhs, lhs.dtype, backend)
     if resolve_backend(backend, lhs.device) is KernelBackend.HOPPER:

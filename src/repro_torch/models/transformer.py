@@ -5,7 +5,8 @@ JAX scans one layer body over the stacked parameters; here a Python loop
 walks the leading L axis. Entry points:
 
   prefill           full forward over the prompt: last-position logits plus
-                    a primed contiguous decode cache
+                    a primed contiguous decode cache (a new one, or the
+                    caller's, filled in place)
   init_paged_cache  an empty block-pooled cache for continuous batching
   decode_step       one cache-appending step (a token or a prefill chunk),
                     over either layout
@@ -30,8 +31,9 @@ from .params import layer_slice, torch_dtype
 class DecodeCache:
     """Decode-time state of an attention-only model.
 
-    Contiguous: k/v are (L, B, Smax, Hkv, hd) and ``pos`` an int, the same
-    for every row (a lockstep batch). Paged (continuous batching): k/v are
+    Contiguous: k/v are (L, B, Smax, Hkv, hd) and ``pos`` a 0-dim int32
+    tensor on the cache's device, the same for every row (a lockstep batch;
+    the reference's ``DecodeCache.pos`` is a ``jax.Array`` too). Paged (continuous batching): k/v are
     (L, num_blocks, block_size, Hkv, hd) pages shared by all rows,
     ``block_tables`` (B, max_blocks) int32 maps each row's logical positions
     to pages (unused entries point at trash block 0) and ``pos`` is a (B,)
@@ -63,7 +65,9 @@ def _check_family(cfg: ModelConfig) -> None:
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens]
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+        # the factor rounded to the activation dtype, as a host scalar: a
+        # device tensor made here would be a host-to-device copy per step
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype).item()
     return x
 
 
@@ -99,7 +103,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return DecodeCache(
         k=torch.zeros(shape, dtype=kv_dt, device=device),
         v=torch.zeros(shape, dtype=kv_dt, device=device),
-        pos=0,
+        pos=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -119,15 +123,23 @@ def init_paged_cache(cfg: ModelConfig, nslots: int, num_blocks: int, block_size:
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: int,
-            backend=None) -> Tuple[torch.Tensor, DecodeCache]:
+            backend=None, cache: Optional[DecodeCache] = None) -> Tuple[torch.Tensor, DecodeCache]:
     """Process the prompt ``batch["tokens"]`` (B, S); return (last-position
     logits (B, V), a cache of ``max_len`` positions primed with the prompt).
     ``backend`` selects the kernel path of prefill attention and the expert
-    FFNs ("ref" | "hopper" | None for the device's default)."""
+    FFNs ("ref" | "hopper" | None for the device's default). ``cache``, a
+    contiguous cache of B rows and ``max_len`` positions, is filled in place
+    and returned (its tensors, ``pos`` included, keep their storage, so a
+    captured step can read them); None makes a new one. Positions past S
+    keep what they held: decode reads none of them before writing it."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
     B, S = x.shape[0], x.shape[1]
-    cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
+    elif cache.block_tables is not None or tuple(cache.k.shape[1:3]) != (B, max_len):
+        raise ValueError(f"prefill fills a contiguous cache of {B} rows x {max_len} positions, "
+                         f"got k {tuple(cache.k.shape)}")
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
         lp = layer_slice(params["layers"], layer)
@@ -142,7 +154,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
         # in place, layer by layer: JAX wrote the stacked K/V in one update
         cache.k[layer, :, :S] = k.to(cache.k.dtype)
         cache.v[layer, :, :S] = v.to(cache.v.dtype)
-    cache.pos = S
+    cache.pos.fill_(S)
     logits = unembed(params, cfg, x[:, -1:, :])
     return logits[:, 0], cache
 

@@ -21,9 +21,16 @@ prefix (``prefix_cache``), skips their chunks, forks a shared block
 copy-on-write before its first write into it, and every decode step runs
 the prefix kernel, which reads each shared page once per group.
 
-Host state (positions, block tables, the prefix grouping) lives in numpy
-and goes to the card as one int32 copy each per step; the only sync of a
-step reads back the sampled tokens.
+Each step kind runs through the step cache (``step_cache``, the
+counterpart of the reference's compiled-step cache): one ``StepGraph`` per
+(kind, plan, shape class), whose body reads static device buffers. Host
+state (tokens, positions, block tables, the prefix grouping) lives in
+numpy and is fed into those buffers by one copy each from pinned host
+memory before the step; the only sync of a step reads back the sampled
+tokens. On the card (``capture_steps``, the default there) each step is
+captured into a CUDA graph after its first, eager run and replayed from
+then on; the graph ends at the logits and sampling runs after it. On the
+CPU the same bodies run eagerly from the same buffers.
 
 Bound to a ``HAPSession`` (or given a pinned ``hap_plan``) the engine
 follows the plan: each static batch, and each continuous admission,
@@ -53,7 +60,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,12 +71,13 @@ from repro_torch.core.hap import HAPPlan
 from repro_torch.core.quantization import pick_group_size
 from repro_torch.core.transition import TransitionExecutor
 from repro_torch.device import resolve_device
-from repro_torch.models import DecodeCache, decode_step, init_paged_cache, prefill
+from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_cache, prefill
 
 from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, blocks_for
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, sample
 from .scheduler import ContinuousScheduler, QueuedRequest, round_up
+from .step_cache import StepCache, StepGraph
 
 log = logging.getLogger("repro_torch.serving")
 
@@ -80,7 +88,7 @@ _EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
 class Request:
     prompt: Sequence[int]
     max_new_tokens: int = 32
-    deadline_ms: Optional[float] = None  # not ported yet (ROADMAP A.8)
+    deadline_ms: Optional[float] = None  # not ported yet (ROADMAP A.5)
 
 
 @dataclasses.dataclass
@@ -153,8 +161,8 @@ class _Slot:
 @dataclasses.dataclass
 class _LiveBatch:
     """The in-flight set: per-slot state, the block pool and its host
-    mirrors (``pos`` per row, ``tables`` trash-padded), pinned into the
-    cache before every step so drained rows stay frozen."""
+    mirrors (``pos`` per row, ``tables`` trash-padded), fed into the step's
+    buffers before every step so drained rows stay frozen."""
 
     kv_capacity: int  # logical per-row KV length (tokens)
     slots: List[Optional[_Slot]]
@@ -204,14 +212,23 @@ class InferenceEngine:
         faults=None,
         replicate_experts: int = 0,
         prefetch: bool = False,
+        capture_steps: Optional[bool] = None,
     ):
         if session is not None and session.mesh is not None:
-            raise _not_ported("serving a HAPSession plan over a multi-card mesh", "A.6")
+            raise _not_ported("serving a HAPSession plan over a multi-card mesh", "A.3")
         if kv_overcommit is not None or faults is not None:
-            raise _not_ported("kv_overcommit, preemption and fault injection (DESIGN.md §4f)", "A.8")
+            raise _not_ported("kv_overcommit, preemption and fault injection (DESIGN.md §4f)", "A.5")
         if replicate_experts or prefetch:
-            raise _not_ported("the routing tracker (expert replication, prefetch)", "A.7")
+            raise _not_ported("the routing tracker (expert replication, prefetch)", "A.4")
         self.device = resolve_device(device)
+        # step capture: None means on for the card, off for the CPU; False on
+        # the card is the eager A/B (the same bodies and buffers, op by op)
+        if capture_steps is None:
+            capture_steps = self.device.type == "cuda"
+        if capture_steps and self.device.type != "cuda":
+            raise ValueError(f"capture_steps=True captures CUDA graphs; the engine runs on {self.device}")
+        self.steps = StepCache(self.device, capture_steps)
+        self._static: Optional[Tuple[Tuple[int, int], DecodeCache]] = None  # ((B, max_len), its contiguous cache)
         self.cfg = cfg
         self.params = params
         self.session = session  # HAPSession (adaptive mode) or None
@@ -228,7 +245,7 @@ class InferenceEngine:
         if prefix_cache and paged is False:
             raise ValueError("prefix_cache requires the paged KV path")
         if paged is False:
-            raise _not_ported("the contiguous continuous fallback (paged=False)", "A.4")
+            raise _not_ported("the contiguous continuous fallback (paged=False)", "A.6")
         self.kv_block_size = kv_block_size
         self.kv_blocks = kv_blocks  # pool size override (blocks, sans trash)
         self.prefill_chunk = prefill_chunk  # None => one chunk per bucket
@@ -266,9 +283,11 @@ class InferenceEngine:
 
     def _set_expert_leaves(self, leaves: Dict[str, Any]) -> None:
         """Install new expert leaves in a shallow copy of the params tree
-        (the caller's dict is left as it was)."""
+        (the caller's dict is left as it was). The leaves are new tensors,
+        so every step graph, which reads the old ones, is dropped."""
         moe = dict(self.params["layers"]["moe"], **leaves)
         self.params = dict(self.params, layers=dict(self.params["layers"], moe=moe))
+        self.steps.new_weights()
 
     def _backup_experts(self) -> None:
         for name, w in self._expert_leaves().items():
@@ -470,17 +489,19 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Drain an in-flight background restore and stop the executor's
-        worker thread."""
+        worker thread; release the step graphs and the static cache."""
         self._drop_pending_restore()
         self._tx.close()
+        self.steps.clear()
+        self._static = None
 
     def submit(self, req: Request) -> int:
         if req.deadline_ms is not None:
-            raise _not_ported("request deadlines (DESIGN.md §4f)", "A.8")
+            raise _not_ported("request deadlines (DESIGN.md §4f)", "A.5")
         return self.scheduler.submit(req.prompt, req.max_new_tokens)
 
     def cancel(self, uid: int) -> bool:
-        raise _not_ported("request cancellation (DESIGN.md §4f)", "A.8")
+        raise _not_ported("request cancellation (DESIGN.md §4f)", "A.5")
 
     def _sync(self) -> None:
         """Wait for the serving stream (the timers' end point). Not the whole
@@ -494,6 +515,63 @@ class InferenceEngine:
         if sampling.temperature <= 0:
             return None
         return torch.Generator(device=self.device).manual_seed(sampling.seed)
+
+    # -- captured steps (the reference's _jit / _fn_cache) ---------------
+    # Every key's plan slot is None: on one card every plan runs the same
+    # layout, so a replan reuses the graphs, as it reuses the reference's jit
+    # entries (multi-card plans are ROADMAP A.3).
+    def _run_step(self, g: StepGraph) -> torch.Tensor:
+        """Run a fed step. No capture while a background restore is in
+        flight: the joined leaves are installed at the barrier, which drops
+        every graph that reads the old ones."""
+        return self.steps.run(g, may_capture=self._pending_restore is None)
+
+    def _static_cache(self, B: int, max_len: int) -> DecodeCache:
+        """The contiguous cache of (B, max_len), kept across batches of that
+        shape: the static steps' graphs read its tensors. Only one is kept: a
+        batch of another shape releases it and drops its graphs first, so
+        varied output budgets do not pile up caches and graph pools."""
+        if self._static is None or self._static[0] != (B, max_len):
+            self._static = None
+            self.steps.new_cache("static")
+            cache = init_cache(self.cfg, B, max_len, dtype=self.params["embed"].dtype, device=self.device)
+            self._static = ((B, max_len), cache)
+        return self._static[1]
+
+    def _prefill_step(self, toks: np.ndarray, max_len: int) -> torch.Tensor:
+        """Prefill the padded prompts ``toks`` (B, S) into the (B, max_len)
+        cache; returns the last position's logits (B, V)."""
+        B, S = toks.shape
+        cache = self._static_cache(B, max_len)
+
+        def body(g: StepGraph) -> torch.Tensor:
+            logits, _ = prefill(self.params, self.cfg, {"tokens": g.bufs["tokens"]}, max_len,
+                                backend=self.kernel_backend, cache=cache)
+            return logits
+
+        g = self.steps.graph(("prefill", None, B, S, max_len),
+                             lambda: self.steps.buffers(tokens=((B, S), torch.long)), body, "static")
+        g.feed("tokens", toks)
+        return self._run_step(g)
+
+    def _decode_step_static(self, tok: torch.Tensor, pos: int, max_len: int) -> torch.Tensor:
+        """One lockstep decode step of the (B, max_len) cache: ``tok`` (B,)
+        written at ``pos``; returns the logits (B, V). The position is fed,
+        not advanced inside the step, so the body stays a function of its
+        buffers."""
+        B = tok.shape[0]
+        cache = self._static_cache(B, max_len)
+
+        def body(g: StepGraph) -> torch.Tensor:
+            logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend)
+            return logits
+
+        g = self.steps.graph(("decode", None, B, max_len),
+                             lambda: dict(self.steps.buffers(tokens=((B, 1), torch.long)), pos=cache.pos), body,
+                             "static")
+        g.feed("tokens", tok[:, None])
+        g.feed("pos", pos)
+        return self._run_step(g)
 
     # -- static batching ----------------------------------------------------
     def run(self, sampling: Optional[SamplingParams] = None) -> List[Completion]:
@@ -513,7 +591,6 @@ class InferenceEngine:
         max_new = max(r.max_new_tokens for r in batch)
         max_len = S + max_new + 1
         self.stats.batches += 1
-        be = self.kernel_backend
         gen = self._generator(sampling)
 
         with torch.inference_mode():
@@ -526,8 +603,7 @@ class InferenceEngine:
             self._begin_async_restore("decode")
             self._sync()
             t0 = time.perf_counter()
-            tokens = torch.as_tensor(toks, dtype=torch.long).to(self.device)
-            logits, cache = prefill(self.params, self.cfg, {"tokens": tokens}, max_len, backend=be)
+            logits = self._prefill_step(toks, max_len)
             self._sync()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             transition_ms = self._book_transition(inter_ms + self.transition_expert_layout())
@@ -541,7 +617,7 @@ class InferenceEngine:
                 generated[:, step] = np.where(done, self.eos_id, host_tok)
                 if step == max_new - 1:
                     break
-                logits, cache = decode_step(self.params, self.cfg, next_tok[:, None], cache, backend=be)
+                logits = self._decode_step_static(next_tok, S + step, max_len)
                 next_tok = sample(logits, sampling, gen)
                 if self.eos_id >= 0:
                     done |= next_tok.cpu().numpy() == self.eos_id
@@ -581,7 +657,7 @@ class InferenceEngine:
                 if not self.step(sampling, gen):
                     # nothing runnable: the queue head outgrows this
                     # generation's tables; drain and resize
-                    self._live = None
+                    self._end_live_batch()
                     continue
                 out.extend(self.retire())
         return sorted(out, key=lambda c: c.uid)
@@ -601,6 +677,7 @@ class InferenceEngine:
         pool = max(pool, max(needs))  # the head must stay admittable
         allocator = BlockAllocator(pool + 1, bs)
         self.kv_pool_blocks = pool
+        self._end_live_batch()
         self._live = _LiveBatch(
             kv_capacity=max_blocks * bs,
             slots=[None] * nslots,
@@ -615,6 +692,12 @@ class InferenceEngine:
             prefix=PrefixCache(allocator) if self.prefix_caching else None,
         )
         self.stats.batches += 1
+
+    def _end_live_batch(self) -> None:
+        """Release the live batch and drop the step graphs that read its
+        pool and tables (their memory goes back to the allocator)."""
+        self._live = None
+        self.steps.new_cache("live")
 
     def admit(self) -> List[int]:
         """Admit queue-head requests into free slots (strict FIFO) while the
@@ -756,34 +839,64 @@ class InferenceEngine:
                 nsh[i] = s.table.n_shared
         return np.stack([reps, nsh])
 
-    def _pinned_cache(self, decode: bool) -> DecodeCache:
-        """The live cache with the host's positions, tables and (with the
-        prefix cache on) group map pinned in, one int32 copy each. ``decode``:
-        a decode step reads the group map (a lone chunk does not)."""
-        live = self._live
-        dev = self.device
-        groups = None
-        if live.prefix is not None:
-            arrays = self._prefix_group_arrays()
-            if decode and (arrays[0] != np.arange(arrays.shape[1])).any():
-                self.stats.prefix_grouped_steps += 1
-            groups = torch.tensor(arrays, device=dev)
-        return dataclasses.replace(
-            live.cache,
-            pos=torch.tensor(live.pos, device=dev),
-            block_tables=torch.tensor(live.tables, device=dev),
-            prefix_groups=groups,
-        )
+    def _groups(self, decode: bool) -> Optional[np.ndarray]:
+        """The prefix-group operand to feed (None with the prefix cache off);
+        ``decode``: a decode step reads it (a lone chunk does not), and one
+        that reads a shared run through another row's table is counted."""
+        if self._live.prefix is None:
+            return None
+        arrays = self._prefix_group_arrays()
+        if decode and (arrays[0] != np.arange(arrays.shape[1])).any():
+            self.stats.prefix_grouped_steps += 1
+        return arrays
 
-    def _chunk_append(self, tok: torch.Tensor, i: int, cache: DecodeCache) -> torch.Tensor:
-        """Append a (1, C) prompt chunk through row ``i``'s table; returns the
-        last position's logits (1, V). The row's table already holds any
-        adopted blocks, so the chunk takes no group indirection."""
-        sub = dataclasses.replace(
-            cache, pos=cache.pos[i : i + 1], block_tables=cache.block_tables[i : i + 1], prefix_groups=None
-        )
-        logits, _ = decode_step(self.params, self.cfg, tok, sub, backend=self.kernel_backend)
+    def _chunk_half(self, g: StepGraph) -> torch.Tensor:
+        """Append the (1, C) prompt chunk through the chunk row's own
+        position and table buffers; returns its last position's logits
+        (1, V). The row's table already holds any adopted blocks, so the
+        chunk takes no group indirection."""
+        sub = DecodeCache(k=self._live.cache.k, v=self._live.cache.v, pos=g.bufs["chunk_pos"],
+                          block_tables=g.bufs["chunk_table"])
+        logits, _ = decode_step(self.params, self.cfg, g.bufs["chunk"], sub, backend=self.kernel_backend)
         return logits
+
+    def _decode_half(self, g: StepGraph) -> torch.Tensor:
+        """A decode step over every slot through the step's position, table
+        and group buffers; returns the logits (nslots, V)."""
+        cache = DecodeCache(k=self._live.cache.k, v=self._live.cache.v, pos=g.bufs["pos"],
+                            block_tables=g.bufs["tables"], prefix_groups=g.bufs.get("groups"))
+        logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend)
+        return logits
+
+    def _fused_body(self, g: StepGraph) -> torch.Tensor:
+        """The chunk half, then the decode half, as one step (the
+        reference's ``_fused_fn`` is one jit). The two halves read two
+        position buffers: the chunk row's own, and every slot's with the
+        joiner already past its chunk."""
+        self._chunk_half(g)
+        return self._decode_half(g)
+
+    def _live_step(self, kind: str, C: int = 0) -> StepGraph:
+        """The live batch's step of ``kind`` ("chunk", "paged_decode" or
+        "fused") for a C-token chunk, keyed as the reference's jit entries
+        plus the shape class."""
+        live = self._live
+        n, mb, pfx = len(live.slots), live.max_blocks, live.prefix is not None
+        specs = {}
+        if kind in ("chunk", "fused"):
+            specs.update(chunk=((1, C), torch.long), chunk_pos=((1,), torch.int32),
+                         chunk_table=((1, mb), torch.int32))
+        if kind in ("paged_decode", "fused"):
+            specs.update(tokens=((n, 1), torch.long), pos=((n,), torch.int32), tables=((n, mb), torch.int32))
+            if pfx:
+                specs["groups"] = ((2, n), torch.int32)
+        if kind == "chunk":
+            key, body = ("chunk", None, C, n, mb), self._chunk_half
+        elif kind == "paged_decode":
+            key, body = ("paged_decode", None, n, mb, pfx), self._decode_half
+        else:
+            key, body = ("fused", None, C, n, mb, pfx), self._fused_body
+        return self.steps.graph(key, lambda: self.steps.buffers(**specs), body, "live")
 
     def _prefill_chunk_step(self, i: int, active: List[int], sampling: SamplingParams, gen) -> None:
         """Process joiner ``i``'s next prompt chunk; fuse it with a decode
@@ -801,18 +914,24 @@ class InferenceEngine:
                 self._ensure_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
         s.pending.pop(0)
         self.stats.prefill_chunks += 1
-        cache = self._pinned_cache(decode=fused)
-        tok = torch.tensor(chunk[None, :], dtype=torch.long, device=self.device)
-        t0 = time.perf_counter()
-        logits = self._chunk_append(tok, i, cache)
+        g = self._live_step("fused" if fused else "chunk", C)
+        g.feed("chunk", chunk[None, :])
+        g.feed("chunk_pos", live.pos[i : i + 1])
+        g.feed("chunk_table", live.tables[i : i + 1])
         s.filled += C
         live.pos[i] = s.filled
         if fused:
             # the decode half sees the joiner past its chunk, as the
-            # reference's fused step does; tables and groups are unchanged
-            cache = dataclasses.replace(cache, pos=torch.tensor(live.pos, device=self.device))
-            next_tok = torch.tensor(live.next_tok, dtype=torch.long, device=self.device)
-            logits, _ = decode_step(self.params, self.cfg, next_tok[:, None], cache, backend=self.kernel_backend)
+            # reference's fused step does; tables and groups are the chunk's
+            g.feed("tokens", live.next_tok[:, None])
+            g.feed("pos", live.pos)
+            g.feed("tables", live.tables)
+            groups = self._groups(decode=True)
+            if groups is not None:
+                g.feed("groups", groups)
+        t0 = time.perf_counter()
+        if fused:
+            logits = self._run_step(g)
             toks = sample(logits, sampling, gen).cpu().numpy()
             step_ms = (time.perf_counter() - t0) * 1e3
             # booked once, as the live rows' decode step; the joiner's
@@ -821,6 +940,7 @@ class InferenceEngine:
             self.stats.fused_steps += 1
             self._apply_sampled(toks, active, step_ms)
             return
+        logits = self._run_step(g)
         if final:
             tok0 = int(sample(logits, sampling, gen).cpu()[0])
         else:
@@ -857,10 +977,15 @@ class InferenceEngine:
         active = live.active()
         for j in active:
             self._ensure_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
-        cache = self._pinned_cache(decode=True)
-        next_tok = torch.tensor(live.next_tok, dtype=torch.long, device=self.device)
+        g = self._live_step("paged_decode")
+        g.feed("tokens", live.next_tok[:, None])
+        g.feed("pos", live.pos)
+        g.feed("tables", live.tables)
+        groups = self._groups(decode=True)
+        if groups is not None:
+            g.feed("groups", groups)
         t0 = time.perf_counter()
-        logits, _ = decode_step(self.params, self.cfg, next_tok[:, None], cache, backend=self.kernel_backend)
+        logits = self._run_step(g)
         toks = sample(logits, sampling, gen).cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1e3
         self.stats.decode_steps += 1

@@ -238,7 +238,7 @@ def test_engine_mirrors_and_groups(moe_setup):
         (dict(paged=False, prefix_cache=True), ValueError),
         (dict(kv_overcommit=0.5), NotImplementedError),
         (dict(faults=object()), NotImplementedError),
-        (dict(session=types.SimpleNamespace(mesh="a multi-card mesh")), NotImplementedError),  # A.6
+        (dict(session=types.SimpleNamespace(mesh="a multi-card mesh")), NotImplementedError),  # A.3
         (dict(replicate_experts=2), NotImplementedError),
         (dict(prefetch=True), NotImplementedError),
         (dict(kv_block_size=0), ValueError),
@@ -253,7 +253,7 @@ def test_unported_and_invalid_options_raise(moe_setup, kw, err):
 def test_deadlines_and_cancel_raise(moe_setup):
     _, cfg_t, _, tparams = moe_setup
     eng = InferenceEngine(cfg_t, tparams, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="A.5"):
         eng.submit(Request(prompt=[1, 2], deadline_ms=5.0))
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="A.5"):
         eng.cancel(0)

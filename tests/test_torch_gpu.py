@@ -502,3 +502,150 @@ def test_async_restore_on_the_side_stream():
             if resident:
                 assert ops.LAUNCH_COUNTS["int4_dequant"] == ops.LAUNCH_COUNTS["grouped_matmul"]
         assert toks[True] == toks[False]
+
+
+# ---------------------------------------------------------------------------
+# captured serving steps (repro_torch.serving.step_cache)
+# ---------------------------------------------------------------------------
+def _spy_logits(monkeypatch):
+    """Record a copy of every logits tensor the engine samples from; of a
+    continuous step, the rows whose tokens are used (an empty or drained
+    slot reads and writes the shared trash page, which several such rows
+    may write in one launch, so its logits are not defined)."""
+    from repro_torch.serving import engine as engine_mod
+
+    seen = []
+    orig, apply = engine_mod.sample, engine_mod.InferenceEngine._apply_sampled
+
+    def spy(logits, params, generator=None):
+        seen.append(logits.clone())
+        return orig(logits, params, generator)
+
+    def rows(self, toks, active, step_ms):
+        seen[-1] = seen[-1][active]
+        return apply(self, toks, active, step_ms)
+
+    monkeypatch.setattr(engine_mod, "sample", spy)
+    monkeypatch.setattr(engine_mod.InferenceEngine, "_apply_sampled", rows)
+    return seen
+
+
+def _served_both_ways(make, reqs, continuous):
+    """Serve ``reqs`` eagerly and captured on fresh engines from ``make``;
+    returns {capture: (tokens, logits, launches, variants, dispatch, engine)}."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serving import Request
+
+    runs = {}
+    for capture in (False, True):
+        eng = make(capture)
+        for p, g in reqs:
+            eng.submit(Request(prompt=p, max_new_tokens=g))
+        ops.reset_counts()
+        with pytest.MonkeyPatch.context() as mp:
+            seen = _spy_logits(mp)
+            comps = eng.serve_continuous() if continuous else eng.run()
+        torch.cuda.synchronize()
+        runs[capture] = ([c.tokens for c in comps], list(seen), dict(_build.LAUNCH_COUNTS),
+                         dict(_build.VARIANT_COUNTS), dict(ops.DISPATCH_COUNTS), eng)
+        eng.close()
+    return runs
+
+
+@pytest.mark.parametrize("mode", ["run", "continuous", "resident"])
+def test_captured_steps_equal_eager_on_the_card(mode):
+    """Reduced DeepSeekMoE-16B in bf16 on the hopper backend: the captured
+    steps give the eager steps' tokens, every sampled logits tensor bit for
+    bit (the same kernels on the same buffers; the repo's kernels use no
+    atomics), and the same launch, variant and dispatch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HAPSession, fixed_plan
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    shared = list(range(1, 21))
+    if mode == "run":
+        reqs = [([1, 2, 3, 4], 6), ([5, 6, 7, 8, 9, 10], 6), ([11, 12, 13], 6), (list(range(14, 30)), 6)]
+
+        def make(capture):
+            return InferenceEngine(cfg, params, max_batch=2, capture_steps=capture)
+    elif mode == "continuous":
+        reqs = [([3, 1, 4, 1, 5], 8), (shared + [40, 41], 6), (shared + [40, 41], 4), (shared + [40, 41], 4)]
+
+        def make(capture):
+            eng = InferenceEngine(cfg, params, max_batch=3, prefill_chunk=8, kv_block_size=8, prefix_cache=True,
+                                  capture_steps=capture)
+            eng.scheduler.bucket = 16
+            return eng
+    else:
+        reqs = [([1, 2, 3, 4], 6), ([5, 6, 7, 8, 9, 10], 6), (list(range(11, 31)), 6)]
+
+        def make(capture):
+            session = HAPSession(cfg, "h100", 1, source=fixed_plan("TP1", "TP2", "EP2", mechanism="int4_upload"),
+                                 prompt_bucket=16)
+            return session.engine(params, max_batch=2, resident_int4=True, use_int4_transition=True,
+                                  capture_steps=capture)
+    runs = _served_both_ways(make, reqs, mode == "continuous")
+    eager, captured = runs[False], runs[True]
+    assert captured[0] == eager[0]
+    assert len(captured[1]) == len(eager[1]) > 0
+    for a, b in zip(captured[1], eager[1]):
+        assert torch.equal(a, b)
+    assert captured[2:5] == eager[2:5]
+    assert not any(k.split(".")[1].startswith("ref") for k in captured[4])
+    st = captured[5].steps.stats
+    assert st.captures > 0 and st.replays > 0
+    assert eager[5].steps.stats.captures == 0
+    if mode == "resident":
+        assert captured[2]["int4_dequant"] == captured[2]["grouped_matmul"]
+
+
+def test_replay_after_a_leaf_install_reads_the_new_leaves():
+    """After the engine installs new expert leaves, its steps are captured
+    anew and replay the new leaves: the tokens equal an eager engine's on
+    the new weights, and differ from the old weights' tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine, Request
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompts = ([1, 2, 3, 4], [5, 6, 7, 8, 9, 10])
+
+    def serve(eng):
+        for p in prompts:
+            eng.submit(Request(prompt=p, max_new_tokens=8))
+        return [c.tokens for c in eng.run()]
+
+    eng = InferenceEngine(cfg, params, max_batch=2)
+    old = serve(eng)
+    assert eng.steps.stats.captures == 1 and eng.steps.stats.replays > 0  # decode; the prefill ran once
+    moe = eng.params["layers"]["moe"]
+    new = {n: moe[n] * -1.5 for n in ("wi_gate", "wi_up", "wo")}
+    eng._set_expert_leaves(new)
+    assert len(eng.steps) == 0
+    got = serve(eng)
+    assert eng.steps.stats.captures == 2
+    want = serve(InferenceEngine(cfg, eng.params, max_batch=2, capture_steps=False))
+    assert got == want and got != old
+
+
+def test_a_failing_capture_raises_on_the_card():
+    """A step body that syncs with the host cannot be captured: the capture
+    raises and nothing runs the step eagerly in its place."""
+    from repro_torch.serving.step_cache import StepCache
+
+    dev = _card()
+    steps = StepCache(dev, True)
+    g = steps.graph(("decode", None, 1), lambda: steps.buffers(x=((4,), torch.float32)),
+                    lambda g: g.bufs["x"] * float(g.bufs["x"].sum().item()), "static")
+    g.feed("x", np.ones(4, np.float32))
+    steps.run(g, may_capture=False)  # eager: a host sync is allowed there
+    with pytest.raises(RuntimeError):
+        steps.run(g)
+    assert g.graph is None and steps.stats.captures == 0
+    torch.cuda.synchronize()

@@ -117,7 +117,7 @@ def test_executor_async_and_identity_reshard():
     with pytest.raises(ValueError, match="flat"):
         tx.restore_packed("w")
     assert TransitionExecutor.reshard(w) is w
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.3"):
         TransitionExecutor.reshard(w, sharding=object())
     tx.close()
     assert tx._pool is None
@@ -389,8 +389,8 @@ def test_stalled_restore_trips_watchdog_falls_back(moe_setup):
 
 
 def test_not_ported_knobs_raise(moe_setup):
-    for kw, item in ((dict(faults=object()), "A.8"), (dict(kv_overcommit=0.5), "A.8"),
-                     (dict(replicate_experts=2), "A.7"), (dict(prefetch=True), "A.7")):
+    for kw, item in ((dict(faults=object()), "A.5"), (dict(kv_overcommit=0.5), "A.5"),
+                     (dict(replicate_experts=2), "A.4"), (dict(prefetch=True), "A.4")):
         with pytest.raises(NotImplementedError, match=item):
             _port_engine(moe_setup, **kw)
     dense = dataclasses.replace(moe_setup[1], ffn_type="dense")

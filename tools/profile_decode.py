@@ -27,6 +27,18 @@ resident INT4 ``QuantizedExpert``s (``ops.quantize_weight``), so every
 expert matmul runs ``int4_dequant`` and then the grouped matmul; it combines
 with ``--continuous``.
 
+With ``--captured`` it drives the engine's own steps instead
+(``InferenceEngine`` with ``capture_steps`` False and True) in three cells,
+each in the order eager, captured, captured, eager: ``static`` (the same 4
+prompts through the engine's prefill step and ``--steps`` lockstep decode
+steps, after two warm-up passes: a step is captured on its second run),
+``continuous`` (the continuous traffic above, prefix cache on; each run
+captures its own graphs, as a new live batch does) and ``resident`` (the static cell on
+resident INT4 leaves). Each run prints ``timing`` (unprofiled) and
+``profile`` (traced) lines with ``capture_steps`` and its place in the order,
+and the static and resident runs a line of launches per kernel for one
+prefill and the decode steps.
+
 The profiler adds host overhead of its own, so the idle share it shows is
 an upper bound; ``timing`` is the undisturbed wall clock.
 """
@@ -34,6 +46,7 @@ an upper bound; ``timing`` is the undisturbed wall clock.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -54,6 +67,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true", help="profile the continuous traffic instead")
     ap.add_argument("--resident", action="store_true", help="serve the experts from resident INT4 leaves")
+    ap.add_argument("--captured", action="store_true",
+                    help="eager against captured engine steps: static, continuous and resident cells")
     args = ap.parse_args()
 
     import numpy as np
@@ -69,14 +84,11 @@ def main() -> int:
     cfg = get_config("deepseek-moe-16b")
     dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if args.captured:
+        profile_captured(cfg, params, args)
+        return 0
     if args.resident:
-        from repro_torch.kernels import ops
-
-        moe = params["layers"]["moe"]
-        packed = {n: ops.quantize_weight(moe[n]) for n in ("wi_gate", "wi_up", "wo")}
-        params = dict(params, layers=dict(params["layers"], moe=dict(moe, **packed)))
-        del moe
-        torch.cuda.empty_cache()
+        params = resident(params)
     if args.continuous:
         profile_continuous(cfg, params)
         return 0
@@ -117,6 +129,118 @@ def main() -> int:
             report(prof, name, wall, n)
     print_card()
     return 0
+
+
+def resident(params):
+    """``params`` with the expert leaves quantized on the card into resident
+    INT4 ``QuantizedExpert``s (the dense leaves freed)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    moe = params["layers"]["moe"]
+    packed = {n: ops.quantize_weight(moe[n]) for n in ("wi_gate", "wi_up", "wo")}
+    params = dict(params, layers=dict(params["layers"], moe=dict(moe, **packed)))
+    del moe
+    torch.cuda.empty_cache()
+    return params
+
+
+AB_ORDER = (False, True, True, False)
+
+
+def profile_captured(cfg, params, args) -> None:
+    """The ``--captured`` cells: static, continuous (prefix cache on) and
+    resident, each eager and captured in ``AB_ORDER``."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import CONT_BLOCK, CONT_MAX_BATCH, cont_requests
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serving import InferenceEngine, Request
+
+    B, S, new = 4, 128, args.steps
+    max_len = S + new + 1
+    toks = np.random.default_rng(args.seed).integers(1, cfg.vocab_size, (B, S))
+
+    def static_cell(what, params):
+        for order, capture in enumerate(AB_ORDER):
+            eng = InferenceEngine(cfg, params, max_batch=B, capture_steps=capture)
+            tag = {"cell": what, "capture_steps": capture, "order": order}
+
+            def prefill():
+                tok = eng._prefill_step(toks, max_len).argmax(-1)
+                tok.cpu()  # the engine's host sync
+                return tok
+
+            def decode(tok):
+                for i in range(new):
+                    tok = eng._decode_step_static(tok, S + i, max_len).argmax(-1)
+                    tok.cpu()
+                return tok
+
+            with torch.inference_mode():
+                for _ in range(2):  # warm-up: the first (eager) runs, then the captures
+                    decode(prefill())
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_counts()
+                t0 = time.perf_counter()
+                tok = prefill()
+                t1 = time.perf_counter()
+                decode(tok)
+                t2 = time.perf_counter()
+                emit({"phase": "timing", **tag, "prefill_ms": (t1 - t0) * 1e3,
+                      "decode_ms_per_step": (t2 - t1) * 1e3 / new,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "launches": dict(_build.LAUNCH_COUNTS), "steps": dataclasses.asdict(eng.steps.stats)})
+                for name, fn, n in (("prefill", prefill, 1), ("decode", lambda: decode(tok), new)):
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        wall = (time.perf_counter() - t0) * 1e3
+                    report(prof, f"{what}_{name}", wall, n, **tag)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def serve(capture):
+        eng = InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=True,
+                              capture_steps=capture)
+        for p, g in cont_requests(cfg):
+            eng.submit(Request(prompt=p, max_new_tokens=g))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.serve_continuous()
+        torch.cuda.synchronize()
+        return eng, (time.perf_counter() - t0) * 1e3
+
+    static_cell("static", params)
+    with torch.inference_mode():
+        serve(True)  # warm-up: cuBLAS, the kernels' plans and workspace
+        for order, capture in enumerate(AB_ORDER):
+            tag = {"cell": "continuous_prefix", "capture_steps": capture, "order": order}
+            eng, wall = serve(capture)
+            st = eng.stats
+            emit({"phase": "timing", **tag, "wall_ms": wall, "decode_steps": st.decode_steps,
+                  "prefill_chunks": st.prefill_chunks, "fused_steps": st.fused_steps,
+                  "decode_step_ms_mean": st.decode_step_ms_sum / st.decode_steps,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "steps": dataclasses.asdict(eng.steps.stats)})
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                eng, wall = serve(capture)
+            report(prof, "continuous_prefix", wall, 1, decode_steps=eng.stats.decode_steps,
+                   prefill_chunks=eng.stats.prefill_chunks, **tag)
+            del eng
+    static_cell("resident", resident(params))
+    print_card()
 
 
 def print_card() -> None:
