@@ -12,7 +12,11 @@ printing one JSON line:
              flash and the grouped matmul also at a 2048-token prompt and at
              the fused-step capacity, the paged kernel also at a 64-token
              prefill chunk; each row naming the variant its launch plan took
-             (wgmma / split / simt), two calls bit-equal
+             (wgmma / split / simt), two calls bit-equal; and rows at the
+             families' shapes (``also``, each naming its ``model``): flash,
+             paged and prefix at head dim 256 (Gemma-2-9B), paged at
+             Qwen3-30B-A3B's 8-query GQA group, the grouped matmul at
+             Qwen3's 128 experts and Mixtral's 8
 3. serve   - DeepSeekMoE-16B at full width and depth (28 layers, bf16,
              seeded random weights): 8 requests through
              ``InferenceEngine.run()``, with the launch counts of that run
@@ -37,6 +41,16 @@ printing one JSON line:
              pinned plan with ``use_int4_transition=True``: async and sync
              tokens equal, restored leaves bit-equal to the numpy dequant
              of the same backup, the restores' int4_dequant launches counted
+8. families - DeepSeek's weights freed, then three more families, each at
+             full width on seeded random weights, freed before the next:
+             Qwen3-30B-A3B (48 layers, 128 experts top-8, GQA 32/4): the
+             serve phase's ``run()`` eager and captured, the agree check,
+             and the continuous traffic with the prefix cache off and on
+             (equal tokens); Gemma-2-9B (42 layers, head dim 256, softcaps,
+             alternating 4096-token window): ``run()``, agree, and the
+             continuous traffic with the prefix cache on; Mixtral-8x7B at
+             its first 16 of 32 layers (93.4 GB in bf16 does not fit the
+             80 GB card): ``run()`` and agree. Each prints its peak memory
 
 Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
 default on the card; ``repro_torch.serving.step_cache``). The serve phase,
@@ -66,6 +80,7 @@ Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -104,13 +119,33 @@ CONT_MAX_NEW = (8, 16, 32)  # cycled over the requests
 # the attention kernels keep the softmax probabilities in float32 for P@V
 # where the ref path rounds them to bfloat16, and the paths sum in other
 # orders, each bf16 result rounding at 2^-8 relative. Through 28 layers of
-# random weights such differences grow, and where the router's top-6 has a
+# random weights such differences grow, and where the router's top-k has a
 # near-tie the two paths pick another expert for a token. The same kernels
 # agree with ref to 1e-4 in float32 (tests/test_torch_gpu.py), so what is
 # left is rounding. A wrong kernel gives unrelated logits: relative L2
-# error near sqrt(2). The bounds sit above what the H100 showed (PERF.md).
-AGREE_L2_TOL = 0.25  # ||hopper - ref|| / ||ref|| over each step's (B, V) logits
-AGREE_MAX_TOL = 0.5  # max |hopper - ref| / max |ref| over each step's logits
+# error near sqrt(2). The bounds sit above what the H100 showed (PERF.md),
+# where the rel L2 is ||hopper - ref|| / ||ref|| and the max relative error
+# max |hopper - ref| / max |ref|, each over one step's (B, V) logits. With
+# the ref path on the hopper path's experts the near-ties drop out: the
+# H100 showed rel L2 0.010-0.020 on every step of DeepSeek, Qwen3 and
+# Mixtral, where each path on its own experts read up to 0.16 on the steps
+# with a flipped expert, so that reading is held to the tighter bound.
+AGREE_TOL = (0.25, 0.5)  # rel L2, max rel: each path routing on its own
+AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's experts
+
+# families phase: (name, layers kept or None for all, continuous runs as
+# prefix-cache settings, agree bounds as AGREE_TOL). Mixtral-8x7B is
+# 93.4 GB in bf16: its first 16 of 32 layers (47.0 GB) fit the 80 GB card.
+# The agree bounds with each path routing on its own sit 2-4x above what
+# the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
+# 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
+# flips an expert where the two paths' router scores near-tie, which moves
+# its logits most (its steps without a flip read 0.018-0.019).
+FAMILIES = (
+    ("qwen3-moe-30b-a3b", None, (False, True), (0.15, 0.2)),
+    ("gemma2-9b", None, (True,), (0.1, 0.1)),
+    ("mixtral-8x7b", 16, (), (0.35, 0.6)),
+)
 
 
 def emit(obj) -> None:
@@ -268,17 +303,16 @@ def phase_kernels(cfg) -> list:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
-    from repro_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     bf16 = torch.bfloat16
     H, hd = cfg.num_heads, cfg.head_dim
     B, S = MAX_BATCH, 128
-    Smax = S + MAX_NEW + 1
 
     def randn(*shape, std=1.0):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, bf16)
@@ -286,75 +320,103 @@ def phase_kernels(cfg) -> list:
     rows = []
 
     # flash attention at the prefill shape, on the model layout's views, and
-    # at one 2048-token prompt
+    # at one 2048-token prompt; then at the families' prefill shapes:
+    # Gemma-2-9B's head dim 256 (16 q heads over 8 KV heads, softcap 50,
+    # scale 224^-0.5), also at an 8192-token prompt where its 4096-token
+    # window bites, and Qwen3-30B-A3B's and Mixtral-8x7B's groups of 8 and 4
+    g2, q3, mx = (get_config(n) for n in ("gemma2-9b", "qwen3-moe-30b-a3b", "mixtral-8x7b"))
     flash_rows = []
-    for fb, fs in ((B, S), (1, 2048)):
-        q, k, v = (randn(fb, fs, H, hd).transpose(1, 2) for _ in range(3))
+    for model, fb, fs, (Hq, Hkv, fhd, cap, scale), win in (
+        (cfg.name, B, S, attn_of(cfg), 0),
+        (cfg.name, 1, 2048, attn_of(cfg), 0),
+        (g2.name, B, S, attn_of(g2), 0),
+        (g2.name, 1, 8192, attn_of(g2), g2.sliding_window),
+        (q3.name, B, S, attn_of(q3), 0),
+        (mx.name, B, S, attn_of(mx), 0),
+    ):
+        q, k, v = (randn(fb, fs, nh, fhd).transpose(1, 2) for nh in (Hq, Hkv, Hkv))
+        kw = dict(window=win, softcap=cap, scale=scale)
         _build.VARIANT_COUNTS.clear()
-        out = fa.flash_attention(q, k, v)
+        out = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         variant = variant_counts()
-        acc = compare(out, fa.flash_attention_plain(q, k, v), KERNEL_ATOL, KERNEL_RTOL, f"flash_attention S={fs}")
-        if not torch.equal(out, fa.flash_attention(q, k, v)):
-            raise AssertionError(f"flash_attention S={fs}: two calls differ")
-        pairs = fs * (fs + 1) // 2
-        b_ms, b_by = bound(4 * fb * fs * H * hd * 2, 4 * hd * fb * H * pairs)
-        reps = 200 if fs <= 128 else 20
+        acc = compare(out, fa.flash_attention_plain(q, k, v, **kw), KERNEL_ATOL, KERNEL_RTOL,
+                      f"flash_attention S={fs} hd={fhd}")
+        if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention S={fs} hd={fhd}: two calls differ")
+        # q, k, v read once and o written once; 4 flops per (query, valid key, dim)
+        pairs = sum(min(i + 1, win) for i in range(fs)) if win else fs * (fs + 1) // 2
+        b_ms, b_by = bound(2 * fb * fs * (2 * Hq + 2 * Hkv) * fhd, 4 * fhd * fb * Hq * pairs)
+        # the library yardstick: causal (and windowed) SDPA on the same
+        # inputs; SDPA has no softcap, so at softcap rows it computes less
+        mask = None
+        if win:
+            i = torch.arange(fs, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < win)
+        reps = 200 if fs <= 128 else 20 if fs <= 2048 else 5
         flash_rows.append({
-            "shape": f"B={fb} S={fs} H={H} hd={hd} bf16 causal", "variant": variant, **acc, "bit_equal_calls": True,
-            **timed_row(lambda: fa.flash_attention(q, k, v),
-                        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps),
-            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 20 if fs <= 128 else 3),
+            "model": model,
+            "shape": (f"B={fb} S={fs} H={H} hd={hd} bf16 causal" if Hq == Hkv and not (win or cap) else
+                      f"B={fb} S={fs} Hq={Hq} Hkv={Hkv} hd={fhd} window={win} softcap={cap} bf16 causal"),
+            "variant": variant, **acc, "bit_equal_calls": True,
+            **timed_row(lambda: fa.flash_attention(q, k, v, **kw),
+                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=mask is None,
+                                                               scale=scale, enable_gqa=Hq != Hkv), reps),
+            "library_same_function": not cap,
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 20 if fs <= 128 else 3 if fs <= 2048
+                                else 1),
             "bound_ms": b_ms, "bound_by": b_by,
         })
-        del q, k, v, out
+        del q, k, v, out, mask
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:105", **flash_rows[0],
         "library": "torch.nn.functional.scaled_dot_product_attention", "also": flash_rows[1:],
     })
 
-    # paged attention at a decode step: identity table over the contiguous cache
-    pos0 = S + MAX_NEW // 2 - 1
-    qd, kn, vn = randn(B, 1, H, hd), randn(B, 1, H, hd), randn(B, 1, H, hd)
-    kc, vc = randn(B, Smax, H, hd), randn(B, Smax, H, hd)
-    tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-    posv = torch.full((B,), pos0, dtype=torch.int32, device=dev)
-    kc2, vc2 = kc.clone(), vc.clone()
-    _build.VARIANT_COUNTS.clear()
-    out, _, _ = pa.paged_attention(qd, kc, vc, tables, kn, vn, posv)
-    torch.cuda.synchronize()
-    variant = variant_counts()
-    want, kw, vw = pa.paged_attention_plain(qd, kc2, vc2, tables, kn, vn, posv)
-    acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "paged_attention")
-    if not (torch.equal(kc, kw) and torch.equal(vc, vw)):
-        raise AssertionError("paged_attention: appended pages differ from the plain version's")
-    if not torch.equal(out, pa.paged_attention(qd, kc, vc, tables, kn, vn, posv)[0]):
-        raise AssertionError("paged_attention: two calls differ")
-    # q, k_new, v_new and out once; the cached K/V below pos0 read once;
-    # the appended slot written once; 4 flops per (query, key, dim)
-    nbytes = 2 * (4 * B * H * hd + 2 * B * pos0 * H * hd + 2 * B * H * hd)
-    b_ms, b_by = bound(nbytes, 4 * hd * B * H * (pos0 + 1))
+    # paged attention at a decode step: identity table over the contiguous
+    # cache; at a continuous prefill chunk; then at the families' shapes:
+    # Gemma-2-9B (hd 256) at position ~6000, where its 4096-token window
+    # bites, on a block pool, and each family's static decode step and
+    # continuous chunk (Gemma-2's chunk on a local layer)
     rows.append({
         "name": "paged_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:336",
-        "shape": f"B={B} C=1 H={H} hd={hd} Smax={Smax} pos={pos0} identity table bf16", "variant": variant, **acc,
-        "bit_equal_calls": True, **kernel_times(lambda: pa.paged_attention(qd, kc, vc, tables, kn, vn, posv), 200),
-        "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(qd, kc2, vc2, tables, kn, vn, posv), 20),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
-        "also": [paged_chunk_row(cfg, rng, dev)],
+        "replaces": "src/repro/kernels/paged_attention.py:336", **static_decode_case(rng, dev, cfg.name, attn_of(cfg), 0),
+        "library": None,
+        "also": [
+            paged_chunk_row(cfg, rng, dev),
+            pool_decode_row(rng, dev, g2.name, 4, 1, attn_of(g2), 16, 376, [6000, 5890, 5750, 5600], g2.sliding_window),
+            static_decode_case(rng, dev, g2.name, attn_of(g2), 0),
+            static_decode_case(rng, dev, q3.name, attn_of(q3), 0),
+            static_decode_case(rng, dev, mx.name, attn_of(mx), 0),
+            paged_chunk_row(g2, rng, dev, g2.sliding_window),
+            paged_chunk_row(q3, rng, dev),
+        ],
     })
     rows.append(prefix_row(cfg, rng, dev))
+    rows[-1]["also"] = [prefix_case(rng, dev, c.name, attn_of(c)) for c in (g2, q3)]
 
     # grouped matmul: decode (C=8), fused chunk + decode (C=16) and prefill
-    # (C=64) capacities, both layers
+    # (C=64) capacities, both layers; then the families' expert grids:
+    # Qwen3-30B-A3B's 128 experts of 768 at decode (the serve cell's 4 rows
+    # give the minimum capacity, 8) and at a 128-token prefill of 4 rows
+    # (C=40), Mixtral-8x7B's 8 experts of 14336 at C=2, at that decode
+    # capacity and at its prefill (C=160)
     E, d, f = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
+    gmm_specs = [(cfg.name, E, C, d, f) for C in (8, 16, 64)]
+    gmm_specs += [(q3.name, q3.n_routed_experts, C, q3.d_model, q3.moe_d_ff) for C in (8, 40)]
+    gmm_specs += [(mx.name, mx.n_routed_experts, C, mx.d_model, mx.moe_d_ff) for C in (2, 8, 160)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)  # the families' large weights, made on the card
     gmm_rows = []
-    for C in (8, 16, 64):
+    for model, E, C, d, f in gmm_specs:
         for (k_in, n_out), which in (((d, f), "wi"), ((f, d), "wo")):
-            lhs = randn(E, C, k_in)
+            if model == cfg.name:
+                lhs = randn(E, C, k_in)
+                rhs = randn(E, k_in, n_out, std=k_in**-0.5)
+            else:
+                lhs = torch.randn(E, C, k_in, generator=gen, device=dev, dtype=bf16)
+                rhs = torch.randn(E, k_in, n_out, generator=gen, device=dev, dtype=bf16).mul_(k_in**-0.5)
             lhs[:, -1] = 0  # an empty capacity slot
-            rhs = randn(E, k_in, n_out, std=k_in**-0.5)
             _build.VARIANT_COUNTS.clear()
             out = gm.grouped_matmul(lhs, rhs)
             torch.cuda.synchronize()
@@ -366,13 +428,14 @@ def phase_kernels(cfg) -> list:
                 raise AssertionError(f"grouped_matmul C={C} {which}: two calls differ")
             b_ms, b_by = bound(2 * (E * C * k_in + E * k_in * n_out + E * C * n_out), 2 * E * C * k_in * n_out)
             row = {
+                "model": model,
                 "shape": f"E={E} C={C} {k_in}x{n_out} ({which}) bf16", "variant": variant, **acc, "bit_equal_calls": True,
                 **timed_row(lambda: gm.grouped_matmul(lhs, rhs), lambda: torch.bmm(lhs, rhs), 20),
-                "plain_ms": cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs), 5),
+                "plain_ms": cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs), 5 if model == cfg.name else 2),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             row["share_of_bound"] = b_ms / row["ms"]
-            if C == 8 and which == "wi":
+            if model == cfg.name and C == 8 and which == "wi":
                 # the host cost of a tensor-map encode: new lhs buffers each call
                 # (a map-cache miss) against the same buffer (a hit)
                 fresh = [torch.empty_like(lhs) for _ in range(20)]
@@ -434,11 +497,11 @@ def int4_row(cfg, rng, dev) -> dict:
     }
 
 
-def _pages(rng, n, bs, cfg, dev):
+def _pages(rng, n, bs, Hkv, hd, dev):
     import numpy as np
     import torch
 
-    shape = (n, bs, cfg.num_kv_heads, cfg.head_dim)
+    shape = (n, bs, Hkv, hd)
     return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16) for _ in range(2))
 
 
@@ -451,49 +514,90 @@ def _cont_table_width():
     return blocks_for(round_up(CONT_SYSTEM + CONT_OWN + max(CONT_MAX_NEW) + 1, 64), CONT_BLOCK)
 
 
-def paged_chunk_row(cfg, rng, dev) -> dict:
-    """The paged kernel at a continuous prefill chunk: one row, 64 tokens
-    written at position 192 through a table of scattered real pages."""
+def attn_of(cfg) -> tuple:
+    """A model's attention as the kernel rows take it: (q heads, KV heads,
+    head dim, softcap, scale or None for head_dim^-0.5)."""
+    scale = cfg.query_pre_attn_scalar**-0.5 if cfg.query_pre_attn_scalar else None
+    return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.attn_logit_softcap, scale
+
+
+def paged_chunk_row(cfg, rng, dev, window: int = 0) -> dict:
+    """The paged kernel at a continuous prefill chunk of ``cfg``'s model:
+    one row, 64 tokens written at position 192 through a table of scattered
+    real pages; ``window`` > 0 is a local layer's."""
+    return pool_decode_row(rng, dev, cfg.name, 1, 64, attn_of(cfg), CONT_BLOCK, _cont_table_width(), [CONT_SYSTEM],
+                           window)
+
+
+def static_decode_case(rng, dev, model, attn, window) -> dict:
+    """The paged kernel at the serve phase's decode step of ``model``: B=4
+    rows at position 135 through an identity table over the contiguous
+    (B, 145) cache, as ``run()`` launches it; ``attn`` as ``attn_of`` gives
+    it, ``window`` > 0 a local layer's."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
 
-    H, hd, bs, nb, C, p0 = cfg.num_heads, cfg.head_dim, CONT_BLOCK, _cont_table_width(), 64, CONT_SYSTEM
-    N = 8 * nb + 1
-    kp, vp = _pages(rng, N, bs, cfg, dev)
-    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[:nb].astype(np.int32)[None]).to(dev)
-    q, kn, vn = (torch.from_numpy(rng.standard_normal((1, C, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
-                 for _ in range(3))
-    posv = torch.tensor([p0], dtype=torch.int32, device=dev)
-    kp2, vp2 = kp.clone(), vp.clone()
+    Hq, Hkv, hd, cap, scale = attn
+    kw = dict(softcap=cap, scale=scale, window=window)
+    is_global = window == 0
+    B, S = MAX_BATCH, 128
+    Smax, pos0 = S + MAX_NEW + 1, S + MAX_NEW // 2 - 1
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    qd, kn, vn = randn(B, 1, Hq, hd), randn(B, 1, Hkv, hd), randn(B, 1, Hkv, hd)
+    kc, vc = randn(B, Smax, Hkv, hd), randn(B, Smax, Hkv, hd)
+    tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    posv = torch.full((B,), pos0, dtype=torch.int32, device=dev)
+    kc2, vc2 = kc.clone(), vc.clone()
     _build.VARIANT_COUNTS.clear()
-    out, _, _ = pa.paged_attention(q, kp, vp, tables, kn, vn, posv)
+    out, _, _ = pa.paged_attention(qd, kc, vc, tables, kn, vn, posv, is_global, **kw)
     torch.cuda.synchronize()
     variant = variant_counts()
-    want, kw, vw = pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv)
-    acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "paged_attention (chunk)")
-    if not (torch.equal(kp[1:], kw[1:]) and torch.equal(vp[1:], vw[1:])):
-        raise AssertionError("paged_attention (chunk): appended pages differ from the plain version's")
-    if not torch.equal(out, pa.paged_attention(q, kp, vp, tables, kn, vn, posv)[0]):
-        raise AssertionError("paged_attention (chunk): two calls differ")
-    # q, new K/V and out once, the p0 cached keys' K/V once, the chunk's K/V
-    # written once; 4 flops per (query, valid key, dim)
-    pairs = sum(p0 + c + 1 for c in range(C))
-    b_ms, b_by = bound(2 * (4 * C * H * hd + 2 * p0 * H * hd + 2 * C * H * hd), 4 * hd * H * pairs)
+    want, kw_, vw_ = pa.paged_attention_plain(qd, kc2, vc2, tables, kn, vn, posv, is_global, **kw)
+    acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, f"paged_attention static decode ({model})")
+    if not (torch.equal(kc, kw_) and torch.equal(vc, vw_)):
+        raise AssertionError(f"paged_attention ({model}): appended pages differ from the plain version's")
+    if not torch.equal(out, pa.paged_attention(qd, kc, vc, tables, kn, vn, posv, is_global, **kw)[0]):
+        raise AssertionError(f"paged_attention ({model}): two calls differ")
+    # q, k_new, v_new and out once; the cached K/V below pos0 (inside the
+    # window) read once; the appended slot written once; 4 flops per
+    # (query, valid key, dim)
+    cached = min(pos0, window - 1) if window else pos0
+    nbytes = 2 * (2 * B * Hq * hd + 2 * B * Hkv * hd + 2 * B * cached * Hkv * hd + 2 * B * Hkv * hd)
+    b_ms, b_by = bound(nbytes, 4 * hd * B * Hq * (cached + 1))
+    heads = f"H={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
     return {
-        "shape": f"B=1 C={C} H={H} hd={hd} bs={bs} table {nb} scattered pages pos={p0} bf16", "variant": variant,
-        **acc, "bit_equal_calls": True, **kernel_times(lambda: pa.paged_attention(q, kp, vp, tables, kn, vn, posv), 200),
-        "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv), 20),
+        "model": model,
+        "shape": f"B={B} C=1 {heads} hd={hd} Smax={Smax} pos={pos0} identity table"
+                 f"{f' window={window}' if window else ''}{f' softcap={cap}' if cap else ''} bf16",
+        "variant": variant, **acc, "bit_equal_calls": True,
+        **kernel_times(lambda: pa.paged_attention(qd, kc, vc, tables, kn, vn, posv, is_global, **kw), 200),
+        "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(qd, kc2, vc2, tables, kn, vn, posv, is_global, **kw), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
 
 def prefix_row(cfg, rng, dev) -> dict:
-    """The prefix kernel at the continuous decode shape: 8 rows; rows 1-7
-    share 12 leading pages (the 192-token system prompt) with
-    representative row 1; row 0 is on its own."""
+    """The prefix kernel's entry: ``prefix_case`` at the main path's model."""
+    return {
+        "name": "prefix_paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prefix_paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:237",
+        **prefix_case(rng, dev, cfg.name, attn_of(cfg)),
+        "library_ms": None, "library": None,
+    }
+
+
+def prefix_case(rng, dev, model, attn) -> dict:
+    """The prefix kernel at the continuous decode shape of ``model``, whose
+    attention is ``attn`` = (q heads, KV heads, head dim, softcap, scale):
+    8 rows; rows 1-7 share 12 leading pages (the 192-token system prompt)
+    with representative row 1; row 0 is on its own."""
     import numpy as np
     import torch
 
@@ -501,27 +605,30 @@ def prefix_row(cfg, rng, dev) -> dict:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import prefix_paged_attention as ppa
 
-    B, H, hd, bs, nb, shared = CONT_MAX_BATCH, cfg.num_heads, cfg.head_dim, CONT_BLOCK, _cont_table_width(), 12
+    Hq, Hkv, hd, cap, scale = attn
+    kw = dict(softcap=cap, scale=scale)
+    B, bs, nb, shared = CONT_MAX_BATCH, CONT_BLOCK, _cont_table_width(), 12
     N = B * nb + 1
-    kp, vp = _pages(rng, N, bs, cfg, dev)
+    kp, vp = _pages(rng, N, bs, Hkv, hd, dev)
     t = rng.permutation(np.arange(1, N)).astype(np.int32).reshape(B, nb)
     t[2:, :shared] = t[1, :shared]
     pos = np.array([262 + 2 * b for b in range(B)], np.int32)  # depths around 270
     reps = np.array([0] + [1] * (B - 1), np.int32)
     nsh = np.array([0, 0] + [shared] * (B - 2), np.int32)
-    q, kn, vn = (torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
-                 for _ in range(3))
+    q, kn, vn = (torch.from_numpy(rng.standard_normal((B, 1, nh, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+                 for nh in (Hq, Hkv, Hkv))
     tables, posv, reps_t, nsh_t = (torch.from_numpy(a).to(dev) for a in (t, pos, reps, nsh))
     pages = {k: (kp.clone(), vp.clone()) for k in ("kernel", "paged", "plain")}
     _build.VARIANT_COUNTS.clear()
-    out, _, _ = ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, posv, reps_t, nsh_t)
+    out, _, _ = ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, posv, reps_t, nsh_t, **kw)
     torch.cuda.synchronize()
     variant = variant_counts()
-    own, _, _ = pa.paged_attention(q, *pages["paged"], tables, kn, vn, posv)
+    own, _, _ = pa.paged_attention(q, *pages["paged"], tables, kn, vn, posv, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(out, ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, posv, reps_t, nsh_t)[0]):
+    if not torch.equal(out, ppa.prefix_paged_attention(q, *pages["kernel"], tables, kn, vn, posv, reps_t, nsh_t,
+                                                       **kw)[0]):
         raise AssertionError("prefix_paged_attention: two calls differ")
-    want, _, _ = ppa.prefix_paged_attention_plain(q, *pages["plain"], tables, kn, vn, posv, reps_t, nsh_t)
+    want, _, _ = ppa.prefix_paged_attention_plain(q, *pages["plain"], tables, kn, vn, posv, reps_t, nsh_t, **kw)
     acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, "prefix_paged_attention")
     if not torch.equal(out, own):
         raise AssertionError("prefix_paged_attention: output differs from paged_attention on the rows' own tables")
@@ -533,23 +640,72 @@ def prefix_row(cfg, rng, dev) -> dict:
     # once, q, new K/V and out once, the appended slots written once
     shared_keys = shared * bs
     keys = shared_keys + sum(int(p) + 1 - (shared_keys if b >= 1 else 0) for b, p in enumerate(pos))
-    nbytes = 2 * (2 * keys * H * hd + 4 * B * H * hd + 2 * B * H * hd)
-    b_ms, b_by = bound(nbytes, 4 * hd * H * int((pos + 1).sum()))
+    nbytes = 2 * (2 * keys * Hkv * hd + 2 * B * Hq * hd + 2 * B * Hkv * hd + 2 * B * Hkv * hd)
+    b_ms, b_by = bound(nbytes, 4 * hd * Hq * int((pos + 1).sum()))
     kpk, vpk = pages["kernel"]
     kpp, vpp = pages["paged"]
+    heads = f"H={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
     return {
-        "name": "prefix_paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/prefix_paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:237",
-        "shape": f"B={B} C=1 H={H} hd={hd} bs={bs} table {nb}, rows 1-7 share {shared} pages, pos {pos.min()}-"
-                 f"{pos.max()} bf16",
+        "model": model,
+        "shape": f"B={B} C=1 {heads} hd={hd} bs={bs} table {nb}, rows 1-7 share {shared} pages, pos {pos.min()}-"
+                 f"{pos.max()}{f' softcap={cap}' if cap else ''} bf16",
         "variant": variant, **acc, "bit_equal_to_paged": True, "bit_equal_calls": True,
-        **kernel_times(lambda: ppa.prefix_paged_attention(q, kpk, vpk, tables, kn, vn, posv, reps_t, nsh_t), 200),
+        **kernel_times(lambda: ppa.prefix_paged_attention(q, kpk, vpk, tables, kn, vn, posv, reps_t, nsh_t, **kw),
+                       200),
         "plain_ms": cuda_ms(
-            lambda: ppa.prefix_paged_attention_plain(q, kpp, vpp, tables, kn, vn, posv, reps_t, nsh_t), 20),
-        "paged_ms": graph_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv), 200),
-        "paged_eager_ms": cuda_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv), 200),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
+            lambda: ppa.prefix_paged_attention_plain(q, kpp, vpp, tables, kn, vn, posv, reps_t, nsh_t, **kw), 20),
+        "paged_ms": graph_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv, **kw), 200),
+        "paged_eager_ms": cuda_ms(lambda: pa.paged_attention(q, kpp, vpp, tables, kn, vn, posv, **kw), 200),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+def pool_decode_row(rng, dev, model, B, C, attn, bs, nb, pos, window) -> dict:
+    """The paged kernel on a block pool: B rows of C tokens written at
+    positions ``pos``, each row through a table of ``nb`` scattered pages of
+    ``bs`` slots; ``attn`` = (q heads, KV heads, head dim, softcap, scale);
+    ``window`` > 0 is a local layer's sliding window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as pa
+
+    Hq, Hkv, hd, cap, scale = attn
+    kw = dict(softcap=cap, scale=scale, window=window)
+    is_global = window == 0
+    N = B * nb + 1
+    kp, vp = _pages(rng, N, bs, Hkv, hd, dev)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[: B * nb].astype(np.int32).reshape(B, nb)).to(dev)
+    q, kn, vn = (torch.from_numpy(rng.standard_normal((B, C, nh, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+                 for nh in (Hq, Hkv, Hkv))
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kp2, vp2 = kp.clone(), vp.clone()
+    _build.VARIANT_COUNTS.clear()
+    out, _, _ = pa.paged_attention(q, kp, vp, tables, kn, vn, posv, is_global, **kw)
+    torch.cuda.synchronize()
+    variant = variant_counts()
+    want, kw_, vw_ = pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv, is_global, **kw)
+    acc = compare(out, want, KERNEL_ATOL, KERNEL_RTOL, f"paged_attention ({model})")
+    if not (torch.equal(kp[1:], kw_[1:]) and torch.equal(vp[1:], vw_[1:])):
+        raise AssertionError(f"paged_attention ({model}): appended pages differ from the plain version's")
+    if not torch.equal(out, pa.paged_attention(q, kp, vp, tables, kn, vn, posv, is_global, **kw)[0]):
+        raise AssertionError(f"paged_attention ({model}): two calls differ")
+    del want, kw_, vw_
+    # q, new K/V and out once, each row's cached keys inside its window
+    # (or all of them) read once, the chunk's K/V written once; 4 flops per
+    # (query, valid key, dim)
+    cached = sum(min(p, window - 1) if window else p for p in pos)
+    pairs = sum(min(p + c + 1, window) if window else p + c + 1 for p in pos for c in range(C))
+    b_ms, b_by = bound(2 * (2 * B * C * Hq * hd + 2 * cached * Hkv * hd + 4 * B * C * Hkv * hd), 4 * hd * Hq * pairs)
+    return {
+        "model": model,
+        "shape": f"B={B} C={C} Hq={Hq} Hkv={Hkv} hd={hd} bs={bs} table {nb} scattered pages pos={min(pos)}-{max(pos)}"
+                 f" window={window}{f' softcap={cap}' if cap else ''} bf16",
+        "variant": variant, **acc, "bit_equal_calls": True,
+        **kernel_times(lambda: pa.paged_attention(q, kp, vp, tables, kn, vn, posv, is_global, **kw), 200),
+        "plain_ms": cuda_ms(lambda: pa.paged_attention_plain(q, kp2, vp2, tables, kn, vn, posv, is_global, **kw), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
 
@@ -663,31 +819,35 @@ def logits_ab(phase: str, name: str, make, serve, tokens) -> dict:
     return res
 
 
-def phase_serve(cfg, params) -> dict:
+def phase_serve(cfg, params, phase: str = "serve") -> dict:
     """``run()`` of the 8 requests on a plain engine, eager and captured."""
     from repro_torch.serving import InferenceEngine
 
     batches = math.ceil(N_REQUESTS / MAX_BATCH)
     L, steps = cfg.num_layers, MAX_NEW - 1
-    expect = {
-        "flash_attention": batches * L,
-        "paged_attention": batches * steps * L,
-        "grouped_matmul": batches * (1 + steps) * 3 * L,
-    }
+    expect = {"flash_attention": batches * L, "paged_attention": batches * steps * L}
+    if cfg.is_moe:  # a dense family's FFN is one plain matmul per projection
+        expect["grouped_matmul"] = batches * (1 + steps) * 3 * L
 
     def serve(eng):
-        res = _serve_static(eng, cfg, "serve")
+        res = _serve_static(eng, cfg, f"{phase} ({cfg.name})")
         if res["launches"] != expect:
-            raise AssertionError(f"serve: launches {res['launches']}, expected {expect}")
+            raise AssertionError(f"{phase} ({cfg.name}): launches {res['launches']}, expected {expect}")
         return res
 
-    res = ab_runs("serve", "static", lambda cap: InferenceEngine(cfg, params, max_batch=MAX_BATCH, capture_steps=cap),
-                  serve)
+    res = ab_runs(phase, f"{cfg.name} static",
+                  lambda cap: InferenceEngine(cfg, params, max_batch=MAX_BATCH, capture_steps=cap), serve)
     res["first_batch_tokens"] = res["tokens"][:MAX_BATCH]
     return res
 
 
-def phase_agree(cfg, params, serve) -> None:
+def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL) -> dict:
+    """Hopper against ref logits, teacher-forced on the hopper path's greedy
+    tokens, twice: each path routing on its own, then the ref path taking
+    the hopper path's expert choices (its gates still its own). Where the
+    routers near-tie, the two paths pick other experts for a token; the
+    second reading leaves that out and is held to
+    ``AGREE_SAME_EXPERTS_TOL``."""
     import torch
 
     from repro_torch.models import decode_step, prefill
@@ -700,36 +860,90 @@ def phase_agree(cfg, params, serve) -> None:
     tokens = torch.as_tensor(toks, dtype=torch.long, device="cuda")
     max_len = toks.shape[1] + MAX_NEW + 1
 
+    def run(backend, forced):
+        """Every step's float32 logits, each decode step fed ``forced``."""
+        logits, cache = prefill(params, cfg, {"tokens": tokens}, max_len, backend=backend)
+        out = [logits.float()]
+        for step in range(MAX_NEW - 1):
+            logits, cache = decode_step(params, cfg, (forced or out)[step].argmax(-1)[:, None], cache,
+                                        backend=backend)
+            out.append(logits.float())
+        return out
+
     with torch.inference_mode():
-        logits, cache = prefill(params, cfg, {"tokens": tokens}, max_len, backend="hopper")
-        hop, forced = [logits.float()], [logits.argmax(-1)]
-        for _ in range(MAX_NEW - 1):
-            logits, cache = decode_step(params, cfg, forced[-1][:, None], cache, backend="hopper")
-            hop.append(logits.float())
-            forced.append(logits.argmax(-1))
-        del cache
-        greedy = torch.stack(forced, 1).tolist()
+        hop_experts = []
+        with _routing(hop_experts):
+            hop = run("hopper", None)
+        greedy = torch.stack([h.argmax(-1) for h in hop], 1).tolist()
         if greedy != serve["first_batch_tokens"]:
             raise AssertionError("agree: direct hopper decode differs from the engine's tokens")
-        logits, cache = prefill(params, cfg, {"tokens": tokens}, max_len, backend="ref")
-        max_err, l2_err, argmax_same = [], [], 0
-        for step in range(MAX_NEW):
-            if step:
-                logits, cache = decode_step(params, cfg, forced[step - 1][:, None], cache, backend="ref")
-            ref = logits.float()
-            if not torch.isfinite(hop[step]).all():
+        for step, h in enumerate(hop):
+            if not torch.isfinite(h).all():
                 raise AssertionError(f"agree: non-finite hopper logits at step {step}")
-            diff = hop[step] - ref
-            max_err.append(diff.abs().max().item() / ref.abs().max().item())
-            l2_err.append((diff.norm() / ref.norm()).item())
-            argmax_same += int((hop[step].argmax(-1) == ref.argmax(-1)).sum())
-        del cache
-    res = {"phase": "agree", "steps": MAX_NEW, "rel_l2_err_per_step": l2_err, "rel_l2_tol": AGREE_L2_TOL,
-           "max_rel_err_per_step": max_err, "max_rel_tol": AGREE_MAX_TOL,
-           "argmax_agreement": argmax_same / (MAX_NEW * MAX_BATCH)}
+        ref_experts = []
+        with _routing(ref_experts):
+            ref = run("ref", hop)
+        readings = {"": _errors(hop, ref)}
+        if hop_experts:
+            # a flip: a token whose set of experts in one layer differs
+            per_step = len(hop_experts) // MAX_NEW
+            flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                     for a, b in zip(hop_experts, ref_experts)]
+            readings[""]["expert_flips_per_step"] = [sum(flips[i:i + per_step])
+                                                     for i in range(0, len(flips), per_step)]
+            readings[""]["routed_token_layers_per_step"] = [sum(int(a.shape[0]) for a in hop_experts[i:i + per_step])
+                                                      for i in range(0, len(flips), per_step)]
+            del ref
+            with _routing([], hop_experts):
+                ref = run("ref", hop)
+            readings["_same_experts"] = _errors(hop, ref)
+        del hop, ref, hop_experts, ref_experts
+    res = {"phase": phase, "model": cfg.name, "steps": MAX_NEW,
+           **{k + suffix: v for suffix, r in readings.items() for k, v in r.items()},
+           "rel_l2_tol": tol[0], "max_rel_tol": tol[1], "same_experts_rel_l2_tol": AGREE_SAME_EXPERTS_TOL}
     emit(res)
-    if max(l2_err) > AGREE_L2_TOL or max(max_err) > AGREE_MAX_TOL:
-        raise AssertionError(f"agree: hopper and ref logits differ beyond the bf16 tolerance: {res}")
+    same = readings.get("_same_experts", readings[""])
+    if (max(res["rel_l2_err_per_step"]) > tol[0] or max(res["max_rel_err_per_step"]) > tol[1]
+            or max(same["rel_l2_err_per_step"]) > AGREE_SAME_EXPERTS_TOL):
+        raise AssertionError(f"{phase} ({cfg.name}): hopper and ref logits differ beyond the bf16 tolerance: {res}")
+    return res
+
+
+def _errors(hop, ref) -> dict:
+    """Per step: relative L2 error over the (B, V) logits, largest error
+    relative to the largest ref logit; and the share of equal argmaxes."""
+    l2 = [((h - r).norm() / r.norm()).item() for h, r in zip(hop, ref)]
+    mx = [((h - r).abs().max() / r.abs().max()).item() for h, r in zip(hop, ref)]
+    same = sum(int((h.argmax(-1) == r.argmax(-1)).sum()) for h, r in zip(hop, ref))
+    return {"rel_l2_err_per_step": l2, "max_rel_err_per_step": mx, "argmax_agreement": same / (len(hop) * MAX_BATCH)}
+
+
+@contextlib.contextmanager
+def _routing(seen: list, forced=None):
+    """Inside the block every MoE layer's routing appends its expert
+    choices (T, k) to ``seen``; with ``forced`` (choices recorded so, in the
+    same order of layers and steps) each layer takes those instead of its
+    own, its gates its own router's probabilities at them, renormalised."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route, it = moe.route, iter(forced) if forced is not None else None
+
+    def spy(x_flat, router_w, cfg):
+        gates, idx, aux = route(x_flat, router_w, cfg)
+        seen.append(idx)
+        if it is not None:
+            idx = next(it)
+            gates = torch.softmax(x_flat.float() @ router_w.float(), dim=-1).gather(-1, idx)
+            gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+        return gates, idx, aux
+
+    moe.route = spy
+    try:
+        yield
+    finally:
+        moe.route = route
 
 
 def cont_requests(cfg):
@@ -743,38 +957,41 @@ def cont_requests(cfg):
     ]
 
 
-def phase_continuous(cfg, params) -> dict:
-    """Serve the continuous traffic with the prefix cache off, then on, each
-    eager and captured; returns the captured prefix-cache run."""
+def phase_continuous(cfg, params, phase: str = "continuous", caches=(False, True)) -> dict:
+    """Serve the continuous traffic with the prefix cache off, then on (or
+    as ``caches`` says), each eager and captured; returns the captured
+    prefix-cache run."""
     from repro_torch.serving import InferenceEngine
 
     L = cfg.num_layers
     runs = {}
-    for pc in (False, True):
-        name = "prefix" if pc else "plain"
+    for pc in caches:
+        name = f"{cfg.name} {'prefix' if pc else 'plain'}"
+        what = f"{phase} ({name})"
 
-        def serve(eng, pc=pc, name=name):
-            res, toks = _serve_continuous(eng, cfg, f"continuous ({name})")
+        def serve(eng, pc=pc, what=what):
+            res, toks = _serve_continuous(eng, cfg, what)
             st = res["stats"]
-            expect = {
-                "paged_attention": (st["prefill_chunks"] + (0 if pc else st["decode_steps"])) * L,
-                "grouped_matmul": (st["prefill_chunks"] + st["decode_steps"]) * 3 * L,
-            }
+            expect = {"paged_attention": (st["prefill_chunks"] + (0 if pc else st["decode_steps"])) * L}
+            if cfg.is_moe:
+                expect["grouped_matmul"] = (st["prefill_chunks"] + st["decode_steps"]) * 3 * L
             if pc:
                 expect["prefix_paged_attention"] = st["decode_steps"] * L
             if res["launches"] != expect:
-                raise AssertionError(f"continuous ({name}): launches {res['launches']}, expected {expect}")
+                raise AssertionError(f"{what}: launches {res['launches']}, expected {expect}")
             if pc and st["prefix_hit_blocks"] <= 0:
-                raise AssertionError("continuous (prefix): no prefix block was shared")
+                raise AssertionError(f"{what}: no prefix block was shared")
             if pc and st["prefix_grouped_steps"] <= 0:
-                raise AssertionError("continuous (prefix): no decode step read a shared run through a group")
+                raise AssertionError(f"{what}: no decode step read a shared run through a group")
             return dict(res, prefix_cache=pc, tokens=toks)
 
-        runs[pc] = ab_runs("continuous", name, lambda cap, pc=pc: InferenceEngine(
-            cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=pc, capture_steps=cap), serve)
-    if runs[True]["tokens"] != runs[False]["tokens"]:
+        runs[pc] = ab_runs(phase, name, lambda cap, pc=pc: InferenceEngine(
+            cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=pc, capture_steps=cap),
+            serve)
+    if len(runs) == 2 and runs[True]["tokens"] != runs[False]["tokens"]:
         diff = [i for i, (a, b) in enumerate(zip(runs[True]["tokens"], runs[False]["tokens"])) if a != b]
-        raise AssertionError(f"continuous: prefix-cache tokens differ from the plain run's for requests {diff}")
+        raise AssertionError(f"{phase} ({cfg.name}): prefix-cache tokens differ from the plain run's for requests "
+                             f"{diff}")
     return runs[True]
 
 
@@ -1014,6 +1231,48 @@ def phase_transitions(cfg, params) -> dict:
     return runs[True]
 
 
+def phase_families() -> dict:
+    """Each family of ``FAMILIES`` at full width on seeded random weights,
+    freed before the next: ``run()`` eager and captured, the agree check,
+    and its continuous runs; returns {name: {"static": launches of the
+    first captured run(), "continuous": of the captured prefix-cache run}}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    out = {}
+    for name, layers, caches, tol in FAMILIES:
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        torch.cuda.synchronize()
+        emit({"phase": "families", "model": name, "step": "init", "seconds": time.perf_counter() - t0,
+              "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated(),
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "reduced": ({"num_layers": layers, "of": get_config(name).num_layers,
+                           "why": "the full depth's bf16 weights do not fit one 80 GB card"} if layers else None)})
+        serve = phase_serve(cfg, params, "families")
+        agree = phase_agree(cfg, params, serve, "families_agree", tol)
+        cont = phase_continuous(cfg, params, "families", caches) if caches else None
+        out[name] = {"static": serve["launches"], "continuous": cont["launches"] if cont else {}}
+        emit({"phase": "families", "model": name, "step": "summary", "num_layers": cfg.num_layers,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "static_decode_ms_per_step": serve["decode_ms_per_step"], "static_prefill_ms": serve["prefill_ms"],
+              "static_tokens_per_s": serve["tokens_per_s"], "agree_max_rel_l2": max(agree["rel_l2_err_per_step"]),
+              "agree_max_rel_l2_same_experts": max(agree.get("rel_l2_err_per_step_same_experts", [None])),
+              "continuous_wall_s": cont["wall_s"] if cont else None,
+              "continuous_decode_step_ms_mean": cont["decode_step_ms_mean"] if cont else None,
+              "launches": out[name]})
+        del params
+    _free()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1051,6 +1310,8 @@ def main() -> int:
     # the resident phase overwrites the expert leaves with their INT4 round trip
     resident = timed("resident", phase_resident, cfg, params)
     trans = timed("transitions", phase_transitions, cfg, params)
+    del params  # DeepSeek's weights, before the families' own
+    families = timed("families", phase_families)
     emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for
@@ -1065,6 +1326,12 @@ def main() -> int:
             r["launches"] = r["launches_continuous"]
         if r["name"] == "int4_dequant":
             r["launches"] = r["launches_resident"]
+        # the families' paths: each model's captured run() and prefix-cache
+        # continuous run; a row at a family's shape names its model
+        r["launches_families"] = {m: {k: n.get(r["name"], 0) for k, n in fam.items()} for m, fam in families.items()}
+        for row in r.get("also", []):
+            if row.get("model") in families:
+                row["launches_families"] = r["launches_families"][row["model"]]
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -6,7 +6,18 @@ import importlib
 
 from .base import ModelConfig, get_config, list_configs, register  # noqa: F401
 
-_MODULES = ("deepseek_moe_16b",)
+_MODULES = (
+    "deepseek_moe_16b",
+    "gemma3_27b",
+    "mistral_nemo_12b",
+    "qwen3_moe_30b_a3b",
+    "gemma_7b",
+    "gemma2_9b",
+    # the paper's evaluated models
+    "mixtral_8x7b",
+    "qwen15_moe_a2_7b",
+    "qwen2_57b_a14b",
+)
 
 _loaded = False
 

@@ -61,7 +61,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 constexpr int ATT_THREADS = 256;
 constexpr int ATT_ROWS = 64;
 constexpr int ATT_TILE_K = 32;  // one key per lane in the row-statistics pass
-constexpr int ATT_HD_MAX = 128;
+constexpr int ATT_HD_MAX = 256;
 constexpr int ATT_ACC = ATT_ROWS * ATT_HD_MAX / ATT_THREADS;
 
 struct AttSmem {

@@ -85,8 +85,10 @@ struct Layout {
   static constexpr int SUM_OFF = MAX_OFF + 4 * WARPS * ROWS;
   static constexpr int ROW_OFF = SUM_OFF + 4 * WARPS * ROWS;
   static constexpr int BYTES = ROW_OFF + (int)sizeof(TileRows);
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim: a multiple of 16 up to 128");
-  static_assert(BYTES <= 48 * 1024, "fits the default dynamic shared memory");
+  static_assert(HD % 16 == 0 && HD <= 256, "head dim: a multiple of 16 up to 256");
+  // above 48 KB (head dims over 136; 79 KB at 256, two blocks per SM) the
+  // launchers opt the kernel in
+  static_assert(BYTES <= 227 * 1024, "fits a block's shared memory");
 };
 
 // The valid keys of a query at position p: [lo, hi], empty when lo > hi.
@@ -408,7 +410,7 @@ cudaError_t launch_combine(const float* ws, const int* pos, void* o, int B, int 
 }  // namespace repro
 
 // Dispatch over the head dims the split variant has (multiples of 16 up to
-// 128); F is a macro taking the head dim as a constant.
+// 128, and 256); F is a macro taking the head dim as a constant.
 #define REPRO_DEC_HD_SWITCH(hd, F) \
   switch (hd) {                    \
     case 16: F(16)                 \
@@ -419,5 +421,6 @@ cudaError_t launch_combine(const float* ws, const int* pos, void* o, int B, int 
     case 96: F(96)                 \
     case 112: F(112)               \
     case 128: F(128)               \
+    case 256: F(256)               \
     default: return repro::sm90::kPlanError; \
   }

@@ -9,11 +9,12 @@
 // What bounds it on this card: at the main path's prefill shape (B=4, S=128,
 // 16 heads of 128) one call moves about 8 MB and does about 0.27 GFLOP, so
 // the roofline says bytes (~2.5 us); what is left is latency: one load of
-// the tiles and a few dependent products per block.
+// the tiles and a few dependent products per block. At head dim 256 a
+// block's ring holds 161 KB of tiles, so one block runs per SM.
 //
-// bfloat16, variant `wgmma` (head dims that are multiples of 16, up to
-// 128): one consumer warpgroup per (64-row q tile, q head, batch row), and a
-// producer warp that loads the q tile once and K/V tiles of 64 keys into a
+// bfloat16, variant `wgmma` (head dims that are multiples of 16 up to 128,
+// and 256): one consumer warpgroup per (64-row q tile, q head, batch row),
+// and a producer warp that loads the q tile once and K/V tiles of 64 keys into a
 // 2-stage ring, all by TMA straight from the strided (B, S, H, hd) views
 // (4-D tensor maps; rows of 128, 64 or 32 bytes, swizzled to match). S =
 // Q K^T is wgmma m64n64k16 over hd/16 steps, both operands K-major in
@@ -25,8 +26,12 @@
 // branchy version spent most of a tile step here). O += P V is wgmma
 // m64n{hd}k16 with P from registers (rounded to bf16: the one rounding the
 // float32 path does not have) and V from shared memory, MN-major
-// (transpose bit). K and V of a stage complete on separate barriers, so S
-// starts before V lands. Tiles wholly above the diagonal or before the
+// (transpose bit); a head of 256 dims takes two m64n128k16 products per
+// k16 step, one over each 128-column half of V, into two accumulators that
+// together hold the 128 floats per thread of a 64 x 256 O tile (the
+// registers of an n256 product, without its 128-operand instruction). K
+// and V of a stage complete on separate barriers, so S starts before V
+// lands. Tiles wholly above the diagonal or before the
 // window are skipped, as below, and the causal q tiles with the most keys
 // are launched first. The epilogue divides by max(l, 1e-30) and writes bf16
 // rows in place.
@@ -235,9 +240,15 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   int qpos[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) qpos[hh] = q_offset + q0 + 16 * warp + lane / 4 + 8 * hh;
-  float acc_o[Wgmma<HD>::kRegs];
+  // O in parts of at most 128 columns: part p holds columns 128p ..
+  // 128p + 127, element 4j + 2h + c of part p column 128p + 8j + 2(l%4) + c
+  constexpr int PV_N = HD > 128 ? 128 : HD, PV_PARTS = HD / PV_N, PV_J = PV_N / 8;
+  static_assert(HD % PV_N == 0 && PV_N % L::ATOM == 0, "O parts cover whole column blocks of V");
+  float acc_o[PV_PARTS][Wgmma<PV_N>::kRegs];
 #pragma unroll
-  for (int i = 0; i < Wgmma<HD>::kRegs; ++i) acc_o[i] = 0.f;
+  for (int p = 0; p < PV_PARTS; ++p)
+#pragma unroll
+    for (int i = 0; i < Wgmma<PV_N>::kRegs; ++i) acc_o[p][i] = 0.f;
   mbar_wait(q_full, 0);
 
   for (int i = 0; i < n_tiles; ++i) {
@@ -316,10 +327,10 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     }
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
-      acc_o[4 * j + 0] *= alpha[0];
-      acc_o[4 * j + 1] *= alpha[0];
-      acc_o[4 * j + 2] *= alpha[1];
-      acc_o[4 * j + 3] *= alpha[1];
+      acc_o[j / PV_J][4 * (j % PV_J) + 0] *= alpha[0];
+      acc_o[j / PV_J][4 * (j % PV_J) + 1] *= alpha[0];
+      acc_o[j / PV_J][4 * (j % PV_J) + 2] *= alpha[1];
+      acc_o[j / PV_J][4 * (j % PV_J) + 3] *= alpha[1];
     }
     // P in the register layout of a wgmma A operand: k16 step t holds keys
     // 16t .. 16t+15, i.e. score columns j = 2t and 2t + 1
@@ -333,16 +344,22 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     }
     mbar_wait(&v_full[s], parity);
     wgmma_fence();
-    fence_operands(acc_o);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      // V rows are keys (K), HD contiguous (N): MN-major, 16 rows per step
-      const uint64_t db = make_desc<L::SW>(vs + t * 16 * L::SW, L::SUB, 8 * L::SW);
-      Wgmma<HD>::template rs<1>(acc_o, pf[t], db, 1);
-    }
+    for (int p = 0; p < PV_PARTS; ++p) fence_operands(acc_o[p]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int p = 0; p < PV_PARTS; ++p) {
+        // V rows are keys (K), HD contiguous (N): MN-major, 16 rows per
+        // step; part p starts at V's column block p * PV_N / ATOM
+        const uint64_t db =
+            make_desc<L::SW>(vs + p * (PV_N / L::ATOM) * L::SUB + t * 16 * L::SW, L::SUB, 8 * L::SW);
+        Wgmma<PV_N>::template rs<1>(acc_o[p], pf[t], db, 1);
+      }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_operands(acc_o);
+#pragma unroll
+    for (int p = 0; p < PV_PARTS; ++p) fence_operands(acc_o[p]);
     mbar_arrive(&empty[s]);
   }
 
@@ -357,8 +374,8 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int dcol = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(row + dcol) =
-          __floats2bfloat162_rn(acc_o[4 * j + 2 * hh] * inv, acc_o[4 * j + 2 * hh + 1] * inv);
+      *reinterpret_cast<__nv_bfloat162*>(row + dcol) = __floats2bfloat162_rn(
+          acc_o[j / PV_J][4 * (j % PV_J) + 2 * hh] * inv, acc_o[j / PV_J][4 * (j % PV_J) + 2 * hh + 1] * inv);
     }
   }
 }
@@ -398,6 +415,7 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o, int
   switch (hd) {
     REPRO_FA_HD(16) REPRO_FA_HD(32) REPRO_FA_HD(48) REPRO_FA_HD(64)
     REPRO_FA_HD(80) REPRO_FA_HD(96) REPRO_FA_HD(112) REPRO_FA_HD(128)
+    REPRO_FA_HD(256)
     default: return sm90::kPlanError;
   }
 #undef REPRO_FA_HD

@@ -17,9 +17,9 @@
 // the launch floor: what is left is latency, so the work has to reach every
 // SM at once.
 //
-// bfloat16, variant `split` (head dims that are multiples of 16, up to 128,
-// 16-byte aligned operands): decode.cuh. One block per (KV head, batch row,
-// tile of 16 query rows, split of 64 keys), a split wholly above the tile's
+// bfloat16, variant `split` (head dims that are multiples of 16 up to 128,
+// and 256; 16-byte aligned operands): decode.cuh. One block per (KV head,
+// batch row, tile of 16 query rows, split of 64 keys), a split wholly above the tile's
 // last query position or before its window exiting at once; tensor-core
 // products, cp.async loads, float32 partials merged in split order by a
 // combine kernel. A decode step at B=4 is 4 x 16 x 3 splits = 192 blocks
@@ -166,6 +166,11 @@ int launch_paged_split(const void* q, void* kp, void* vp, const int* tables, con
   const int R = C * (Hq / Hkv), n_splits = (n_blocks * bs + dec::SPLIT - 1) / dec::SPLIT;
   if (smem != dec::Layout<HD>::BYTES || grid_x != n_splits * ((R + dec::ROWS - 1) / dec::ROWS))
     return sm90::kPlanError;
+  if (smem > 48 * 1024) {  // head dim 256: above the default dynamic shared memory
+    static sm90::SmemOptIn opt_in;
+    const cudaError_t e = opt_in.ensure(paged_split_kernel<HD>, smem);
+    if (e != cudaSuccess) return e;
+  }
   const long long rows = (long long)B * Hkv * R;
   float2* ws_ml = reinterpret_cast<float2*>(ws + rows * n_splits * HD);
   using bf = __nv_bfloat16;

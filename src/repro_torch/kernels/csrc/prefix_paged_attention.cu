@@ -331,6 +331,11 @@ int launch_prefix_split(const void* q, void* kp, void* vp, const int* tables, co
   const long long n_gtiles = ((long long)B * R + dec::ROWS - 1) / dec::ROWS;  // a group of every row
   if (smem != dec::Layout<HD>::BYTES + (int)sizeof(GroupScan) || grid_x != n_splits * n_gtiles)
     return sm90::kPlanError;
+  if (smem > 48 * 1024) {  // head dim 256: above the default dynamic shared memory
+    static sm90::SmemOptIn opt_in;
+    const cudaError_t e = opt_in.ensure(prefix_split_kernel<HD>, smem);
+    if (e != cudaSuccess) return e;
+  }
   const long long rows = (long long)B * Hkv * R;
   float2* ws_ml = reinterpret_cast<float2*>(ws + rows * n_splits * HD);
   using bf = __nv_bfloat16;

@@ -9,9 +9,10 @@ the result is then a (B, Hq, Sq, hd) view of a (B, Sq, Hq, hd) buffer.
 
 On the card the launch follows a ``FlashPlan`` made here, before the
 launch, from the dtype, the head dim and the layout alone: variant
-``wgmma`` (bfloat16, head dim a multiple of 16, every pointer 16-byte
-aligned and every stride a multiple of 8 elements, as TMA needs) or
-``simt`` (float32, and the other bfloat16 cases). Each launch adds one to
+``wgmma`` (bfloat16, a head dim the kernel is built for (``WGMMA_HDS``:
+the multiples of 16 up to 128, and 256), every pointer 16-byte aligned and
+every stride a multiple of 8 elements, as TMA needs) or ``simt`` (float32,
+and the other bfloat16 cases). Each launch adds one to
 ``_build.LAUNCH_COUNTS["flash_attention"]`` and one to
 ``_build.VARIANT_COUNTS[("flash_attention", variant)]``.
 """
@@ -28,7 +29,8 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-HD_MAX = 128  # the kernels keep query rows of up to 128 dims in shared memory
+HD_MAX = 256  # the kernels keep query rows of up to 256 dims in shared memory
+WGMMA_HDS = (16, 32, 48, 64, 80, 96, 112, 128, 256)  # the wgmma kernel's instances
 BLOCK_Q = 64  # q rows per block, both variants
 WGMMA_BLOCK_K, WGMMA_STAGES = 64, 2  # keys per tile, K/V ring depth
 SIMT_BLOCK_K = 32
@@ -84,7 +86,7 @@ def check_plan(plan: FlashPlan) -> None:
     if max(plan.Hq, plan.B) > 65535:
         raise ValueError(f"flash_attention: grid {plan.grid} exceeds 65535 blocks in y or z")
     if plan.variant == "wgmma":
-        if plan.hd % 16 or not 16 <= plan.hd <= HD_MAX or (plan.block_k, plan.stages) != (WGMMA_BLOCK_K, WGMMA_STAGES):
+        if plan.hd not in WGMMA_HDS or (plan.block_k, plan.stages) != (WGMMA_BLOCK_K, WGMMA_STAGES):
             raise ValueError(f"flash_attention: no wgmma kernel for hd={plan.hd}, {plan.block_k} keys x {plan.stages}")
         if plan.smem_bytes != wgmma_smem_bytes(plan.hd):
             raise ValueError(f"flash_attention: wgmma plan gives {plan.smem_bytes} B, needs {wgmma_smem_bytes(plan.hd)}")
@@ -98,7 +100,7 @@ def flash_plan(B: int, Hq: int, Sq: int, hd: int, dtype: torch.dtype, aligned: b
     rows in ``dtype``; ``aligned``: TMA can describe q, k and v (16-byte
     aligned pointers, strides a multiple of 8 elements)."""
     grid = (-(-Sq // BLOCK_Q), Hq, B)
-    if dtype == torch.bfloat16 and aligned and hd % 16 == 0:
+    if dtype == torch.bfloat16 and aligned and hd in WGMMA_HDS:
         plan = FlashPlan("wgmma", B, Hq, Sq, hd, BLOCK_Q, WGMMA_BLOCK_K, WGMMA_STAGES, grid, wgmma_smem_bytes(hd))
     else:
         plan = FlashPlan("simt", B, Hq, Sq, hd, BLOCK_Q, SIMT_BLOCK_K, 1, grid, simt_smem_bytes(hd))

@@ -14,7 +14,9 @@ contiguous cache), so the wrapper does not read them back from the card.
 On the card the launch follows a ``DecodePlan`` made here, before the
 launch, from the shapes, the dtype and the operands' alignment alone
 (``decode_plan``; the prefix kernel's wrapper uses it too): variant
-``split`` (bfloat16, head dim a multiple of 16, 16-byte aligned operands:
+``split`` (bfloat16, a head dim the split kernels are built for
+(``SPLIT_HDS``: the multiples of 16 up to 128, and 256), 16-byte aligned
+operands:
 the key walk split over blocks in 64-key splits, tensor-core products, a
 float32 workspace of per-split partials merged by a combine kernel in the
 same call) or ``simt`` (float32, and the other bfloat16 cases). Each call
@@ -35,7 +37,8 @@ from . import _build
 from .flash_attention import simt_smem_bytes
 from .ref import NEG_INF, softcap_ref
 
-HD_MAX = 128
+HD_MAX = 256
+SPLIT_HDS = (16, 32, 48, 64, 80, 96, 112, 128, 256)  # the split kernels' instances (REPRO_DEC_HD_SWITCH)
 VARIANTS = ("split", "simt")
 SPLIT_KEYS = 64  # keys per split (dec::SPLIT in csrc/decode.cuh)
 SPLIT_ROWS = 16  # query rows per tile: the M of mma.m16n8k16 (dec::ROWS)
@@ -128,7 +131,7 @@ def check_plan(plan: DecodePlan) -> None:
         n_splits = -(-width // SPLIT_KEYS)
         n_tiles = -(-rows // SPLIT_ROWS)
         n_gtiles = -(-plan.B * rows // SPLIT_ROWS) if plan.prefix else 0
-        if plan.hd % 16 or not 16 <= plan.hd <= HD_MAX or (plan.s_split, plan.row_tile) != (SPLIT_KEYS, SPLIT_ROWS):
+        if plan.hd not in SPLIT_HDS or (plan.s_split, plan.row_tile) != (SPLIT_KEYS, SPLIT_ROWS):
             raise ValueError(f"{kernel}: no split kernel for hd={plan.hd}, {plan.s_split} keys x {plan.row_tile} rows")
         if (plan.n_splits, plan.n_tiles, plan.n_gtiles) != (n_splits, n_tiles, n_gtiles):
             raise ValueError(f"{kernel}: {plan.n_splits} splits x {plan.n_tiles}+{plan.n_gtiles} tiles do not cover "
@@ -168,7 +171,7 @@ def decode_plan(
     operand starts on a 16-byte boundary (the split variant's vector loads)."""
     G = Hq // Hkv
     rows = C * G
-    if dtype == torch.bfloat16 and aligned and hd % 16 == 0 and hd <= HD_MAX:
+    if dtype == torch.bfloat16 and aligned and hd in SPLIT_HDS:
         n_splits = -(-(n_blocks * bs) // SPLIT_KEYS)
         n_tiles = -(-rows // SPLIT_ROWS)
         n_gtiles = -(-B * rows // SPLIT_ROWS) if prefix else 0

@@ -37,7 +37,11 @@ def route(x_flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
     """Top-k routing. x_flat: (T, d) -> gates (T,k), idx (T,k), aux_loss."""
     logits = x_flat.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    # lax.top_k's order: descending, and the lower expert index first among
+    # equal probabilities (a stable sort); torch.topk breaks ties in no
+    # stated order
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, : cfg.top_k], idx[:, : cfg.top_k]
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
     # Switch-style load-balance aux loss: E * sum(frac_tokens * frac_probs)
     E = cfg.n_routed_experts

@@ -64,17 +64,36 @@ PREFIX_SHAPES = [
     (7, 1, 16, 16, 128, 16, 12),
 ]
 ALL_SHAPES = MAIN_SHAPES + CARD_SHAPES + PREFIX_SHAPES
+# the other families' decode shapes (chip_smoke.py's families phase and its
+# kernel rows): Gemma-2-9B at head dim 256 (16 q over 8 KV heads) on the
+# static identity page, the continuous chunk and decode, and at position
+# ~6000 on 376-page tables; Gemma-7B's 16/16 heads of 256; Qwen3-30B-A3B's
+# G=8 (32/4), Qwen2-57B-A14B's G=7 (28/4), Mixtral-8x7B's and
+# Mistral-Nemo-12B's G=4 (32/8), Gemma-3-27B's G=2 (32/16), all at 128
+FAMILY_SHAPES = [
+    (4, 1, 16, 8, 256, 145, 1),
+    (1, 64, 16, 8, 256, 16, 20),
+    (8, 1, 16, 8, 256, 16, 20),
+    (4, 1, 16, 8, 256, 16, 376),
+    (4, 1, 16, 16, 256, 145, 1),
+    (4, 1, 32, 4, 128, 145, 1),
+    (8, 1, 32, 4, 128, 16, 20),
+    (1, 64, 32, 4, 128, 16, 20),
+    (4, 1, 28, 4, 128, 145, 1),
+    (4, 1, 32, 8, 128, 145, 1),
+    (4, 1, 32, 16, 128, 145, 1),
+]
 
 
 def _ids(shape):
     return "B{}_C{}_H{}x{}_hd{}_bs{}_nb{}".format(*shape)
 
 
-@pytest.mark.parametrize("shape", ALL_SHAPES, ids=_ids)
-@pytest.mark.parametrize("prefix", [False, True], ids=["paged", "prefix"])
-def test_decode_plan_covers_every_item_once(shape, prefix):
+def _check_coverage(plan, shape, prefix):
+    """Every (KV head, row, tile, split) item of the plan is covered by
+    exactly one block; the tiles cover the rows, the splits the keys; the
+    grid, workspace and combine blocks fit the shapes."""
     B, C, Hq, Hkv, hd, bs, nb = shape
-    plan = pa.decode_plan(*shape, torch.bfloat16, prefix)
     assert plan.variant == "split" and plan.s_split == 64 and plan.row_tile == 16
     rows = C * (Hq // Hkv)
     n_splits = math.ceil(nb * bs / plan.s_split)
@@ -89,10 +108,36 @@ def test_decode_plan_covers_every_item_once(shape, prefix):
     # the tiles cover the rows, the splits the keys
     assert (plan.n_tiles - 1) * 16 < rows <= plan.n_tiles * 16
     assert (plan.n_splits - 1) * 64 < nb * bs <= plan.n_splits * 64
-    assert 0 < plan.smem_bytes <= 48 * 1024  # no opt-in needed
     assert plan.grid[0] < 2**31 and max(plan.grid[1:]) <= 65535
     assert plan.workspace_floats == B * Hkv * rows * n_splits * (hd + 2)
     assert plan.combine_blocks * 4 >= B * Hkv * rows > (plan.combine_blocks - 1) * 4  # a warp per row
+
+
+@pytest.mark.parametrize("shape", ALL_SHAPES, ids=_ids)
+@pytest.mark.parametrize("prefix", [False, True], ids=["paged", "prefix"])
+def test_decode_plan_covers_every_item_once(shape, prefix):
+    plan = pa.decode_plan(*shape, torch.bfloat16, prefix)
+    _check_coverage(plan, shape, prefix)
+    assert 0 < plan.smem_bytes <= 48 * 1024  # no opt-in needed
+
+
+@pytest.mark.parametrize("shape", FAMILY_SHAPES, ids=_ids)
+@pytest.mark.parametrize("prefix", [False, True], ids=["paged", "prefix"])
+def test_decode_plan_at_the_families_shapes(shape, prefix):
+    """Every family's decode shape takes the bf16 split variant, never a
+    quiet fall back to simt, with full coverage; head dim 256 needs 79,168
+    bytes of shared memory (79,236 with the prefix kernel's group scan),
+    which the launchers opt into, against 42,304 at 128."""
+    plan = pa.decode_plan(*shape, torch.bfloat16, prefix)
+    _check_coverage(plan, shape, prefix)
+    hd = shape[4]
+    want = {128: 42_304, 256: 79_168}[hd] + (68 if prefix else 0)
+    assert plan.smem_bytes == pa.split_smem_bytes(hd, prefix) == want <= SMEM_MAX
+    assert (plan.smem_bytes > 48 * 1024) == (hd == 256)
+    f32 = pa.decode_plan(*shape, torch.float32, prefix)
+    assert f32.variant == "simt" and f32.smem_bytes <= SMEM_MAX
+    # bf16 at a head dim without a split instance (144) takes simt
+    assert pa.decode_plan(*shape[:4], 144, *shape[5:], torch.bfloat16, prefix).variant == "simt"
 
 
 @pytest.mark.parametrize("shape", ALL_SHAPES, ids=_ids)
@@ -330,6 +375,10 @@ PAGED_MODEL_CASES = {
     "window": ((3, 2, 4, 2, 16, 16, 10), [100, 70, 65], 40, 0.0),
     "softcap": ((2, 1, 4, 2, 16, 16, 10), [140, 66], 0, 25.0),
     "gqa_two_row_tiles": ((2, 3, 8, 1, 16, 16, 8), [66, 20], 0, 0.0),
+    # head dim 256 (Gemma-2-9B's G=2, window, softcap 50) and G=8 / G=7
+    "hd256_window_softcap": ((2, 2, 4, 2, 256, 16, 10), [100, 66], 40, 50.0),
+    "hd256_g8": ((2, 1, 8, 1, 256, 16, 8), [66, 127], 0, 0.0),
+    "g7_chunk": ((2, 3, 7, 1, 16, 16, 8), [62, 20], 0, 0.0),
 }
 
 
@@ -369,6 +418,7 @@ PREFIX_MODEL_CASES = {
     "members_differ": ((4, 1, 4, 2, 16, 16, 10), [(2, (0,), 3), (2, (3,), 6)], [120, 90, 130, 96], 0, 0.0),
     "window_softcap": ((3, 2, 4, 2, 16, 16, 10), [(0, (1, 2), 8)], [150, 140, 129], 70, 30.0),
     "gqa_chunk": ((3, 3, 8, 2, 16, 16, 8), [(1, (0, 2), 4)], [70, 64, 100], 0, 0.0),
+    "hd256_g2_window_softcap": ((3, 1, 4, 2, 256, 16, 10), [(0, (1, 2), 8)], [150, 140, 129], 70, 50.0),
 }
 
 

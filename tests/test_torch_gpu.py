@@ -45,9 +45,11 @@ def _variant(dtype, wgmma_shape):
 
 
 def _decode_variant(dtype, hd):
-    """The paged kernels' variant: split for bfloat16 at head dims that are
-    multiples of 16 (aligned operands), simt otherwise."""
-    return "split" if dtype == "bfloat16" and hd % 16 == 0 else "simt"
+    """The paged kernels' variant: split for bfloat16 at the head dims the
+    split kernels are built for (aligned operands), simt otherwise."""
+    from repro_torch.kernels.paged_attention import SPLIT_HDS
+
+    return "split" if dtype == "bfloat16" and hd in SPLIT_HDS else "simt"
 
 
 @pytest.mark.parametrize(
@@ -62,6 +64,13 @@ def _decode_variant(dtype, hd):
         (1, 2, 1, 130, 200, 48, 40, 0.0),  # GQA, window, a ragged third q tile
         (1, 2, 2, 300, 300, 128, 100, 20.0),  # window + softcap over five key tiles
         (2, 4, 2, 37, 37, 40, 0, 0.0),  # head dim not a multiple of 16: simt in bf16 too
+        (4, 16, 8, 128, 128, 256, 0, 50.0),  # Gemma-2-9B prefill: hd 256, G=2, softcap 50
+        (1, 16, 8, 300, 300, 256, 100, 50.0),  # hd 256, window + softcap over five key tiles
+        (2, 7, 1, 70, 70, 256, 0, 0.0),  # hd 256, G=7 (Qwen2-57B's group)
+        (1, 8, 1, 65, 100, 256, 16, 0.0),  # hd 256, G=8, Sq < Sk, window
+        (2, 4, 4, 1, 50, 256, 0, 0.0),  # hd 256, one query row
+        (2, 32, 4, 100, 100, 128, 0, 0.0),  # Qwen3-30B-A3B's G=8 at hd 128
+        (2, 4, 2, 37, 37, 144, 0, 0.0),  # hd 144: no wgmma instance, simt in bf16 too
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -77,7 +86,7 @@ def test_flash_attention_kernel(B, Hq, Hkv, Sq, Sk, hd, window, softcap, dtype):
         for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))
     )
     n0 = LAUNCH_COUNTS["flash_attention"]
-    key = ("flash_attention", _variant(dtype, hd % 16 == 0))
+    key = ("flash_attention", _variant(dtype, hd in fa.WGMMA_HDS))
     v0 = VARIANT_COUNTS[key]
     out = fa.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
@@ -148,6 +157,14 @@ SPLIT_CASES = {
     "large_batch": (70, 1, 4, 2, 64, 8, 12, [(13 * b) % 95 for b in range(70)], 0),
     # 64 splits x 8 rows x 16 heads: many more blocks than fit on the card at once
     "long_context": (8, 1, 16, 16, 128, 16, 256, [4095 - 37 * b for b in range(8)], 0),
+    # head dim 256 (Gemma-7B, Gemma-2-9B): decode past a 4,096-token window
+    # (Gemma-2's), G=2; a chunk across a split; a G=8 group
+    "hd256_window_4096": (4, 1, 16, 8, 256, 16, 400, [6000, 5000, 4100, 64], 4096),
+    "hd256_chunk_across_split": (2, 5, 4, 2, 256, 16, 8, [62, 100], 0),
+    "hd256_g8": (3, 1, 8, 1, 256, 16, 8, [63, 64, 127], 0),
+    # the families' groups at hd 128: Qwen3-30B-A3B (32/4), Qwen2-57B (28/4)
+    "g8_qwen3": (4, 1, 32, 4, 128, 16, 20, [100, 200, 300, 319], 0),
+    "g7_chunk": (2, 3, 28, 4, 128, 16, 8, [10, 60], 0),
 }
 
 
@@ -207,6 +224,12 @@ def test_paged_attention_split_edges(name, dtype):
         (2, 65, 96, 1400),  # C = 65 (N = 80), d = 96, ragged f
         (2, 256, 128, 200),  # two passes of 128 rows
         (2, 300, 1400, 64),  # three passes, the last ragged; one 64-column f tile
+        (128, 8, 2048, 768),  # Qwen3-30B-A3B decode wi
+        (128, 8, 768, 2048),  # Qwen3-30B-A3B decode wo
+        (8, 2, 4096, 14336),  # Mixtral-8x7B decode wi: 8 experts, C=2
+        (8, 160, 14336, 4096),  # Mixtral-8x7B prefill wo: two row passes
+        (60, 8, 2048, 1408),  # Qwen1.5-MoE-A2.7B: 60 experts
+        (64, 8, 3584, 2560),  # Qwen2-57B-A14B
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -243,6 +266,21 @@ def test_tensor_core_kernels_are_deterministic():
     assert torch.equal(gm.grouped_matmul(lhs, rhs), gm.grouped_matmul(lhs, rhs))
     q, k, v = (_randn(rng, (4, 128, 16, 128), "bfloat16", dev).transpose(1, 2) for _ in range(3))
     assert torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
+
+
+def test_flash_hd256_two_calls_bit_equal():
+    """The hd 256 wgmma instance (two m64n128 halves of P V) gives the same
+    bits twice, and the bf16 plain version's result within tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = _card()
+    q, k, v = (_randn(np.random.default_rng(12), (2, 256, 8, 256), "bfloat16", dev).transpose(1, 2)
+               for _ in range(3))
+    k, v = k[:, :4], v[:, :4]  # G = 2
+    out = fa.flash_attention(q, k, v, softcap=50.0, scale=224.0**-0.5)
+    assert torch.equal(out, fa.flash_attention(q, k, v, softcap=50.0, scale=224.0**-0.5))
+    want = fa.flash_attention_plain(q, k, v, softcap=50.0, scale=224.0**-0.5)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_backend_resolves_hopper_on_the_card():
@@ -323,6 +361,10 @@ PREFIX_CASES = {
     # variant's split 1 and 2); in rep 2's group row 3 shares only 48 keys
     "run_ends_mid_split": ((7, 1, 16, 16, 128, 16, 12), [(2, (0, 1), 5), (2, (3,), 3), (5, (4, 6), 9)], 0, True,
                            0.0),
+    # head dim 256 (Gemma-2-9B's 16/8 heads): the main path's grouping, and
+    # a chunk with window and softcap
+    "hd256_decode": ((8, 1, 16, 8, 256, 16, 20), [(1, range(2, 8), 12)], 0, True, 0.0),
+    "hd256_window_softcap": ((4, 2, 16, 8, 256, 8, 12), [(2, (0, 3), 6)], 24, False, 50.0),
 }
 
 
@@ -649,3 +691,53 @@ def test_a_failing_capture_raises_on_the_card():
         steps.run(g)
     assert g.graph is None and steps.stats.captures == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "gemma2-9b"])
+def test_captured_full_width_family_equals_eager(name):
+    """A family at full width, 2 layers, bf16 (Qwen3-30B-A3B: 128 experts
+    top-8, GQA 32/4; Gemma-2-9B: hd 256, softcaps, post-norms, a 4,096-token
+    window on its local layer): the captured steps give the eager steps'
+    tokens, logits bit for bit and counts, through run() and
+    serve_continuous() with the prefix cache; every flash and gmm launch is
+    wgmma, every paged and prefix launch split."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config(name), num_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(13)
+    shared = rng.integers(1, cfg.vocab_size, 48).tolist()
+    for continuous in (False, True):
+        if continuous:
+            reqs = [(shared + rng.integers(1, cfg.vocab_size, 16).tolist(), g) for g in (8, 4, 6, 4)]
+
+            def make(capture):
+                return InferenceEngine(cfg, params, max_batch=3, kv_block_size=16, prefix_cache=True,
+                                       capture_steps=capture)
+        else:
+            reqs = [(rng.integers(1, cfg.vocab_size, n).tolist(), 6) for n in (20, 70, 33, 100)]
+
+            def make(capture):
+                return InferenceEngine(cfg, params, max_batch=2, capture_steps=capture)
+        runs = _served_both_ways(make, reqs, continuous)
+        eager, captured = runs[False], runs[True]
+        assert captured[0] == eager[0] and [len(t) for t in captured[0]] == [g for _, g in reqs]
+        assert len(captured[1]) == len(eager[1]) > 0
+        for a, b in zip(captured[1], eager[1]):
+            assert torch.equal(a, b)
+        assert captured[2:5] == eager[2:5]
+        launches, variants = captured[2], captured[3]
+        assert launches.get("grouped_matmul", 0) == variants.get(("grouped_matmul", "wgmma"), 0)
+        assert (launches.get("grouped_matmul", 0) > 0) == cfg.is_moe
+        # static prefills run flash; continuous prompts go through the paged
+        # kernel in chunks
+        assert launches.get("flash_attention", 0) == variants.get(("flash_attention", "wgmma"), 0)
+        assert (launches.get("flash_attention", 0) > 0) == (not continuous)
+        for k in ("paged_attention", "prefix_paged_attention"):
+            assert launches.get(k, 0) == variants.get((k, "split"), 0)
+        if continuous:
+            assert launches["prefix_paged_attention"] > 0 and captured[5].stats.prefix_hit_blocks > 0
+        assert not any(k.split(".")[1].startswith("ref") for k in captured[4])

@@ -34,6 +34,18 @@ GMM_SHAPES = (
     + [(64, C, *WI) for C in (1, 65, 256, 300)]
     + [(4, 5, 40, 33), (8, 24, 256, 200), (3, 100, 96, 130), (1, 8, 16, 64), (2, 300, 96, 1400)]
 )
+# the other MoE families' expert grids, wi and wo, at the serve cell's
+# decode capacity (4 rows: the minimum, 8) and its prefill capacity (4 x 128
+# tokens): Qwen3-30B-A3B (E=128, top-8, 2048 x 768: C=40), Mixtral-8x7B
+# (E=8, top-2, 4096 x 14336: C=2 as given, 8, 160), Qwen1.5-MoE-A2.7B
+# (E=60, top-4, 2048 x 1408: C=48), Qwen2-57B-A14B (E=64, top-8,
+# 3584 x 2560: C=80)
+FAMILY_GMM_SHAPES = (
+    [(128, C, *dims) for C in (1, 8, 40) for dims in ((2048, 768), (768, 2048))]
+    + [(8, C, *dims) for C in (2, 8, 160) for dims in ((4096, 14336), (14336, 4096))]
+    + [(60, C, *dims) for C in (8, 48) for dims in (WI, WO)]
+    + [(64, C, *dims) for C in (8, 80) for dims in ((3584, 2560), (2560, 3584))]
+)
 
 
 def _gmm_ids(shape):
@@ -46,7 +58,7 @@ def _covered_once(plan, blocks, expect):
     assert set(seen) == expect, "the plan misses work items or adds some"
 
 
-@pytest.mark.parametrize("shape", GMM_SHAPES, ids=_gmm_ids)
+@pytest.mark.parametrize("shape", GMM_SHAPES + FAMILY_GMM_SHAPES, ids=_gmm_ids)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_gmm_plan_covers_every_item_once(shape, dtype):
     E, C, d, f = shape
@@ -66,7 +78,7 @@ def test_gmm_plan_covers_every_item_once(shape, dtype):
         assert plan.smem_bytes >= 1024 + plan.stages * (gm.wgmma_stage_bytes(plan.n, plan.bm) + 16)
 
 
-@pytest.mark.parametrize("shape", GMM_SHAPES, ids=_gmm_ids)
+@pytest.mark.parametrize("shape", GMM_SHAPES + FAMILY_GMM_SHAPES, ids=_gmm_ids)
 def test_gmm_plan_variant(shape):
     """bf16 with d and f multiples of 8 on aligned operands takes wgmma;
     float32, unaligned operands and ragged rows take simt."""
@@ -117,6 +129,20 @@ def test_gmm_bad_simt_plan_raises(change):
         gm.check_plan(dataclasses.replace(plan, **change))
 
 
+@pytest.mark.parametrize("shape", FAMILY_GMM_SHAPES, ids=_gmm_ids)
+def test_gmm_plan_at_the_families_grids(shape):
+    """A wgmma plan at every family's expert grid, with more items than
+    SMs: Mixtral's 8 experts still give 8 x 112 (wi) or 8 x 32 (wo) f
+    tiles per pass. Capacities above 128 walk in passes of 128 rows, each
+    reading the whole weight again (Mixtral's prefill, C=160: two)."""
+    E, C, d, f = shape
+    plan = gm.gmm_plan(E, C, d, f, torch.bfloat16, True, H100_SMS)
+    assert plan.variant == "wgmma" and plan.bm == 128 and plan.stages == gm.WG_STAGES
+    assert plan.items == E * -(-f // 128) * plan.passes > H100_SMS
+    assert plan.grid == (H100_SMS, 1)
+    assert plan.n == next(w for w in gm.WGMMA_N if w >= min(C, 128)) and plan.passes == -(-C // 128)
+
+
 def test_gmm_plan_refuses_an_empty_product():
     with pytest.raises(ValueError):
         gm.gmm_plan(64, 0, *WI, torch.bfloat16, True, H100_SMS)
@@ -133,6 +159,13 @@ FLASH_SHAPES = [
     (2, 4, 100, 96),
     (1, 2, 130, 48),
     (2, 4, 37, 40),
+    # the other families' prefills (serve cell: B=4, S=128): Gemma-2-9B and
+    # Gemma-7B (16 heads of 256), and at an 8192-token prompt; Qwen3-30B,
+    # Mixtral-8x7B, Mistral-Nemo and Gemma-3 (32 heads of 128); Qwen2-57B (28)
+    (4, 16, 128, 256),
+    (1, 16, 8192, 256),
+    (4, 32, 128, 128),
+    (4, 28, 128, 128),
 ]
 
 
@@ -150,6 +183,19 @@ def test_flash_plan_covers_every_item_once(shape, dtype):
         assert plan.smem_bytes == 1024 + 5 * 64 * hd * 2 + 64
         # the causal q tiles with the most keys start first
         assert plan.block_items(0)[0][0] == qt - 1
+
+
+def test_flash_plan_at_head_dim_256():
+    """Head dim 256 has a wgmma instance: the q tile and two stages of K
+    and V (64 x 256 bf16 each) plus alignment and barriers, 164,928 bytes;
+    its float32 simt body keeps 140,672 bytes. A head dim without a wgmma
+    instance (144) takes simt in bf16 too."""
+    plan = fa.flash_plan(4, 16, 128, 256, torch.bfloat16, True)
+    assert plan.variant == "wgmma" and plan.smem_bytes == fa.wgmma_smem_bytes(256) == 164_928 <= SMEM_MAX
+    f32 = fa.flash_plan(4, 16, 128, 256, torch.float32, True)
+    assert f32.variant == "simt" and f32.smem_bytes == fa.simt_smem_bytes(256) == 140_672
+    assert fa.flash_plan(4, 16, 128, 144, torch.bfloat16, True).variant == "simt"
+    assert fa.HD_MAX == 256 and 256 in fa.WGMMA_HDS and 144 not in fa.WGMMA_HDS
 
 
 def _tma_ok(t):

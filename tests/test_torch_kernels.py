@@ -61,6 +61,11 @@ def _t(a):
         (1, 4, 2, 16, 32, 16, True, 8, 0.0),  # Sq < Sk, sliding window
         (1, 2, 1, 32, 32, 16, True, 0, 30.0),  # softcap, MQA
         (1, 2, 2, 16, 16, 8, False, 0, 0.0),  # bidirectional
+        # head dim 256 (Gemma-7B, Gemma-2-9B) at the families' GQA groups
+        (1, 2, 2, 32, 32, 256, True, 8, 50.0),  # G = 1, window, softcap
+        (2, 4, 2, 32, 32, 256, True, 0, 50.0),  # G = 2 (Gemma-2)
+        (1, 7, 1, 16, 32, 256, True, 8, 0.0),  # G = 7 (Qwen2-57B), Sq < Sk, window
+        (1, 8, 1, 32, 32, 256, True, 8, 30.0),  # G = 8 (Qwen3-30B), window, softcap
     ],
 )
 def test_flash_attention_ref_matches_jax(B, Hq, Hkv, Sq, Sk, hd, causal, window, softcap):
@@ -118,6 +123,11 @@ PAGED_CASES = {
     ),
     "softcap": (2, 2, 2, 2, 8, 8, [[1, 2], [3, 4]], [3, 9], True, 0, 25.0),
     "past_table_width": (2, 3, 4, 2, 16, 4, [[1, 2], [3, 4]], [6, 2], True, 0, 0.0),
+    # head dim 256 at the families' GQA groups
+    "hd256_g1": (2, 1, 2, 2, 256, 8, [[1, 2], [3, 4]], [12, 8], True, 0, 0.0),
+    "hd256_g2_window_softcap": (2, 2, 4, 2, 256, 4, [[1, 2, 3, 4], [5, 6, 7, 8]], [9, 5], False, 4, 50.0),
+    "hd256_g7": (2, 1, 7, 1, 256, 8, [[1, 2], [3, 4]], [10, 3], True, 0, 0.0),
+    "hd256_g8_chunk_window": (2, 3, 8, 1, 256, 4, [[1, 2, 3], [4, 5, 6]], [7, 2], False, 6, 30.0),
 }
 
 
@@ -296,8 +306,8 @@ def test_flash_wrapper_validates():
     z = torch.zeros
     with pytest.raises(ValueError, match="GQA"):
         fa.flash_attention(z(1, 3, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16))
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(z(1, 2, 8, 256), z(1, 2, 8, 256), z(1, 2, 8, 256))
+    with pytest.raises(ValueError, match="head_dim"):  # past HD_MAX = 256
+        fa.flash_attention(z(1, 2, 8, 272), z(1, 2, 8, 272), z(1, 2, 8, 272))
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(z(1, 2, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16), window=-1)
     with pytest.raises(ValueError, match="stride"):

@@ -305,6 +305,11 @@ PREFIX_CASES = {
     "chunk_across_pages": ((2, 5, 4, 4, 8, 4, 4), [8, 9], True, 0, 0.0),
     "window": ((3, 1, 4, 2, 16, 4, 3), [9, 9, 5], False, 6, 0.0),
     "softcap": ((3, 1, 4, 2, 16, 4, 3), [9, 9, 5], True, 0, 25.0),
+    # head dim 256 at the families' GQA groups
+    "hd256_g1": ((3, 1, 2, 2, 256, 4, 3), [8, 9, 10], True, 0, 0.0),
+    "hd256_g2_window_softcap": ((3, 1, 4, 2, 256, 4, 3), [9, 9, 5], False, 6, 50.0),
+    "hd256_g7": ((3, 1, 7, 1, 256, 4, 3), [8, 9, 10], True, 0, 0.0),
+    "hd256_g8_chunk": ((2, 3, 8, 1, 256, 4, 4), [8, 9], True, 0, 30.0),
 }
 
 

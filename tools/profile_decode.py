@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """Where a serving step's time goes on the card: a torch.profiler trace of
-the port's prefill and decode at DeepSeekMoE-16B full width.
+the port's prefill and decode at a family's full width (``--arch``, by
+default DeepSeekMoE-16B), at its full depth or the first ``--layers``
+(Mixtral-8x7B needs ``--layers 16`` to fit one 80 GB card, as
+``chip_smoke.py``'s ``families`` phase serves it).
 
 Run from the root of a checkout on a machine with one CUDA sm_90 card:
 ``python3 tools/profile_decode.py``. It builds the kernels, makes seeded
@@ -25,7 +28,7 @@ run: device busy s, idle share, device events) and ``top``.
 With ``--resident`` the expert leaves are first quantized on the card into
 resident INT4 ``QuantizedExpert``s (``ops.quantize_weight``), so every
 expert matmul runs ``int4_dequant`` and then the grouped matmul; it combines
-with ``--continuous``.
+with ``--continuous`` (MoE families only).
 
 With ``--captured`` it drives the engine's own steps instead
 (``InferenceEngine`` with ``capture_steps`` False and True) in three cells,
@@ -33,11 +36,19 @@ each in the order eager, captured, captured, eager: ``static`` (the same 4
 prompts through the engine's prefill step and ``--steps`` lockstep decode
 steps, after two warm-up passes: a step is captured on its second run),
 ``continuous`` (the continuous traffic above, prefix cache on; each run
-captures its own graphs, as a new live batch does) and ``resident`` (the static cell on
-resident INT4 leaves). Each run prints ``timing`` (unprofiled) and
+captures its own graphs, as a new live batch does) and, for an MoE family,
+``resident`` (the static cell on resident INT4 leaves). Each run prints ``timing`` (unprofiled) and
 ``profile`` (traced) lines with ``capture_steps`` and its place in the order,
 and the static and resident runs a line of launches per kernel for one
 prefill and the decode steps.
+
+With ``--route`` it times only the MoE router's top-k selection at the
+family's decode (4 tokens) and prefill (4 x 128 tokens) shapes: the stable
+descending sort and slice that ``models.moe.route`` takes, ``torch.topk``
+(which breaks ties in no stated order), and ``torch.topk`` on an exact
+int64 key (the probability's bits, then the lower expert first), each as
+device ms per call (CUDA events around a CUDA graph of 50 calls), with
+whether their choices agree. It makes no model weights.
 
 The profiler adds host overhead of its own, so the idle share it shows is
 an upper bound; ``timing`` is the undisturbed wall clock.
@@ -55,6 +66,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)  # chip_smoke's traffic
 
 
 def emit(obj) -> None:
@@ -65,6 +77,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="decode steps traced")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default="deepseek-moe-16b", help="a name of repro_torch.configs.list_configs()")
+    ap.add_argument("--layers", type=int, default=0, help="keep the first N layers (0: all)")
+    ap.add_argument("--route", action="store_true", help="time the router's top-k selection only")
     ap.add_argument("--continuous", action="store_true", help="profile the continuous traffic instead")
     ap.add_argument("--resident", action="store_true", help="serve the experts from resident INT4 leaves")
     ap.add_argument("--captured", action="store_true",
@@ -81,7 +96,17 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, prefill
 
-    cfg = get_config("deepseek-moe-16b")
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if (args.resident or args.route) and not cfg.is_moe:
+        print(f"profile_decode: --resident and --route need an MoE family, {cfg.name} is dense", file=sys.stderr)
+        return 1
+    emit({"phase": "config", "arch": cfg.name, "num_layers": cfg.num_layers})
+    if args.route:
+        profile_route(cfg)
+        print_card()
+        return 0
     dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     if args.captured:
@@ -131,6 +156,59 @@ def main() -> int:
     return 0
 
 
+def profile_route(cfg) -> None:
+    """The router's top-k selection, three ways, at decode and prefill."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    E, k, d = cfg.n_routed_experts, cfg.top_k, cfg.d_model
+    w = torch.randn(d, E, generator=gen, device=dev).mul_(d**-0.5)
+    lower_first = torch.arange(E - 1, -1, -1, device=dev)  # the tie-break: a lower expert is a larger key
+    for T in (4, 4 * 128):
+        probs = torch.softmax(torch.randn(T, d, generator=gen, device=dev) @ w, dim=-1)
+
+        def sort_slice():
+            gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+            return gates[:, :k], idx[:, :k]
+
+        def topk():
+            return torch.topk(probs, k, dim=-1)
+
+        def keyed_topk():
+            idx = torch.topk(probs.view(torch.int32).long() * E + lower_first, k, dim=-1).indices
+            return probs.gather(-1, idx), idx
+
+        ways = {"sort_slice": sort_slice, "topk": topk, "keyed_topk": keyed_topk}
+        picks = {n: fn()[1] for n, fn in ways.items()}
+        emit({"phase": "route", "arch": cfg.name, "tokens": T, "experts": E, "top_k": k,
+              **{f"{n}_ms": graph_ms(fn) for n, fn in ways.items()},
+              "keyed_equals_sort": bool(torch.equal(picks["keyed_topk"], picks["sort_slice"])),
+              "topk_equals_sort": bool(torch.equal(picks["topk"], picks["sort_slice"]))})
+
+
+def graph_ms(fn, reps: int = 50, replays: int = 3) -> float:
+    """Mean device ms per call of ``fn``, captured ``reps`` times into one
+    CUDA graph, from CUDA events around ``replays`` replays."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * reps)
+
+
 def resident(params):
     """``params`` with the expert leaves quantized on the card into resident
     INT4 ``QuantizedExpert``s (the dense leaves freed)."""
@@ -158,7 +236,6 @@ def profile_captured(cfg, params, args) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    sys.path.insert(0, ROOT)
     from chip_smoke import CONT_BLOCK, CONT_MAX_BATCH, cont_requests
     from repro_torch.kernels import _build, ops
     from repro_torch.serving import InferenceEngine, Request
@@ -239,7 +316,13 @@ def profile_captured(cfg, params, args) -> None:
             report(prof, "continuous_prefix", wall, 1, decode_steps=eng.stats.decode_steps,
                    prefill_chunks=eng.stats.prefill_chunks, **tag)
             del eng
-    static_cell("resident", resident(params))
+    # the resident cell quantizes beside the dense leaves, which the cells
+    # above still use: only where the packed copy (~0.28x) fits beside them
+    experts = sum(params["layers"]["moe"][n].nbytes for n in ("wi_gate", "wi_up", "wo")) if cfg.is_moe else 0
+    if experts and torch.cuda.mem_get_info()[0] > 0.3 * experts + 4e9:
+        static_cell("resident", resident(params))
+    elif experts:
+        emit({"phase": "skipped", "cell": "resident", "why": "the INT4 copy does not fit beside the dense leaves"})
     print_card()
 
 
@@ -279,7 +362,6 @@ def profile_continuous(cfg, params) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    sys.path.insert(0, ROOT)
     from chip_smoke import CONT_BLOCK, CONT_MAX_BATCH, cont_requests
     from repro_torch.serving import InferenceEngine, Request
 
