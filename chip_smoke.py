@@ -51,6 +51,24 @@ printing one JSON line:
              continuous traffic with the prefix cache on; Mixtral-8x7B at
              its first 16 of 32 layers (93.4 GB in bf16 does not fit the
              80 GB card): ``run()`` and agree. Each prints its peak memory
+9. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
+             gloo group, both on the one card (NCCL refuses two ranks on one
+             device), spawned by ``repro_torch.sharding.launch``; each rank
+             draws only its shard (``init_params(..., shard=...)``, the
+             serve phase's seed) and serves the serve phase's 8 requests
+             through ``HAPSession(cfg, "h100", 2, source=fixed_plan(...),
+             mesh=RankMesh).engine(...).run()`` eagerly under TP2/TP2,
+             TP2/EP2 (serial and K=2), and the switching TP2/EP2->TP2 plan
+             by reshard, by INT4 upload and from resident INT4, then the
+             continuous traffic with the prefix cache under TP2/EP2. Each
+             run prints its token agreement with the one-rank runs, per-rank
+             peak memory, launches, ms per step and relayout ms and bytes;
+             every rank must launch every kernel of its path. The
+             teacher-forced logits of the agree phase's first batch under
+             each TP2/EP2 layout are held to the agree bound with the expert
+             flips counted, and one MoE layer sharded against the same layer
+             whole (EP2: exact; TP2: the kernel tolerance). Then one NCCL
+             rank serves TP2/EP2 captured and eager: equal tokens
 
 Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
 default on the card; ``repro_torch.serving.step_cache``). The serve phase,
@@ -80,6 +98,7 @@ Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -301,17 +320,12 @@ def phase_kernels(cfg) -> list:
     """Each kernel against its plain version at the main path's shapes."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import grouped_matmul as gm
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     bf16 = torch.bfloat16
-    H, hd = cfg.num_heads, cfg.head_dim
     B, S = MAX_BATCH, 128
 
     def randn(*shape, std=1.0):
@@ -325,49 +339,14 @@ def phase_kernels(cfg) -> list:
     # scale 224^-0.5), also at an 8192-token prompt where its 4096-token
     # window bites, and Qwen3-30B-A3B's and Mixtral-8x7B's groups of 8 and 4
     g2, q3, mx = (get_config(n) for n in ("gemma2-9b", "qwen3-moe-30b-a3b", "mixtral-8x7b"))
-    flash_rows = []
-    for model, fb, fs, (Hq, Hkv, fhd, cap, scale), win in (
+    flash_rows = [flash_case(dev, randn, model, fb, fs, attn, win) for model, fb, fs, attn, win in (
         (cfg.name, B, S, attn_of(cfg), 0),
         (cfg.name, 1, 2048, attn_of(cfg), 0),
         (g2.name, B, S, attn_of(g2), 0),
         (g2.name, 1, 8192, attn_of(g2), g2.sliding_window),
         (q3.name, B, S, attn_of(q3), 0),
         (mx.name, B, S, attn_of(mx), 0),
-    ):
-        q, k, v = (randn(fb, fs, nh, fhd).transpose(1, 2) for nh in (Hq, Hkv, Hkv))
-        kw = dict(window=win, softcap=cap, scale=scale)
-        _build.VARIANT_COUNTS.clear()
-        out = fa.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        variant = variant_counts()
-        acc = compare(out, fa.flash_attention_plain(q, k, v, **kw), KERNEL_ATOL, KERNEL_RTOL,
-                      f"flash_attention S={fs} hd={fhd}")
-        if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
-            raise AssertionError(f"flash_attention S={fs} hd={fhd}: two calls differ")
-        # q, k, v read once and o written once; 4 flops per (query, valid key, dim)
-        pairs = sum(min(i + 1, win) for i in range(fs)) if win else fs * (fs + 1) // 2
-        b_ms, b_by = bound(2 * fb * fs * (2 * Hq + 2 * Hkv) * fhd, 4 * fhd * fb * Hq * pairs)
-        # the library yardstick: causal (and windowed) SDPA on the same
-        # inputs; SDPA has no softcap, so at softcap rows it computes less
-        mask = None
-        if win:
-            i = torch.arange(fs, device=dev)
-            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < win)
-        reps = 200 if fs <= 128 else 20 if fs <= 2048 else 5
-        flash_rows.append({
-            "model": model,
-            "shape": (f"B={fb} S={fs} H={H} hd={hd} bf16 causal" if Hq == Hkv and not (win or cap) else
-                      f"B={fb} S={fs} Hq={Hq} Hkv={Hkv} hd={fhd} window={win} softcap={cap} bf16 causal"),
-            "variant": variant, **acc, "bit_equal_calls": True,
-            **timed_row(lambda: fa.flash_attention(q, k, v, **kw),
-                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=mask is None,
-                                                               scale=scale, enable_gqa=Hq != Hkv), reps),
-            "library_same_function": not cap,
-            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 20 if fs <= 128 else 3 if fs <= 2048
-                                else 1),
-            "bound_ms": b_ms, "bound_by": b_by,
-        })
-        del q, k, v, out, mask
+    )]
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:105", **flash_rows[0],
@@ -384,70 +363,44 @@ def phase_kernels(cfg) -> list:
         "replaces": "src/repro/kernels/paged_attention.py:336", **static_decode_case(rng, dev, cfg.name, attn_of(cfg), 0),
         "library": None,
         "also": [
-            paged_chunk_row(cfg, rng, dev),
+            paged_chunk_row(rng, dev, cfg.name, attn_of(cfg)),
             pool_decode_row(rng, dev, g2.name, 4, 1, attn_of(g2), 16, 376, [6000, 5890, 5750, 5600], g2.sliding_window),
             static_decode_case(rng, dev, g2.name, attn_of(g2), 0),
             static_decode_case(rng, dev, q3.name, attn_of(q3), 0),
             static_decode_case(rng, dev, mx.name, attn_of(mx), 0),
-            paged_chunk_row(g2, rng, dev, g2.sliding_window),
-            paged_chunk_row(q3, rng, dev),
+            paged_chunk_row(rng, dev, g2.name, attn_of(g2), g2.sliding_window),
+            paged_chunk_row(rng, dev, q3.name, attn_of(q3)),
+            # the sharded phase's: a TP2 rank's 8 of DeepSeek's 16 heads at
+            # the static decode step and at a continuous chunk
+            static_decode_case(rng, dev, SHARDED_RANK, rank_attn(cfg), 0),
+            paged_chunk_row(rng, dev, SHARDED_RANK, rank_attn(cfg)),
         ],
     })
     rows.append(prefix_row(cfg, rng, dev))
     rows[-1]["also"] = [prefix_case(rng, dev, c.name, attn_of(c)) for c in (g2, q3)]
+    rows[-1]["also"].append(prefix_case(rng, dev, SHARDED_RANK, rank_attn(cfg)))
 
     # grouped matmul: decode (C=8), fused chunk + decode (C=16) and prefill
     # (C=64) capacities, both layers; then the families' expert grids:
     # Qwen3-30B-A3B's 128 experts of 768 at decode (the serve cell's 4 rows
     # give the minimum capacity, 8) and at a 128-token prefill of 4 rows
     # (C=40), Mixtral-8x7B's 8 experts of 14336 at C=2, at that decode
-    # capacity and at its prefill (C=160)
+    # capacity and at its prefill (C=160). The sharded phase's per-rank
+    # shapes (flash, gmm, dequant) are held after that phase, at each shape
+    # its runs sent (``sharded_kernel_rows``)
     E, d, f = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
     gmm_specs = [(cfg.name, E, C, d, f) for C in (8, 16, 64)]
     gmm_specs += [(q3.name, q3.n_routed_experts, C, q3.d_model, q3.moe_d_ff) for C in (8, 40)]
     gmm_specs += [(mx.name, mx.n_routed_experts, C, mx.d_model, mx.moe_d_ff) for C in (2, 8, 160)]
     gen = torch.Generator(device=dev).manual_seed(SEED)  # the families' large weights, made on the card
-    gmm_rows = []
-    for model, E, C, d, f in gmm_specs:
-        for (k_in, n_out), which in (((d, f), "wi"), ((f, d), "wo")):
-            if model == cfg.name:
-                lhs = randn(E, C, k_in)
-                rhs = randn(E, k_in, n_out, std=k_in**-0.5)
-            else:
-                lhs = torch.randn(E, C, k_in, generator=gen, device=dev, dtype=bf16)
-                rhs = torch.randn(E, k_in, n_out, generator=gen, device=dev, dtype=bf16).mul_(k_in**-0.5)
-            lhs[:, -1] = 0  # an empty capacity slot
-            _build.VARIANT_COUNTS.clear()
-            out = gm.grouped_matmul(lhs, rhs)
-            torch.cuda.synchronize()
-            variant = variant_counts()
-            acc = compare(out, gm.grouped_matmul_plain(lhs, rhs), KERNEL_ATOL, KERNEL_RTOL, f"grouped_matmul C={C}")
-            if torch.count_nonzero(out[:, -1]):
-                raise AssertionError("grouped_matmul: an empty capacity slot came out non-zero")
-            if not torch.equal(out, gm.grouped_matmul(lhs, rhs)):
-                raise AssertionError(f"grouped_matmul C={C} {which}: two calls differ")
-            b_ms, b_by = bound(2 * (E * C * k_in + E * k_in * n_out + E * C * n_out), 2 * E * C * k_in * n_out)
-            row = {
-                "model": model,
-                "shape": f"E={E} C={C} {k_in}x{n_out} ({which}) bf16", "variant": variant, **acc, "bit_equal_calls": True,
-                **timed_row(lambda: gm.grouped_matmul(lhs, rhs), lambda: torch.bmm(lhs, rhs), 20),
-                "plain_ms": cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs), 5 if model == cfg.name else 2),
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            row["share_of_bound"] = b_ms / row["ms"]
-            if model == cfg.name and C == 8 and which == "wi":
-                # the host cost of a tensor-map encode: new lhs buffers each call
-                # (a map-cache miss) against the same buffer (a hit)
-                fresh = [torch.empty_like(lhs) for _ in range(20)]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for x in fresh:
-                    gm.grouped_matmul(x, rhs)
-                row["host_us_new_buffers"] = (time.perf_counter() - t0) / len(fresh) * 1e6
-                torch.cuda.synchronize()
-                del fresh
-            gmm_rows.append(row)
-            del lhs, rhs, out
+
+    def on_card(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=bf16).mul_(std)
+
+    gmm_rows = [gmm_case(randn if model == cfg.name else on_card, model, E, C, k_in, n_out, which,
+                         plain_reps=5 if model == cfg.name else 2,
+                         host_cost=model == cfg.name and C == 8 and which == "wi")
+                for model, E, C, d, f in gmm_specs for (k_in, n_out), which in (((d, f), "wi"), ((f, d), "wo"))]
     main, also = gmm_rows[0], gmm_rows[1:]
     rows.append({
         "name": "grouped_matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
@@ -459,41 +412,138 @@ def phase_kernels(cfg) -> list:
     return rows
 
 
+def flash_case(dev, randn, model, fb, fs, attn, win) -> dict:
+    """The flash kernel at B=``fb`` S=``fs`` of ``model``'s attention
+    ``attn`` (as ``attn_of`` gives it), on the model layout's views of
+    ``randn`` inputs; ``win`` > 0 a sliding window."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    Hq, Hkv, fhd, cap, scale = attn
+    q, k, v = (randn(fb, fs, nh, fhd).transpose(1, 2) for nh in (Hq, Hkv, Hkv))
+    kw = dict(window=win, softcap=cap, scale=scale)
+    _build.VARIANT_COUNTS.clear()
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    variant = variant_counts()
+    acc = compare(out, fa.flash_attention_plain(q, k, v, **kw), KERNEL_ATOL, KERNEL_RTOL,
+                  f"flash_attention ({model}) S={fs} hd={fhd}")
+    if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
+        raise AssertionError(f"flash_attention ({model}) S={fs} hd={fhd}: two calls differ")
+    # q, k, v read once and o written once; 4 flops per (query, valid key, dim)
+    pairs = sum(min(i + 1, win) for i in range(fs)) if win else fs * (fs + 1) // 2
+    b_ms, b_by = bound(2 * fb * fs * (2 * Hq + 2 * Hkv) * fhd, 4 * fhd * fb * Hq * pairs)
+    # the library yardstick: causal (and windowed) SDPA on the same
+    # inputs; SDPA has no softcap, so at softcap rows it computes less
+    mask = None
+    if win:
+        i = torch.arange(fs, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < win)
+    reps = 200 if fs <= 128 else 20 if fs <= 2048 else 5
+    return {
+        "model": model,
+        "shape": (f"B={fb} S={fs} H={Hq} hd={fhd} bf16 causal" if Hq == Hkv and not (win or cap) else
+                  f"B={fb} S={fs} Hq={Hq} Hkv={Hkv} hd={fhd} window={win} softcap={cap} bf16 causal"),
+        "variant": variant, **acc, "bit_equal_calls": True,
+        **timed_row(lambda: fa.flash_attention(q, k, v, **kw),
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=mask is None,
+                                                           scale=scale, enable_gqa=Hq != Hkv), reps),
+        "library_same_function": not cap,
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 20 if fs <= 128 else 3 if fs <= 2048
+                            else 1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def gmm_case(make, model, E, C, k_in, n_out, which, plain_reps: int = 2, host_cost: bool = False) -> dict:
+    """The grouped matmul at (E, C, k_in) x (E, k_in, n_out) (``which``:
+    "wi" or "wo"), on inputs ``make(*shape, std=...)`` gives, the last
+    capacity slot empty; ``host_cost`` also times the host's tensor-map
+    encode on new buffers."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import grouped_matmul as gm
+
+    lhs = make(E, C, k_in)
+    rhs = make(E, k_in, n_out, std=k_in**-0.5)
+    lhs[:, -1] = 0  # an empty capacity slot
+    _build.VARIANT_COUNTS.clear()
+    out = gm.grouped_matmul(lhs, rhs)
+    torch.cuda.synchronize()
+    variant = variant_counts()
+    acc = compare(out, gm.grouped_matmul_plain(lhs, rhs), KERNEL_ATOL, KERNEL_RTOL, f"grouped_matmul ({model}) C={C}")
+    if torch.count_nonzero(out[:, -1]):
+        raise AssertionError("grouped_matmul: an empty capacity slot came out non-zero")
+    if not torch.equal(out, gm.grouped_matmul(lhs, rhs)):
+        raise AssertionError(f"grouped_matmul ({model}) C={C} {which}: two calls differ")
+    b_ms, b_by = bound(2 * (E * C * k_in + E * k_in * n_out + E * C * n_out), 2 * E * C * k_in * n_out)
+    row = {
+        "model": model,
+        "shape": f"E={E} C={C} {k_in}x{n_out} ({which}) bf16", "variant": variant, **acc, "bit_equal_calls": True,
+        **timed_row(lambda: gm.grouped_matmul(lhs, rhs), lambda: torch.bmm(lhs, rhs), 20),
+        "plain_ms": cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs), plain_reps),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    row["share_of_bound"] = b_ms / row["ms"]
+    if host_cost:
+        # the host cost of a tensor-map encode: new lhs buffers each call
+        # (a map-cache miss) against the same buffer (a hit)
+        fresh = [torch.empty_like(lhs) for _ in range(20)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in fresh:
+            gm.grouped_matmul(x, rhs)
+        row["host_us_new_buffers"] = (time.perf_counter() - t0) / len(fresh) * 1e6
+        torch.cuda.synchronize()
+    return row
+
+
 def int4_row(cfg, rng, dev) -> dict:
     """The dequant kernel at the main path's shape, one layer's expert leaf
-    in 128-wide groups, into bf16 (the serving type) and into float32; each
-    bit-equal to the plain version."""
+    in 128-wide groups, into bf16 (the serving type) and into float32."""
+    import torch
+
+    gs = 128
+    G = cfg.n_routed_experts * cfg.d_model * cfg.moe_d_ff // gs
+    main, f32 = (dequant_case(rng, dev, G, gs, dt) for dt in (torch.bfloat16, torch.float32))
+    return {
+        "name": "int4_dequant", "route": "cuda", "source": "src/repro_torch/kernels/csrc/int4_dequant.cu",
+        "replaces": "src/repro/kernels/int4_dequant.py:39", **main, "library": None, "also": [f32],
+    }
+
+
+def dequant_case(rng, dev, G, gs, dt, model=None) -> dict:
+    """The dequant kernel on G groups of ``gs`` into ``dt``, bit-equal to
+    the plain version."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import int4_dequant as dq
 
-    gs = 128
-    G = cfg.n_routed_experts * cfg.d_model * cfg.moe_d_ff // gs
     packed = torch.from_numpy(rng.integers(0, 256, (G, gs // 2), dtype=np.uint8)).to(dev)
     scales = torch.from_numpy(rng.uniform(1e-3, 0.1, (G, 1)).astype(np.float32)).to(dev)
     zeros = torch.from_numpy(rng.uniform(-1.0, 1.0, (G, 1)).astype(np.float32)).to(dev)
-    out_rows = []
-    for dt, nb in ((torch.bfloat16, 2), (torch.float32, 4)):
-        out = dq.int4_dequant(packed, scales, zeros, out_dtype=dt)
-        torch.cuda.synchronize()
-        want = dq.int4_dequant_plain(packed, scales, zeros, dt)
-        if not torch.equal(out, want):
-            raise AssertionError(f"int4_dequant ({dt}): not bit-equal to its plain version")
-        acc = compare(out, want, 0.0, 0.0, f"int4_dequant ({dt})")
-        del out, want
-        # packed bytes, scales and zeros read once, the output written once;
-        # a multiply and an add per output element, in float32
-        b_ms, b_by = bound(G * gs // 2 + 8 * G + nb * G * gs, 2 * G * gs, FP32_FLOPS)
-        out_rows.append({
-            "shape": f"G={G} gs={gs} -> {str(dt).split('.')[1]}", **acc, "bit_equal": True,
-            "ms": cuda_ms(lambda: dq.int4_dequant(packed, scales, zeros, out_dtype=dt), 20),
-            "plain_ms": cuda_ms(lambda: dq.int4_dequant_plain(packed, scales, zeros, dt), 5),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+    out = dq.int4_dequant(packed, scales, zeros, out_dtype=dt)
+    torch.cuda.synchronize()
+    want = dq.int4_dequant_plain(packed, scales, zeros, dt)
+    if not torch.equal(out, want):
+        raise AssertionError(f"int4_dequant G={G} ({dt}): not bit-equal to its plain version")
+    acc = compare(out, want, 0.0, 0.0, f"int4_dequant ({dt})")
+    del out, want
+    # packed bytes, scales and zeros read once, the output written once;
+    # a multiply and an add per output element, in float32
+    nb = torch.empty((), dtype=dt).element_size()
+    b_ms, b_by = bound(G * gs // 2 + 8 * G + nb * G * gs, 2 * G * gs, FP32_FLOPS)
     return {
-        "name": "int4_dequant", "route": "cuda", "source": "src/repro_torch/kernels/csrc/int4_dequant.cu",
-        "replaces": "src/repro/kernels/int4_dequant.py:39", **out_rows[0], "library": None, "also": out_rows[1:],
+        **({"model": model} if model else {}),
+        "shape": f"G={G} gs={gs} -> {str(dt).split('.')[1]}", **acc, "bit_equal": True,
+        "ms": cuda_ms(lambda: dq.int4_dequant(packed, scales, zeros, out_dtype=dt), 20),
+        "plain_ms": cuda_ms(lambda: dq.int4_dequant_plain(packed, scales, zeros, dt), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
 
@@ -521,12 +571,19 @@ def attn_of(cfg) -> tuple:
     return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.attn_logit_softcap, scale
 
 
-def paged_chunk_row(cfg, rng, dev, window: int = 0) -> dict:
-    """The paged kernel at a continuous prefill chunk of ``cfg``'s model:
-    one row, 64 tokens written at position 192 through a table of scattered
-    real pages; ``window`` > 0 is a local layer's."""
-    return pool_decode_row(rng, dev, cfg.name, 1, 64, attn_of(cfg), CONT_BLOCK, _cont_table_width(), [CONT_SYSTEM],
-                           window)
+def rank_attn(cfg, n: int = 2) -> tuple:
+    """``attn_of`` for one rank's head shard under attention TP over ``n``
+    ranks (DeepSeek's heads divide)."""
+    Hq, Hkv, *rest = attn_of(cfg)
+    return (Hq // n, Hkv // n, *rest)
+
+
+def paged_chunk_row(rng, dev, model, attn, window: int = 0) -> dict:
+    """The paged kernel at a continuous prefill chunk of ``model``, whose
+    attention is ``attn`` (as ``attn_of`` gives it): one row, 64 tokens
+    written at position 192 through a table of scattered real pages;
+    ``window`` > 0 is a local layer's."""
+    return pool_decode_row(rng, dev, model, 1, 64, attn, CONT_BLOCK, _cont_table_width(), [CONT_SYSTEM], window)
 
 
 def static_decode_case(rng, dev, model, attn, window) -> dict:
@@ -841,13 +898,17 @@ def phase_serve(cfg, params, phase: str = "serve") -> dict:
     return res
 
 
-def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL) -> dict:
+def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=None) -> dict:
     """Hopper against ref logits, teacher-forced on the hopper path's greedy
     tokens, twice: each path routing on its own, then the ref path taking
     the hopper path's expert choices (its gates still its own). Where the
     routers near-tie, the two paths pick other experts for a token; the
     second reading leaves that out and is held to
-    ``AGREE_SAME_EXPERTS_TOL``."""
+    ``AGREE_SAME_EXPERTS_TOL``. ``keep`` (a dict) receives, on the host, for
+    the sharded phase: the padded tokens, the hopper path's logits, expert
+    choices and dropped token slots, and the same of one rank routing each
+    half of the tokens with its own capacity (the function an EP2 plan
+    computes) on the same forced tokens."""
     import torch
 
     from repro_torch.models import decode_step, prefill
@@ -871,9 +932,20 @@ def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL) -> dict
         return out
 
     with torch.inference_mode():
-        hop_experts = []
-        with _routing(hop_experts):
+        hop_experts, drops = [], []
+        with _routing(hop_experts), _dropping(drops):
             hop = run("hopper", None)
+        if keep is not None:
+            # the sharded phase's references: this run, and the function an
+            # EP2 plan computes (each half of the tokens routed with its own
+            # capacity) on the same forced tokens; with their dropped slots
+            ep2_drops, ep2_experts = [], []
+            with _dropping(ep2_drops), _routing(ep2_experts), _ep_halves(ep2_drops, ep2_experts):
+                ep2 = run("hopper", hop)
+            keep.update(tokens=toks, logits=[h.cpu() for h in hop], experts=[e.cpu() for e in hop_experts],
+                        drops=drops, logits_ep2=[h.cpu() for h in ep2], experts_ep2=[e.cpu() for e in ep2_experts],
+                        drops_ep2=ep2_drops)
+            del ep2
         greedy = torch.stack([h.argmax(-1) for h in hop], 1).tolist()
         if greedy != serve["first_batch_tokens"]:
             raise AssertionError("agree: direct hopper decode differs from the engine's tokens")
@@ -944,6 +1016,55 @@ def _routing(seen: list, forced=None):
         yield
     finally:
         moe.route = route
+
+
+@contextlib.contextmanager
+def _ep_halves(*records, n: int = 2):
+    """Inside the block every MoE layer routes its tokens in ``n`` equal
+    parts, each with the capacity of its part: on one rank, the function an
+    EP plan over ``n`` ranks computes (``models.moe._moe_ep`` splits the
+    tokens so). Each list of ``records`` (filled by ``_routing`` or
+    ``_dropping`` spies inside the block) gets one entry per layer, its
+    parts' entries joined."""
+    import torch
+
+    from repro_torch.models import moe
+
+    local = moe._moe_local
+
+    def parts(x_flat, moe_p, cfg, backend=None, axes=None):
+        if x_flat.shape[0] % n:
+            return local(x_flat, moe_p, cfg, backend=backend, axes=axes)
+        outs = [local(x, moe_p, cfg, backend=backend, axes=axes) for x in x_flat.chunk(n)]
+        for rec in records:
+            rec[-n:] = [torch.cat(rec[-n:]) if isinstance(rec[-1], torch.Tensor) else sum(rec[-n:])]
+        return torch.cat([o[0] for o in outs]), sum(o[1] for o in outs) / n, torch.cat([o[2] for o in outs])
+
+    moe._moe_local = parts
+    try:
+        yield
+    finally:
+        moe._moe_local = local
+
+
+@contextlib.contextmanager
+def _dropping(counts: list):
+    """Inside the block every MoE dispatch appends the number of token
+    slots its capacity dropped to ``counts``."""
+    from repro_torch.models import moe
+
+    make = moe.make_dispatch
+
+    def spy(idx, gates, E, C):
+        out = make(idx, gates, E, C)
+        counts.append(int((~out[2]).sum()))
+        return out
+
+    moe.make_dispatch = spy
+    try:
+        yield
+    finally:
+        moe.make_dispatch = make
 
 
 def cont_requests(cfg):
@@ -1273,6 +1394,460 @@ def phase_families() -> dict:
     return out
 
 
+# sharded phase: DeepSeekMoE-16B on two ranks of a gloo group, both on the
+# one card (NCCL refuses two ranks on one device), then one NCCL rank
+# the kernels' wrappers as ``kernels.ops`` calls them
+SPIED = {"_flash_hopper": "flash_attention", "_paged_hopper": "paged_attention",
+         "_prefix_hopper": "prefix_paged_attention", "_gmm_hopper": "grouped_matmul",
+         "_dequant_hopper": "int4_dequant"}
+SHARDED_RANK = "deepseek-moe-16b rank of 2"  # the model of a kernel row at a sharded per-rank shape
+
+
+def _launch_key(kernel: str, args, kw) -> tuple:
+    """The shape a launch is keyed by: flash (B, S, Hq, Hkv, hd, window,
+    softcap), the paged and prefix kernels (B, C, Hq, Hkv, hd), gmm
+    (E, C, K, N), dequant (G, group size, output dtype)."""
+    if kernel == "flash_attention":
+        (B, Hq, S, hd), Hkv = args[0].shape, args[1].shape[1]
+        return B, S, Hq, Hkv, hd, kw.get("window", 0), kw.get("softcap", 0.0)
+    if kernel == "grouped_matmul":
+        return (*args[0].shape, args[1].shape[-1])
+    if kernel == "int4_dequant":
+        return args[0].shape[0], 2 * args[0].shape[1], str(kw["out_dtype"]).split(".")[1]
+    B, C, Hq, hd = args[0].shape
+    return B, C, Hq, args[1].shape[2], hd
+
+
+@contextlib.contextmanager
+def _launch_shapes(seen: dict):
+    """Inside the block every kernel call through ``kernels.ops`` adds one
+    to ``seen[kernel][shape]`` (``_launch_key``); shapes only, so that it
+    syncs nothing and may run under capture."""
+    from repro_torch.kernels import ops
+
+    saved = {name: getattr(ops, name) for name in SPIED}
+
+    def spy(kernel, fn):
+        def call(*args, **kw):
+            seen.setdefault(kernel, collections.Counter())[_launch_key(kernel, args, kw)] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, spy(SPIED[name], fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+SHARDED_TIMEOUT_S = 600.0
+SHARDED_PLANS = {  # name -> (attn, expert prefill, expert decode, mechanism, engine keywords)
+    "tp2_tp2": ("TP2", "TP2", "", "reshard", {}),
+    "tp2_ep2_serial": ("TP2", "EP2", "", "reshard", {"moe_pipeline": 1}),
+    "tp2_ep2_k2": ("TP2", "EP2", "", "reshard", {"moe_pipeline": 2}),
+    "switch_reshard": ("TP2", "EP2", "TP2", "reshard", {}),
+    "switch_int4": ("TP2", "EP2", "TP2", "int4_upload", {"use_int4_transition": True}),
+    "switch_int4_resident": ("TP2", "EP2", "TP2", "int4_upload", {"use_int4_transition": True, "resident_int4": True}),
+}
+SHARDED_LOGITS = ("tp2_tp2", "tp2_ep2_serial", "tp2_ep2_k2")  # teacher-forced against the one-rank run
+
+
+def _hap(plan):
+    from repro_torch.core import fixed_plan
+
+    return fixed_plan(plan[0], plan[1], plan[2], mechanism=plan[3])
+
+
+def _agreement(got, want) -> float:
+    """The share of equal tokens, position by position, over the requests."""
+    pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g, w)]
+    return sum(a == b for a, b in pairs) / max(len(pairs), 1)
+
+
+def _teacher_forced(cfg, params, plan, ref) -> dict:
+    """Prefill and 15 decode steps of the agree phase's first batch under
+    ``plan``, fed the one-rank hopper path's greedy tokens, twice: routing
+    on its own, then on the reference's expert choices (this rank's tokens'
+    under EP). Relative L2 of each step's logits against one rank computing
+    the same function (the one-rank run for a TP expert layout; for EP, one
+    rank routing each half of the tokens with its own capacity, as EP2
+    does), the expert flips of the tokens this rank routed (a token whose
+    expert set in a layer differs), and the token slots this rank's
+    capacity dropped per step. Under EP also the relative L2 against the
+    plain one-rank run, whose capacity is that of all the tokens."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    ep = plan.ffn_mode == "ep"
+    tokens = torch.as_tensor(ref["tokens"], dtype=torch.long, device="cuda")
+    hop, want = ref["logits"], ref["logits_ep2" if ep else "logits"]
+    whole = ref["experts_ep2" if ep else "experts"]
+
+    def run(seen, drops, forced=None):
+        with torch.inference_mode(), _routing(seen, forced), _dropping(drops):
+            logits, cache = prefill(params, cfg, {"tokens": tokens}, tokens.shape[1] + MAX_NEW + 1, plan=plan)
+            out = [logits.float().cpu()]
+            for step in range(MAX_NEW - 1):
+                logits, cache = decode_step(params, cfg, hop[step].argmax(-1)[:, None].cuda(), cache, plan=plan)
+                out.append(logits.float().cpu())
+        return out
+
+    def mine(e):
+        """This rank's tokens' rows of a layer's choices: under EP each rank
+        routes its share of the tokens where they divide (``_moe_ep``)."""
+        n = plan.mesh.size
+        if not ep or e.shape[0] % n:
+            return e
+        k = e.shape[0] // n
+        return e[plan.mesh.rank * k:(plan.mesh.rank + 1) * k]
+
+    seen, drops = [], []
+    out = run(seen, drops)
+    same = run([], [], [mine(e).cuda() for e in whole])
+    flips = [int((a.cpu().sort(-1).values != mine(e).sort(-1).values).any(-1).sum()) for a, e in zip(seen, whole)]
+    per_step = len(seen) // MAX_NEW
+
+    def per(xs):
+        return [sum(xs[i:i + per_step]) for i in range(0, len(xs), per_step)]
+
+    def rel_l2(got, ref_):
+        return [((h - r).norm() / r.norm()).item() for h, r in zip(got, ref_)]
+
+    res = {"split_tokens": any(a.shape[0] != e.shape[0] for a, e in zip(seen, whole)),
+           "rel_l2_err_per_step": rel_l2(out, want),
+           "same_experts_rel_l2_err_per_step": rel_l2(same, want),
+           "argmax_agreement": sum(int((h.argmax(-1) == r.argmax(-1)).sum()) for h, r in zip(out, want))
+           / (len(want) * want[0].shape[0]),
+           "finite": all(bool(torch.isfinite(h).all()) for h in out + same),
+           "expert_flips_per_step": per(flips), "dropped_slots_per_step": per(drops)}
+    if ep:
+        res["rel_l2_err_per_step_vs_one_rank"] = rel_l2(out, hop)
+    return res
+
+
+def _one_layer(cfg, params, plan) -> dict:
+    """Layer 0's routed experts, sharded under ``plan`` against the same
+    layer whole on this rank (its leaves all-gathered), on one input with
+    the same routing and a capacity that drops no token; max |delta|."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.params import layer_slice, param_pspecs
+    from repro_torch.sharding.specs import sharded_dim
+
+    mesh = plan.mesh
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_routed_experts / cfg.top_k)
+    local = layer_slice(params["layers"], 0)["moe"]
+    specs = param_pspecs(cfg, plan)["layers"]["moe"]
+    whole = {}
+    for k, w in local.items():
+        a = sharded_dim(specs[k])
+        whole[k] = w if a is None else mesh.all_gather(w, dim=a - 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(MAX_BATCH * 128, cfg.d_model, generator=gen, device="cuda", dtype=torch.bfloat16)
+    with torch.inference_mode():
+        want, _, idx0 = moe._moe_local(x, whole, nodrop)
+        if plan.ffn_mode == "ep":
+            got, _, idx1 = moe._moe_ep(x, local, nodrop, plan)
+        else:
+            got, _, idx1 = moe._moe_local(x, local, nodrop, axes=plan.expert_kernel_axes(cfg.moe_d_ff))
+        full_want = moe.apply_moe(x[None], whole, nodrop).y[0]
+        full_got = moe.apply_moe(x[None], local, nodrop, plan=plan).y[0]
+    torch.cuda.synchronize()
+    if plan.ffn_mode == "ep":  # this rank routed its half of the tokens
+        n = x.shape[0] // mesh.size
+        idx0 = idx0[mesh.rank * n:(mesh.rank + 1) * n]
+    return {"mode": plan.ffn_mode, "tokens": x.shape[0], "same_routing": torch.equal(idx0, idx1),
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "max_abs_ref": want.float().abs().max().item(),
+            "with_shared_max_abs_err": (full_got.float() - full_want.float()).abs().max().item(),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _serve_rank(eng, reqs, continuous: bool) -> dict:
+    """Serve ``reqs`` on one rank's engine; tokens, per-step times, peak
+    memory, launches, launches by shape and dispatch of that run (counts
+    zeroed just before)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+
+    for p, g in reqs:
+        eng.submit(Request(prompt=p, max_new_tokens=g))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    shapes = {}
+    t0 = time.perf_counter()
+    with _launch_shapes(shapes):
+        comps = eng.serve_continuous() if continuous else eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    variants = check_variants("sharded", launches)
+    refs = ref_ops(dispatch)
+    if refs:
+        raise AssertionError(f"sharded: ref ops ran on the path: {refs}")
+    if st.restore_errors or st.background_errors:
+        raise AssertionError(f"sharded: a background restore failed: {dataclasses.asdict(st)}")
+    res = {"wall_s": wall, "tokens_per_s": sum(len(c.tokens) for c in comps) / wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
+           "dispatch": dispatch, "shapes": shapes, "tokens": [c.tokens for c in comps],
+           "transition_ms_total": st.transition_ms_total, "reshard_bytes": st.reshard_bytes,
+           "resident_bytes_saved": st.resident_bytes_saved, "async_restores": st.async_restores}
+    if continuous:
+        res.update(decode_steps=st.decode_steps, decode_step_ms_mean=st.decode_step_ms_sum / st.decode_steps,
+                   prefill_chunks=st.prefill_chunks, prefix_hit_blocks=st.prefix_hit_blocks)
+    else:
+        per_batch = comps[::MAX_BATCH]
+        res.update(prefill_ms=[c.prefill_ms for c in per_batch],
+                   decode_ms_per_step=[c.decode_ms / (MAX_NEW - 1) for c in per_batch],
+                   transition_ms=[c.transition_ms for c in per_batch])
+    return res
+
+
+def sharded_rank(mesh, ref_path: str, captures=(False,), only=None) -> dict:
+    """One rank of the sharded phase (``repro_torch.sharding.launch``): the
+    serve traffic through ``run()`` under each plan of ``SHARDED_PLANS`` (or
+    ``only``), the teacher-forced logits, the one-layer checks and the
+    continuous traffic under TP2/EP2, from this rank's shard of the weights
+    drawn with the serve phase's seed. Each run is served once per value of
+    ``captures`` (``capture_steps``), on fresh engines over the same
+    params; with more than one, its results are keyed "<run>/captured" and
+    "<run>/eager"."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import HAPSession
+    from repro_torch.models import init_params
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path, weights_only=False)
+    cfg = get_config("deepseek-moe-16b")
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend, "runs": {}, "logits": {}, "one_layer": {}}
+    params, layout = None, None
+    for name, plan in SHARDED_PLANS.items():
+        if only is not None and name not in only:
+            continue
+        hap = _hap(plan)
+        splan = hap.to_sharding_plan(mesh, cfg, phase="prefill")
+        if layout != splan:
+            del params
+            _free()
+            t0 = time.perf_counter()
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda", shard=(splan, mesh.rank))
+            torch.cuda.synchronize()
+            out.setdefault("init_s", {})[name] = time.perf_counter() - t0
+            layout = splan
+            out["param_bytes"] = torch.cuda.memory_allocated()
+            if only is None and splan.ffn_mode not in out["one_layer"]:
+                out["one_layer"][splan.ffn_mode] = _one_layer(cfg, params, splan)
+        if name in SHARDED_LOGITS and only is None:
+            dec = hap.to_sharding_plan(mesh, cfg, phase="decode")
+            kw = plan[4]
+            if kw.get("moe_pipeline"):
+                dec = dataclasses.replace(dec, moe_pipeline=kw["moe_pipeline"])
+            out["logits"][name] = _teacher_forced(cfg, params, dec, ref)
+        for capture in captures:
+            eng = HAPSession(cfg, "h100", mesh.size, source=hap, mesh=mesh, prompt_bucket=64).engine(
+                params, max_batch=MAX_BATCH, capture_steps=capture, **plan[4])
+            if hap.switches and len(captures) == 1:
+                # a switching plan moves the expert leaves: the engine alone
+                # holds the params, so that the old leaves free as the new land
+                params, layout = None, None
+            key = name if len(captures) == 1 else f"{name}/{'captured' if capture else 'eager'}"
+            out["runs"][key] = _serve_rank(eng, [(p, MAX_NEW) for p in prompts(cfg)], False)
+            out["runs"][key]["steps"] = step_stats(eng)
+            eng.close()
+            del eng
+            _free()
+        if name == "tp2_ep2_k2" and only is None:
+            # the continuous traffic with the prefix cache, TP2/EP2 (K auto)
+            eng = HAPSession(cfg, "h100", mesh.size, source=_hap(("TP2", "EP2", "", "reshard")), mesh=mesh,
+                             prompt_bucket=64).engine(params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK,
+                                                      prefix_cache=True, capture_steps=captures[0])
+            out["runs"]["continuous_tp2_ep2"] = _serve_rank(eng, cont_requests(cfg), True)
+            eng.close()
+            del eng
+            _free()
+    del params
+    _free()
+    return out
+
+
+def phase_sharded(serve, cont, agree_ref) -> dict:
+    """DeepSeekMoE-16B at full width and depth on two ranks that share the
+    card over a gloo group, each holding only its shard; then one NCCL rank
+    with its steps captured. Each run is held to the one-rank serve and
+    continuous runs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.sharding.launch import spawn
+
+    work = tempfile.mkdtemp(prefix="sharded_")
+    ref_path = os.path.join(work, "ref.pt")
+    torch.save(agree_ref, ref_path)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:sharded_rank", 2, backend="gloo", args={"ref_path": ref_path},
+                  timeout=SHARDED_TIMEOUT_S, pythonpath=(ROOT,))
+    two_rank_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    layers = len(agree_ref["experts"]) // MAX_NEW  # MoE layers per step
+
+    def per_step(xs):
+        return [sum(xs[i:i + layers]) for i in range(0, len(xs), layers)]
+    summary = {"phase": "sharded", "ranks": 2, "backend": "gloo", "device": "cuda:0 (both ranks)",
+               "seconds": two_rank_s, "init_s": [r["init_s"] for r in ranks],
+               "param_bytes_per_rank": [r["param_bytes"] for r in ranks]}
+    launches, shapes = {}, {}
+    for name, run in r0["runs"].items():
+        other = r1["runs"][name]
+        if run["tokens"] != other["tokens"]:
+            raise AssertionError(f"sharded ({name}): the two ranks' tokens differ")
+        continuous = name.startswith("continuous")
+        want = cont["tokens"] if continuous else serve["tokens"]
+        # continuous: chunks through the paged kernel, decode steps through the prefix kernel
+        expect = {"paged_attention", "grouped_matmul"} | (
+            {"prefix_paged_attention"} if continuous else {"flash_attention"})
+        if "int4" in name:
+            expect.add("int4_dequant")
+        for r, rr in ((0, run), (1, other)):
+            missing = [k for k in expect if not rr["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"sharded ({name}): rank {r} launched no {missing}: {rr['launches']}")
+        if any(len(t) != g for t, g in zip(run["tokens"], [len(w) for w in want])):
+            raise AssertionError(f"sharded ({name}): a request did not get its budget")
+        launches[name] = [run["launches"], other["launches"]]
+        for r, rr in enumerate((run, other)):
+            for kernel, by_shape in rr["shapes"].items():
+                for key, n in by_shape.items():
+                    shapes.setdefault(kernel, {}).setdefault(key, {}).setdefault(name, [0, 0])[r] = n
+        emit({"phase": "sharded", "run": name, "plan": list(SHARDED_PLANS.get(name, ("TP2", "EP2", "", "reshard", {}))[:4]),
+              "two_ranks_one_card_gloo": True,
+              "token_agreement_with_one_rank": _agreement(run["tokens"], want),
+              "tokens_equal_one_rank": run["tokens"] == want,
+              "max_memory_allocated_per_rank": [run["max_memory_allocated"], other["max_memory_allocated"]],
+              "launches_per_rank": launches[name],
+              "relayout_ms_total_per_rank": [run["transition_ms_total"], other["transition_ms_total"]],
+              "reshard_bytes_per_rank": [run["reshard_bytes"], other["reshard_bytes"]],
+              **{k: [run[k], other[k]] for k in ("wall_s", "tokens_per_s", "prefill_ms", "decode_ms_per_step",
+                                                 "transition_ms", "decode_step_ms_mean", "resident_bytes_saved",
+                                                 "async_restores") if k in run}})
+    if r0["runs"]["switch_reshard"]["reshard_bytes"] <= 0:
+        raise AssertionError("sharded (switch_reshard): the reshard moved nothing between the ranks")
+    for mode, chk in r0["one_layer"].items():
+        chk1 = r1["one_layer"][mode]
+        tol = 0.0 if mode == "ep" else KERNEL_ATOL + KERNEL_RTOL * chk["max_abs_ref"]
+        emit({"phase": "sharded_one_layer", "mode": mode, "rank0": chk, "rank1": chk1, "tolerance": tol})
+        if not (chk["finite"] and chk1["finite"]) or max(chk["max_abs_err"], chk1["max_abs_err"]) > tol:
+            raise AssertionError(f"sharded: one MoE layer under {mode} differs from the whole layer: {chk}, {chk1}")
+    for name, lg in r0["logits"].items():
+        lg1 = r1["logits"][name]
+        if (lg["rel_l2_err_per_step"], lg["same_experts_rel_l2_err_per_step"]) != (
+                lg1["rel_l2_err_per_step"], lg1["same_experts_rel_l2_err_per_step"]):
+            raise AssertionError(f"sharded ({name}): the two ranks' logits differ")
+        # EP: each rank routed its half of the tokens; TP: each rank all of them
+        both = (lambda k: [a + b for a, b in zip(lg[k], lg1[k])]) if lg["split_tokens"] else (lambda k: lg[k])
+        ep = lg["split_tokens"]
+        res = {"phase": "sharded_agree", "run": name, "steps": MAX_NEW, **lg,
+               "reference": "one rank routing each half of the tokens with its own capacity" if ep else
+               "the one-rank run", "expert_flips_per_step": both("expert_flips_per_step"),
+               "dropped_slots_per_step": both("dropped_slots_per_step"),
+               "reference_dropped_slots_per_step": per_step(agree_ref["drops_ep2" if ep else "drops"]),
+               "one_rank_dropped_slots_per_step": per_step(agree_ref["drops"]),
+               "rel_l2_tol": AGREE_TOL[0], "same_experts_rel_l2_tol": AGREE_SAME_EXPERTS_TOL,
+               "two_ranks_one_card_gloo": True}
+        emit(res)
+        if (not lg["finite"] or max(lg["rel_l2_err_per_step"]) > AGREE_TOL[0]
+                or max(lg["same_experts_rel_l2_err_per_step"]) > AGREE_SAME_EXPERTS_TOL):
+            raise AssertionError(f"sharded ({name}): logits beyond the agree bounds: {res}")
+
+    # one NCCL rank: the TP2/EP2 serial run captured, then eager
+    t0 = time.perf_counter()
+    nccl = spawn("chip_smoke:sharded_rank", 1, backend="nccl",
+                 args={"ref_path": ref_path, "captures": (True, False), "only": ("tp2_ep2_serial",)},
+                 timeout=SHARDED_TIMEOUT_S, pythonpath=(ROOT,))[0]["runs"]
+    cap, eag = nccl["tp2_ep2_serial/captured"], nccl["tp2_ep2_serial/eager"]
+    if cap["steps"]["captures"] == 0 or cap["steps"]["replays"] == 0 or eag["steps"]["captures"]:
+        raise AssertionError(f"sharded (nccl): capture did not run as asked: {cap['steps']}, {eag['steps']}")
+    if cap["tokens"] != eag["tokens"]:
+        raise AssertionError("sharded (nccl): captured and eager tokens differ")
+    if cap["launches"] != eag["launches"]:
+        raise AssertionError(f"sharded (nccl): launches differ, captured {cap['launches']} against {eag['launches']}")
+    emit({"phase": "sharded", "run": "nccl_one_rank_tp2_ep2_serial", "captured_equals_eager": True,
+          "tokens_equal_one_rank": cap["tokens"] == serve["tokens"],
+          "token_agreement_with_one_rank": _agreement(cap["tokens"], serve["tokens"]),
+          "steps": cap["steps"], "launches": cap["launches"], "seconds": time.perf_counter() - t0,
+          **{k: [cap[k], eag[k]] for k in ("wall_s", "decode_ms_per_step", "prefill_ms", "max_memory_allocated")}})
+    os.remove(ref_path)
+    os.rmdir(work)
+    summary["nccl_seconds"] = time.perf_counter() - t0
+    emit(summary)
+    return {"launches": launches, "shapes": shapes, "nccl": cap["launches"]}
+
+
+def sharded_kernel_rows(cfg, rows, shapes) -> None:
+    """Each kernel against its plain version at the per-rank shapes the
+    sharded phase's two-rank runs sent it (``shapes``: kernel -> shape ->
+    run -> launches per rank). flash, gmm and dequant get a row at each
+    such shape, with its launches, in their kernel's ``also``; the paged
+    and prefix rows depend on the positions too, so those kernels have
+    rows at a rank's heads (``rank_attn``) in the kernels phase, and every
+    launch of theirs here must be at those heads."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    by_name = {r["name"]: r for r in rows}
+    for kernel in ("paged_attention", "prefix_paged_attention"):
+        for key in shapes.get(kernel, {}):
+            if key[2:] != rank_attn(cfg)[:3]:
+                raise AssertionError(f"sharded: {kernel} launched at {key} (B, C, Hq, Hkv, hd), and its rows "
+                                     f"hold a rank's heads {rank_attn(cfg)[:3]} only")
+        by_name[kernel]["launches_sharded_by_shape"] = {
+            f"B={k[0]} C={k[1]} Hq={k[2]} Hkv={k[3]} hd={k[4]}": v for k, v in shapes.get(kernel, {}).items()}
+        for row in by_name[kernel]["also"]:
+            if row.get("model") == SHARDED_RANK:  # the paged rows: one-token steps, or chunks
+                one = kernel == "paged_attention" and " C=1 " in row["shape"]
+                chunk = kernel == "paged_attention" and not one
+                row["launches_sharded"] = launches = {}
+                for key, per_run in shapes.get(kernel, {}).items():
+                    if (one and key[1] != 1) or (chunk and key[1] == 1):
+                        continue
+                    for run, per_rank in per_run.items():
+                        got = launches.setdefault(run, [0] * len(per_rank))
+                        launches[run] = [a + b for a, b in zip(got, per_rank)]
+
+    def randn(*shape, std=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, torch.bfloat16)
+
+    scale = attn_of(cfg)[4]
+    for kernel in ("flash_attention", "grouped_matmul", "int4_dequant"):
+        for key, per_run in sorted(shapes.get(kernel, {}).items()):
+            if kernel == "flash_attention":
+                B, S, Hq, Hkv, hd, win, cap = key
+                row = flash_case(dev, randn, SHARDED_RANK, B, S, (Hq, Hkv, hd, cap, scale), win)
+            elif kernel == "grouped_matmul":
+                E, C, K, N = key
+                row = gmm_case(randn, SHARDED_RANK, E, C, K, N, "wi" if K == cfg.d_model else "wo")
+            else:
+                G, gs, dt = key
+                row = dequant_case(rng, dev, G, gs, getattr(torch, dt), SHARDED_RANK)
+            row["launches_sharded"] = per_run
+            by_name[kernel]["also"].append(row)
+            torch.cuda.empty_cache()
+    emit({"phase": "sharded_kernels", "rows": [row for r in rows for row in r["also"]
+                                              if row.get("model") == SHARDED_RANK]})
+
+
 def main() -> int:
     import torch
 
@@ -1305,13 +1880,16 @@ def main() -> int:
     emit({"phase": "init", "seconds": time.perf_counter() - t0,
           "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated()})
     serve = timed("serve", phase_serve, cfg, params)
-    timed("agree", phase_agree, cfg, params, serve)
+    agree_ref = {}
+    timed("agree", phase_agree, cfg, params, serve, "agree", AGREE_TOL, agree_ref)
     cont = timed("continuous", phase_continuous, cfg, params)
     # the resident phase overwrites the expert leaves with their INT4 round trip
     resident = timed("resident", phase_resident, cfg, params)
     trans = timed("transitions", phase_transitions, cfg, params)
     del params  # DeepSeek's weights, before the families' own
     families = timed("families", phase_families)
+    sharded = timed("sharded", phase_sharded, serve, cont, agree_ref)
+    timed("sharded_kernels", sharded_kernel_rows, cfg, rows, sharded["shapes"])
     emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for
@@ -1329,6 +1907,10 @@ def main() -> int:
         # the families' paths: each model's captured run() and prefix-cache
         # continuous run; a row at a family's shape names its model
         r["launches_families"] = {m: {k: n.get(r["name"], 0) for k, n in fam.items()} for m, fam in families.items()}
+        # the sharded phase's runs, per rank, and the one NCCL rank's captured run
+        r["launches_sharded"] = {run: [n.get(r["name"], 0) for n in per_rank]
+                                 for run, per_rank in sharded["launches"].items()}
+        r["launches_sharded_nccl"] = sharded["nccl"].get(r["name"], 0)
         for row in r.get("also", []):
             if row.get("model") in families:
                 row["launches_families"] = r["launches_families"][row["model"]]

@@ -13,8 +13,8 @@ length, batch), it:
  3. prunes by the Eq.-5 memory constraint,
  4. solves the ILP (ilp.py) for (attention k, expert-prefill i,
     expert-decode j) minimizing Eq. 4,
- 5. returns a HAPPlan; ``to_sharding_plan`` gives the null plan on one
-    device (the mesh bridge waits for ROADMAP A.3).
+ 5. returns a HAPPlan; ``to_sharding_plan`` maps it onto a mesh of ranks
+    (the null plan on one device).
 
 The ILP solver runtime is recorded and — as in the paper's methodology —
 included in the end-to-end latency the benchmarks report.
@@ -60,17 +60,19 @@ class HAPPlan:
         return s
 
     def to_sharding_plan(self, mesh, cfg, *, phase: str = "decode"):
-        """The execution layout of ``phase`` on ``mesh``. With ``mesh=None``
-        this is None, the null plan (unsharded single-device execution),
-        where every expert layout is the identity. Mapping degrees onto a
-        multi-card mesh is not ported yet (ROADMAP A.3)."""
+        """The execution layout of ``phase`` on ``mesh`` (a ``RankMesh``):
+        the strategy degrees become axis assignments (DESIGN.md §5), and
+        ``phase`` picks the expert layout, which may switch between
+        prefill and decode (Eq. 6). With ``mesh=None`` this is None, the
+        null plan (unsharded single-device execution)."""
+        from repro_torch.sharding.specs import strategy_sharding_plan
         if phase not in ("prefill", "decode"):
             raise ValueError(f"phase must be prefill|decode, got {phase!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mapping a HAPPlan onto a multi-card mesh is not ported to "
-                "repro_torch yet (ROADMAP A.3)")
-        return None
+        if mesh is None:
+            return None
+        expert = (self.expert_prefill if phase == "prefill"
+                  else self.expert_decode)
+        return strategy_sharding_plan(mesh, cfg, self.attn, expert)
 
 
 def fixed_plan(attn: str, expert_prefill: str,

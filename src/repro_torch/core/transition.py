@@ -11,9 +11,11 @@ alternative uploads an INT4 per-group backup from host memory (pipelined
 against prefill compute — hence the max(0, .) overlap term) and dequantizes
 on-device (the ``int4_dequant`` kernel).
 
-``TransitionExecutor`` performs the INT4 mechanism on torch tensors so the
-serving engine can switch strategies mid-request (on one device the
-reshard is the identity).
+``TransitionExecutor`` performs both mechanisms on torch tensors so the
+serving engine can switch strategies mid-request: ``reshard`` moves a
+leaf's slices between the ranks of a mesh (one all-to-all per layer slice
+for a TP <-> EP move; the identity on one device), and the INT4 restores
+upload each rank's target shard from the host backup.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from .flops import Workload, expert_weight_bytes
 from .hardware import ChipSpec, GroundTruth
 from .strategy import ExpertStrategy
 from . import quantization as q
+from repro_torch.sharding.specs import packed_spec_for, shard_slices, sharded_dim
 
 INT4_BYTES_PER_PARAM = 0.5 + 8.0 / 128.0   # nibbles + per-group scale/zero
 
@@ -164,8 +167,14 @@ class TransitionExecutor:
     On the card the worker issues its copies and launches on a CUDA stream
     of its own and records an event after them; ``Restored.install`` is
     the barrier that makes the caller's stream wait on it. One worker on
-    purpose: restores stay ordered. ``reshard`` is the identity on one
-    device (multi-card layouts wait for ROADMAP A.3).
+    purpose: restores stay ordered.
+
+    On a mesh a backup holds the whole leaf: ``backup``/``backup_packed``
+    take a ``gather`` that returns one layer of the leaf whole (the rank's
+    shard all-gathered), and quantize layer by layer. ``restore`` and
+    ``restore_packed`` take ``shard=(spec, rank, sizes)`` and upload only
+    the groups of the rank's shard under ``spec``. ``reshard`` moves a
+    leaf between two specs across the ranks.
     """
 
     def __init__(self, device=None, group_size: int = 128):
@@ -219,53 +228,169 @@ class TransitionExecutor:
     def _pin(self, w: torch.Tensor) -> bool:
         return w.device.type == "cuda"
 
-    def backup(self, name: str, w: torch.Tensor) -> None:
+    def backup(self, name: str, w: torch.Tensor, gather=None) -> None:
         """Flat per-group backup (the transition wire format), quantized on
         ``w``'s device and kept in host memory (pinned when ``w`` lies on
-        the card)."""
-        self._backups[name] = q.quantize_int4_torch(
-            w, self.group_size, out_device="cpu", pin=self._pin(w))
+        the card). ``gather(l)``, when given, is layer ``l`` of the whole
+        leaf (``w`` then being this rank's shard of a stacked leaf)."""
+        if gather is None:
+            self._backups[name] = q.quantize_int4_torch(
+                w, self.group_size, out_device="cpu", pin=self._pin(w))
+        else:
+            self._backups[name] = _quantize_layers(
+                w.shape[0], gather, self.group_size, self._pin(w), lastdim=False)
 
-    def backup_packed(self, name: str, w: torch.Tensor, group_size=None) -> None:
+    def backup_packed(self, name: str, w: torch.Tensor, group_size=None, gather=None) -> None:
         """Backup in the *structured* last-dim-grouped layout, the one
-        resident-INT4 serving consumes directly (``restore_packed``)."""
-        self._backups[name] = q.quantize_int4_lastdim_torch(
-            w, group_size or self.group_size, out_device="cpu",
-            pin=self._pin(w))
+        resident-INT4 serving consumes directly (``restore_packed``);
+        ``gather`` as in ``backup``."""
+        if gather is None:
+            self._backups[name] = q.quantize_int4_lastdim_torch(
+                w, group_size or self.group_size, out_device="cpu",
+                pin=self._pin(w))
+        else:
+            self._backups[name] = _quantize_layers(
+                w.shape[0], gather, group_size or self.group_size, self._pin(w), lastdim=True)
 
     def _upload(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device, non_blocking=True, copy=True)
+        return t.contiguous().to(self.device, non_blocking=True, copy=True)
 
-    def restore(self, name: str, dtype=None) -> torch.Tensor:
+    def restore(self, name: str, dtype=None, shard=None) -> torch.Tensor:
         """The dense weight of backup ``name`` on the device: the packed
-        leaves uploaded, then dequantized there into ``dtype`` (bf16)."""
+        leaves uploaded, then dequantized there into ``dtype`` (bf16).
+        ``shard=(spec, rank, sizes)`` restores only ``rank``'s shard of the
+        leaf under ``spec``: the groups that cover it are uploaded and
+        dequantized, and cut to the shard where a group straddles it."""
         from repro_torch.kernels import ops
 
         qt = self._backups[name]
-        half = qt.packed.shape[-1]
-        packed, scales, zeros = (self._upload(t) for t in (qt.packed, qt.scales, qt.zeros))
-        w = ops.int4_dequant(packed.view(-1, half), scales.view(-1, 1),
-                             zeros.view(-1, 1),
-                             out_dtype=dtype or torch.bfloat16)
-        return w.view(qt.shape)
+        half, gs, shape = qt.packed.shape[-1], qt.group_size, tuple(qt.shape)
+        index = shard_slices(shard[0], shape, shard[1], shard[2]) if shard is not None else None
+        cut = None
+        if index is None or shape[-1] % gs:
+            # the whole leaf (groups may cross rows of the last dim)
+            leaves = (qt.packed, qt.scales, qt.zeros)
+            out_shape = shape
+            cut = index
+        else:
+            last = range(*index[-1].indices(shape[-1]))
+            g0, g1 = last.start // gs, -(-last.stop // gs)
+            part = index[:-1] + (slice(g0, g1),)
+            lead = shape[:-1] + (shape[-1] // gs,)
+            leaves = (qt.packed.view(*lead, half)[part], qt.scales.view(*lead, 1)[part],
+                      qt.zeros.view(*lead, 1)[part])
+            out_shape = tuple(len(range(*ix.indices(n))) for ix, n in zip(index[:-1], shape[:-1])) + (
+                (g1 - g0) * gs,)
+            if (last.start - g0 * gs, len(last)) != (0, out_shape[-1]):
+                cut = (slice(None),) * (len(shape) - 1) + (slice(last.start - g0 * gs, last.stop - g0 * gs),)
+        packed, scales, zeros = (self._upload(t) for t in leaves)
+        w = ops.int4_dequant(packed.reshape(-1, half), scales.reshape(-1, 1),
+                             zeros.reshape(-1, 1),
+                             out_dtype=dtype or torch.bfloat16).view(out_shape)
+        return w if cut is None else w[cut].contiguous()
 
-    def restore_packed(self, name: str):
+    def restore_packed(self, name: str, shard=None):
         """Upload a structured backup as a resident ``QuantizedExpert`` on
         the device: the packed nibbles and the per-group scales and zeros,
-        never the dense weight."""
+        never the dense weight. ``shard=(spec, rank, sizes)`` (``spec`` the
+        dense leaf's) uploads only ``rank``'s slice of the packed layout,
+        the whole leaf where its group axis does not divide."""
         from repro_torch.kernels.ops import QuantizedExpert
 
         qt = self._backups[name]
         if qt.packed.ndim < 3:
             raise ValueError(
                 f"backup {name!r} is flat; use backup_packed for residency")
-        return QuantizedExpert(*(self._upload(t) for t in (qt.packed, qt.scales, qt.zeros)))
+        leaves = (qt.packed, qt.scales, qt.zeros)
+        if shard is not None:
+            spec, rank, sizes = shard
+            qspec = packed_spec_for(spec, tuple(qt.packed.shape), sizes)
+            leaves = tuple(t[shard_slices(qspec, t.shape, rank, sizes)] for t in leaves)
+        return QuantizedExpert(*(self._upload(t) for t in leaves))
 
     @staticmethod
-    def reshard(w, sharding=None):
-        """The identity on one device; a layout on a mesh is ROADMAP A.3."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "resharding onto a multi-card layout is not ported to "
-                "repro_torch yet (ROADMAP A.3)")
-        return w
+    def reshard(w, from_spec=None, to_spec=None, mesh=None, shape=None):
+        """Move a leaf between two layouts across the ranks of ``mesh``.
+
+        ``w`` is this rank's shard of a leaf under ``from_spec``: a dense
+        tensor, or a resident ``QuantizedExpert`` (the specs are the dense
+        leaf's, and ``shape`` its global dense shape, which decides the axes
+        the packed layout keeps). Returns ``(its shard under to_spec, bytes
+        received from other ranks)``. A dimension sharded in both layouts
+        moves by one ``all_to_all_single`` per layer slice (TP <-> EP: the
+        experts this rank keeps, each with every rank's d_ff columns); a
+        dimension that becomes replicated is all-gathered, one that becomes
+        sharded is cut. With no mesh, or equal specs, it is the identity."""
+        if mesh is None or tuple(from_spec) == tuple(to_spec):
+            return w, 0
+        if hasattr(w, "packed"):
+            from repro_torch.kernels.ops import QuantizedExpert
+
+            sizes = dict(mesh.shape)
+            glob = tuple(shape[:-1]) + (shape[-1] // w.group_size, w.group_size // 2)
+            fs, ts = packed_spec_for(from_spec, glob, sizes), packed_spec_for(to_spec, glob, sizes)
+            moved = [_relayout(t, fs, ts, mesh) for t in (w.packed, w.scales, w.zeros)]
+            return QuantizedExpert(*(m[0] for m in moved)), sum(m[1] for m in moved)
+        return _relayout(w, tuple(from_spec), tuple(to_spec), mesh)
+
+
+def _relayout(t: torch.Tensor, from_spec, to_spec, mesh):
+    """``t`` (this rank's shard under ``from_spec``) -> (its shard under
+    ``to_spec``, bytes received). Dim 0 of a stacked leaf (the layers) is
+    never sharded; a move goes one layer slice at a time, so a rank holds
+    the old shard, the new one and one slice in flight, never a whole
+    leaf."""
+    a, b = sharded_dim(from_spec), sharded_dim(to_spec)
+    n = mesh.size
+    if a == b:
+        return t, 0
+    if a is None:
+        step = t.shape[b] // n
+        return t.narrow(b, mesh.rank * step, step).contiguous(), 0
+    shape = list(t.shape)
+    if b is None:
+        shape[a] *= n
+    else:
+        shape[a] *= n
+        shape[b] //= n
+    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    layers = t.shape[0] if min(x for x in (a, b) if x is not None) > 0 else None
+    for l in range(layers) if layers is not None else (None,):
+        src = t if l is None else t[l]
+        off = 0 if l is None else 1
+        if b is None:
+            moved = mesh.all_gather(src, dim=a - off)
+        else:
+            moved = mesh.all_to_all(src, split=b - off, concat=a - off)
+        if l is None:
+            out.copy_(moved)
+        else:
+            out[l].copy_(moved)
+    received = out.numel() * out.element_size() * (n - 1) // n if b is not None else t.numel() * t.element_size() * (n - 1)
+    return out, received
+
+
+def _quantize_layers(L: int, layer, group_size: int, pin: bool, lastdim: bool) -> q.QuantizedTensor:
+    """Quantize a stacked leaf whose layer ``l`` is ``layer(l)`` (on the
+    card, say, gathered from every rank's shard), one layer at a time, into
+    host tensors (pinned when ``pin``): the flat layout, or the structured
+    last-dim one with ``lastdim``. The bytes equal the whole leaf's
+    quantization: every group lies within one layer."""
+    first = layer(0)
+    shape = (L,) + tuple(first.shape)
+    gs = q.pick_group_size(shape[-1], group_size) if lastdim else group_size
+    per = first.numel() // gs
+    packed = torch.empty((L * per, gs // 2), dtype=torch.uint8, pin_memory=pin)
+    scales = torch.empty((L * per, 1), dtype=torch.float32, pin_memory=pin)
+    zeros = torch.empty((L * per, 1), dtype=torch.float32, pin_memory=pin)
+    for l in range(L):
+        w = first if l == 0 else layer(l)
+        qt = q.quantize_int4_torch(w, gs)
+        for dst, src in ((packed, qt.packed), (scales, qt.scales), (zeros, qt.zeros)):
+            dst[l * per:(l + 1) * per].copy_(src)
+        del w, qt
+    first = None
+    if lastdim:
+        lead, ng = shape[:-1], shape[-1] // gs
+        packed, scales, zeros = packed.view(*lead, ng, gs // 2), scales.view(*lead, ng, 1), zeros.view(*lead, ng, 1)
+    return q.QuantizedTensor(packed=packed, scales=scales, zeros=zeros, shape=shape, group_size=gs)

@@ -292,17 +292,113 @@ def _dequant_weight(rhs, out_dtype, backend: BackendSpec = None):
     return w.reshape(rhs.shape)
 
 
-def grouped_matmul(lhs, rhs, *, backend: BackendSpec = None) -> torch.Tensor:
+def grouped_matmul(lhs, rhs, *, shard_axes=None, sharded_dim: str = "out",
+                   backend: BackendSpec = None) -> torch.Tensor:
     """(E, C, d) x (E, d, f) -> (E, C, f), the expert-FFN seam.
 
     ``rhs`` may be dense, a ``QuantizedWeight`` or a ``QuantizedExpert``;
     a quantized one is dequantized in the lhs dtype first (on the card one
-    ``int4_dequant`` launch per call). The multi-card branches that keep
-    the rhs packed through a shard map wait for ROADMAP A.3.
+    ``int4_dequant`` launch per call).
+
+    ``shard_axes`` (a TP plan's ``expert_kernel_axes``, whose ``dim`` is
+    the global d_ff) makes the call one rank's part of a Megatron-style
+    product, the kernel running on the rank's own d_ff shard:
+
+    - ``sharded_dim="out"``: column-parallel. ``rhs`` holds the rank's
+      columns, the output stays sharded there; no collective (wi_gate,
+      wi_up).
+    - ``sharded_dim="in"``: row-parallel. ``lhs`` and ``rhs`` hold the
+      rank's part of the contraction dim; the partial products are summed
+      over the ranks with one ``all_reduce`` (wo).
+
+    A resident ``QuantizedExpert`` is the rank's own slice where its group
+    axis divides the mesh axis, and each rank dequantizes only that slice.
+    Where it does not (DeepSeek's ``wi``: 11 groups of 128 over two ranks)
+    the rank holds the whole packed leaf, dequantizes all of it, as the
+    reference does, and multiplies its own columns.
     """
     w = _dequant_weight(rhs, lhs.dtype, backend)
+    if shard_axes is not None:
+        if sharded_dim not in ("out", "in"):
+            raise ValueError(f"sharded_dim must be 'out'|'in', got {sharded_dim!r}")
+        dim = -1 if sharded_dim == "out" else -2
+        n = shard_axes.size
+        if n > 1 and w.shape[dim] == shard_axes.dim:  # a whole leaf: its group axis does not divide
+            local = shard_axes.dim // n
+            w = w.narrow(dim, shard_axes.mesh.rank * local, local).contiguous()
     if resolve_backend(backend, lhs.device) is KernelBackend.HOPPER:
-        record("gmm.hopper")
-        return _gmm_hopper(lhs, w)
-    record("gmm.ref")
-    return ref.grouped_matmul_ref(lhs, w)
+        record("gmm.hopper" if shard_axes is None else f"gmm.hopper_shard_{sharded_dim}")
+        out = _gmm_hopper(lhs, w)
+    else:
+        record("gmm.ref" if shard_axes is None else f"gmm.ref_shard_{sharded_dim}")
+        out = ref.grouped_matmul_ref(lhs, w)
+    if shard_axes is not None and sharded_dim == "in":
+        shard_axes.mesh.all_reduce(out)
+    return out
+
+
+def a2a_ppermute(x: torch.Tensor, mesh, *, split: int, concat: int) -> torch.Tensor:
+    """The tiled all-to-all decomposed into ring hops: bit-identical to
+    ``mesh.all_to_all(x, split, concat)``. The split dim is cut into ``n``
+    blocks, block ``j`` travels to rank ``j``, and the blocks received land
+    on the concat dim in source-rank order. Hop ``r`` sends the block for
+    rank ``(me + r) % n`` and receives from rank ``(me - r) % n``; all
+    ``n - 1`` hops are posted as one batch of point-to-point ops. Identity
+    on a 1-rank mesh."""
+    return a2a_ppermute_start(x, mesh, split=split, concat=concat).wait()
+
+
+def a2a_ppermute_start(x: torch.Tensor, mesh, *, split: int, concat: int):
+    """Post ``a2a_ppermute``'s hops and return the pending exchange at
+    once; its ``wait()`` completes them and returns the result."""
+    n = mesh.size
+    if n == 1:
+        return mesh.exchange([], [], result=x)
+    split, concat = split % x.ndim, concat % x.ndim
+    if x.shape[split] % n:
+        raise ValueError(f"split dim {x.shape[split]} not divisible by the mesh size {n}")
+    me, s, c = mesh.rank, x.shape[split] // n, x.shape[concat]
+    shape = list(x.shape)
+    shape[split], shape[concat] = s, c * n
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    out.narrow(concat, me * c, c).copy_(x.narrow(split, me * s, s))
+    sends, recvs = [], []
+    for r in range(1, n):
+        sends.append((x.narrow(split, ((me + r) % n) * s, s), (me + r) % n))
+        src = (me - r) % n
+        recvs.append((out.narrow(concat, src * c, c), src))
+    return mesh.exchange(sends, recvs, result=out)
+
+
+def pipelined_ep_ffn(buf: torch.Tensor, ffn, *, mesh, chunks: int) -> torch.Tensor:
+    """The EP exchange and expert FFN, micro-batch pipelined (the EPS-MoE
+    schedule, DESIGN.md §4e). ``buf`` is this rank's (E, C, d) dispatch
+    buffer; ``ffn`` maps an exchanged (E/n, c*n, d) slab to its expert
+    outputs.
+
+    ``chunks`` <= 1 is the serial schedule: one ``all_to_all`` dispatch,
+    the FFN, one ``all_to_all`` combine. Otherwise the capacity dim is split
+    into K near-equal slabs, each running the same dispatch -> FFN ->
+    combine chain through ``a2a_ppermute``, double-buffered: slab i+1's
+    dispatch hops are posted BEFORE slab i's FFN, and slab i's combine hops
+    overlap slab i+1's FFN. Token-exact with the serial schedule: routing
+    and capacity were assigned before the split, the FFN is
+    row-independent, and the concat restores the capacity order.
+    """
+    K = min(max(int(chunks), 1), buf.shape[1])
+    if K <= 1:
+        record("moe.ep_serial")
+        return mesh.all_to_all(ffn(mesh.all_to_all(buf, split=0, concat=1)), split=1, concat=0)
+    record(f"moe.ep_pipeline_k{K}")
+    if mesh.size > 1:
+        record("moe.ep_a2a_ppermute")
+    bounds = [(i * buf.shape[1]) // K for i in range(K + 1)]
+    slabs = [buf[:, bounds[i]:bounds[i + 1]].contiguous() for i in range(K)]
+    combines = []
+    inflight = a2a_ppermute_start(slabs[0], mesh, split=0, concat=1)
+    for i in range(K):
+        # double buffer: slab i+1's dispatch is posted before slab i's FFN
+        upnext = a2a_ppermute_start(slabs[i + 1], mesh, split=0, concat=1) if i + 1 < K else None
+        combines.append(a2a_ppermute_start(ffn(inflight.wait()), mesh, split=1, concat=0))
+        inflight = upnext
+    return torch.cat([c.wait() for c in combines], dim=1)

@@ -1,12 +1,21 @@
 """Attention: GQA with RoPE, sliding-window / global masks, logit
 softcapping, full-sequence prefill and cache-appending decode (the port of
-``repro.models.attention``, null plan: one device).
+``repro.models.attention``).
 
 Prefill under the ``hopper`` backend runs the flash kernel through
 ``repro_torch.kernels.ops.flash_attention``; under ``ref`` it runs the
 chunked online-softmax path below, whose numerics the reference's greedy
 equivalence pins. Decode projects q/k/v and hands the cache-appending step
 to ``ops.decode_attention``.
+
+On a mesh (a ShardingPlan) attention in ``tp_heads`` mode runs on this
+rank's heads: its columns of wq (and of wk/wv when the kv heads divide the
+axis), the kernels on its head shard of the KV cache, then its rows of wo
+and one all-reduce (Megatron style). Where the kv heads do not divide, k/v
+and the cache stay whole on every rank: prefill repeats k/v up to the q
+heads (``_maybe_repeat_kv``) and takes the rank's heads, and decode runs
+the kernel over every q head, the other ranks' heads zero, and keeps the
+rank's outputs. ``replicated`` attention runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +30,58 @@ from repro_torch.kernels import ops as kernel_ops
 from .common import apply_rope, softcap
 
 NEG_INF = -2.0e38  # f32-safe mask value
+
+
+def _repeat_kv_factor(cfg: ModelConfig, plan) -> int:
+    """KV replication factor when q heads shard over TP but kv heads do not
+    divide the axis: repeat kv up to the q head count (G=1) so that no GQA
+    group splits across ranks."""
+    if plan is None or plan.is_null or plan.attn_mode != "tp_heads":
+        return 1
+    tp = plan.axis_size(plan.attn_tp_axis)
+    if cfg.num_kv_heads % tp == 0 or cfg.num_heads % tp != 0:
+        return 1
+    return cfg.num_heads // cfg.num_kv_heads
+
+
+def _maybe_repeat_kv(k, v, cfg: ModelConfig, plan):
+    """Apply ``_repeat_kv_factor`` to a (B, S, Hkv, hd) pair and keep this
+    rank's heads of the result."""
+    g = _repeat_kv_factor(cfg, plan)
+    if g == 1:
+        return k, v
+    lo, hi = _q_heads(cfg, plan)
+    return k.repeat_interleave(g, dim=2)[:, :, lo:hi], v.repeat_interleave(g, dim=2)[:, :, lo:hi]
+
+
+def _tp(plan) -> bool:
+    """Attention runs on this rank's heads."""
+    return plan is not None and not plan.is_null and plan.attn_mode == "tp_heads"
+
+
+def _q_heads(cfg: ModelConfig, plan):
+    """This rank's q heads [lo, hi)."""
+    if not _tp(plan):
+        return 0, cfg.num_heads
+    n = cfg.num_heads // plan.axis_size(plan.attn_tp_axis)
+    return plan.mesh.rank * n, (plan.mesh.rank + 1) * n
+
+
+def local_kv_heads(cfg: ModelConfig, plan) -> int:
+    """The kv heads this rank's projections and KV cache hold."""
+    if _tp(plan) and plan.kv_shard == "heads":
+        return cfg.num_kv_heads // plan.axis_size(plan.attn_tp_axis)
+    return cfg.num_kv_heads
+
+
+def _out_project(out, w, x, plan):
+    """(B, S, H_local, hd) -> (B, S, d): this rank's rows of wo, summed
+    over the ranks when the heads are sharded."""
+    B, S = out.shape[0], out.shape[1]
+    o = out.reshape(B, S, -1).to(x.dtype) @ w.wo
+    if _tp(plan):
+        plan.mesh.all_reduce(o)
+    return o
 
 
 class AttnTemps(NamedTuple):
@@ -39,11 +100,12 @@ def _scale(cfg: ModelConfig) -> float:
 
 
 def qkv_project(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, positions: torch.Tensor):
-    """x: (B, S, d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), rope applied."""
+    """x: (B, S, d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), rope applied; the
+    head counts are the weights' (this rank's on a mesh)."""
     B, S, _ = x.shape
-    q = (x @ w.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ w.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ w.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = (x @ w.wq).reshape(B, S, -1, cfg.head_dim)
+    k = (x @ w.wk).reshape(B, S, -1, cfg.head_dim)
+    v = (x @ w.wv).reshape(B, S, -1, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -128,15 +190,17 @@ def full_attention(q, k, v, cfg: ModelConfig, is_global, q_positions, k_position
 
 
 def attention_block(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global, q_chunk: int = 512,
-                    return_kv: bool = False, backend=None):
+                    return_kv: bool = False, backend=None, plan=None):
     """Full-sequence attention (prefill): (B,S,d) -> (B,S,d).
 
-    ``return_kv=True`` also returns the rope'd K/V to seed the decode cache.
+    ``return_kv=True`` also returns the rope'd K/V to seed the decode cache
+    (before any kv repetition: the heads the cache holds).
     """
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = qkv_project(x, w, cfg, positions[None, :])
     kv_out = (k, v) if return_kv else None
+    k, v = _maybe_repeat_kv(k, v, cfg, plan)
     be = kernel_ops.resolve_backend(backend, x.device)
     if be is kernel_ops.KernelBackend.HOPPER and cfg.causal:
         out = kernel_ops.flash_attention(
@@ -155,14 +219,15 @@ def attention_block(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global, 
             )
         else:
             out = full_attention(q, k, v, cfg, is_global, positions, positions)
-    o = out.reshape(B, S, -1).to(x.dtype) @ w.wo
+    o = _out_project(out, w, x, plan)
     if return_kv:
         return o, kv_out
     return o
 
 
 def decode_attention(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos, block_tables=None, prefix_groups=None, backend=None) -> tuple:
+                     v_cache: torch.Tensor, pos, block_tables=None, prefix_groups=None, backend=None,
+                     plan=None) -> tuple:
     """Cache-appending attention: one decode token (C == 1) or a chunk
     written at ``pos .. pos+C-1``.
 
@@ -179,10 +244,17 @@ def decode_attention(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global,
     base = pos[:, None] if pos.ndim else pos[None, None]
     q_pos = base + torch.arange(C, dtype=torch.int32, device=x.device)  # (B|1, C)
     q, k_new, v_new = qkv_project(x, w, cfg, q_pos)
+    # heads sharded, but not the cache (its kv heads do not divide the axis)
+    padded = _tp(plan) and plan.decode_kernel_axes(cfg.num_heads, cfg.num_kv_heads) is None
+    if padded:
+        # the whole cache: every q head through the kernel, the other ranks' zero
+        lo, hi = _q_heads(cfg, plan)
+        q = torch.nn.functional.pad(q, (0, 0, lo, cfg.num_heads - hi))
     out, k_cache, v_cache = kernel_ops.decode_attention(
         q, k_cache, v_cache, k_new, v_new, pos, block_tables=block_tables, prefix_groups=prefix_groups,
         scale=_scale(cfg), softcap=cfg.attn_logit_softcap, window=cfg.sliding_window, is_global=is_global,
         backend=backend,
     )
-    o = out.reshape(B, C, -1).to(x.dtype) @ w.wo
-    return o, k_cache, v_cache
+    if padded:
+        out = out[:, :, lo:hi]
+    return _out_project(out, w, x, plan), k_cache, v_cache

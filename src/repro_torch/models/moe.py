@@ -1,5 +1,16 @@
 """Mixture-of-Experts: router, capacity-based dispatch, shared experts (the
-port of ``repro.models.moe``, local mode: one device, null plan).
+port of ``repro.models.moe``). Three execution modes, selected by the
+ShardingPlan (the HAP strategy of the Expert module):
+
+  local  one device (null plan): dispatch + per-expert grouped matmuls.
+  tp     the local path on each rank's d_ff shard: every rank runs every
+         token of every expert on its d_ff columns (column-parallel wi,
+         then row-parallel wo and one all-reduce).
+  ep     experts sharded over the ranks: each rank routes its share of
+         the tokens and exchanges the dispatch buffer with all-to-all
+         (serial, or pipelined over capacity slabs).
+
+Shared experts run TP on a mesh (their d_ff sharded, one all-reduce).
 
 Dispatch is GShard-style with a static capacity
 ``C = ceil(T * top_k / E * capacity_factor)`` per expert (rounded up to a
@@ -31,6 +42,24 @@ class MoEOut(NamedTuple):
 def capacity(num_tokens: int, cfg: ModelConfig) -> int:
     c = math.ceil(num_tokens * cfg.top_k / cfg.n_routed_experts * cfg.capacity_factor)
     return max(8, int(math.ceil(c / 8) * 8))
+
+
+def pipeline_chunks(C_loc: int, ep_size: int, knob: int = 0) -> int:
+    """The EP pipeline depth K for a local capacity ``C_loc``. ``knob`` is
+    ``ShardingPlan.moe_pipeline``: 1 pins the serial path, K >= 2 forces
+    that many capacity slabs (clamped to C_loc so no slab is empty), 0
+    picks the deepest K in {4, 2} whose slabs keep the 8-row capacity
+    granule, serial when there is no all-to-all to overlap (ep_size 1)."""
+    if knob == 1:
+        return 1
+    if knob >= 2:
+        return min(knob, max(C_loc, 1))
+    if ep_size <= 1:
+        return 1
+    for k in (4, 2):
+        if C_loc >= 8 * k:
+            return k
+    return 1
 
 
 def route(x_flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
@@ -91,32 +120,80 @@ def combine(y_buf, flat_expert, pos_in_expert, keep, flat_gates, T: int):
     return gathered.reshape(T, k, -1).sum(dim=1)
 
 
-def expert_ffn(buf, wi_gate, wi_up, wo, act_name: str, backend=None) -> torch.Tensor:
+def expert_ffn(buf, wi_gate, wi_up, wo, act_name: str, backend=None, axes=None) -> torch.Tensor:
     """(E, C, d) x (E, d, f)^2 x (E, f, d) -> (E, C, d), through the
-    grouped-matmul seam."""
+    grouped-matmul seam. ``axes`` (a TP plan's ``expert_kernel_axes``)
+    runs wi_gate/wi_up column-parallel and wo row-parallel, all-reduced."""
     act = activation_fn(act_name)
-    gate = kernel_ops.grouped_matmul(buf, wi_gate, backend=backend)
-    up = kernel_ops.grouped_matmul(buf, wi_up, backend=backend)
-    return kernel_ops.grouped_matmul(act(gate) * up, wo, backend=backend)
+    gate = kernel_ops.grouped_matmul(buf, wi_gate, shard_axes=axes, sharded_dim="out", backend=backend)
+    up = kernel_ops.grouped_matmul(buf, wi_up, shard_axes=axes, sharded_dim="out", backend=backend)
+    return kernel_ops.grouped_matmul(act(gate) * up, wo, shard_axes=axes, sharded_dim="in", backend=backend)
 
 
-def _moe_local(x_flat, moe_p, cfg: ModelConfig, backend=None):
+def _moe_local(x_flat, moe_p, cfg: ModelConfig, backend=None, axes=None):
+    """One device, or TP with ``axes`` (a TP plan's ``expert_kernel_axes``:
+    column-parallel wi, row-parallel wo with one all-reduce; None where
+    the d_ff does not divide the axis, the experts then whole on every
+    rank): every token of every expert on this rank's d_ff columns."""
     T = x_flat.shape[0]
     E = cfg.n_routed_experts
     C = capacity(T, cfg)
     gates, idx, aux = route(x_flat, moe_p["router"], cfg)
     fe, pe, keep, fg = make_dispatch(idx, gates, E, C)
     buf, _ = dispatch(x_flat, fe, pe, E, C)
-    y_buf = expert_ffn(buf, moe_p["wi_gate"], moe_p["wi_up"], moe_p["wo"], cfg.activation, backend=backend)
+    y_buf = expert_ffn(buf, moe_p["wi_gate"], moe_p["wi_up"], moe_p["wo"], cfg.activation, backend=backend, axes=axes)
     y = combine(y_buf, fe, pe, keep, fg, T)
     return y, aux, idx
 
 
-def apply_moe(x: torch.Tensor, moe_p: Dict[str, Any], cfg: ModelConfig, backend=None) -> MoEOut:
-    """x: (B, S, d) -> MoEOut. Routed experts + optional shared experts."""
+def _moe_ep(x_flat, moe_p, cfg: ModelConfig, plan, backend=None):
+    """EP (the reference's ``_moe_ep_shardmap``): the experts sharded over
+    the ranks, tokens exchanged with all-to-all. The tokens are split over
+    the ranks when they divide (each rank routes T/ep of them, with the
+    capacity of its own share) and replicated otherwise; each rank's
+    outputs are gathered back, and the aux loss is averaged over ranks.
+    ``route_idx`` holds this rank's tokens' choices."""
+    mesh = plan.mesh
+    n = mesh.size
+    E = cfg.n_routed_experts
+    T = x_flat.shape[0]
+    split = T % n == 0
+    xl = x_flat[mesh.rank * (T // n):(mesh.rank + 1) * (T // n)] if split else x_flat
+    T_loc = xl.shape[0]
+    C_loc = capacity(T_loc, cfg)
+    gates, idx, aux = route(xl, moe_p["router"], cfg)
+    fe, pe, keep, fg = make_dispatch(idx, gates, E, C_loc)
+    buf, _ = dispatch(xl, fe, pe, E, C_loc)  # (E, C_loc, d)
+    K = pipeline_chunks(C_loc, n, plan.moe_pipeline)
+    y_buf = kernel_ops.pipelined_ep_ffn(
+        buf, lambda b: expert_ffn(b, moe_p["wi_gate"], moe_p["wi_up"], moe_p["wo"], cfg.activation, backend=backend),
+        mesh=mesh, chunks=K)
+    y = combine(y_buf, fe, pe, keep, fg, T_loc)
+    aux = mesh.all_reduce(aux.reshape(1)).reshape(()) / n
+    if split:
+        y = mesh.all_gather(y, dim=0)
+    return y, aux, idx
+
+
+def _shared_ffn(x_flat, moe_p, cfg: ModelConfig, plan):
+    """The shared experts: one GLU FFN, its d_ff sharded on a mesh."""
+    y = glu_ffn(x_flat, moe_p["shared_wi_gate"], moe_p["shared_wi_up"], moe_p["shared_wo"], cfg.activation)
+    if plan is not None and plan.divides(cfg.shared_d_ff * cfg.n_shared_experts):
+        plan.mesh.all_reduce(y)
+    return y
+
+
+def apply_moe(x: torch.Tensor, moe_p: Dict[str, Any], cfg: ModelConfig, backend=None, plan=None) -> MoEOut:
+    """x: (B, S, d) -> MoEOut. Routed experts + optional shared experts,
+    in the mode ``plan`` selects (None: local)."""
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
-    y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend)
+    if plan is None or plan.is_null:
+        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend)
+    elif plan.ffn_mode == "ep" and plan.ep_axis is not None:
+        y, aux, idx = _moe_ep(x_flat, moe_p, cfg, plan, backend=backend)
+    else:
+        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend, axes=plan.expert_kernel_axes(cfg.moe_d_ff))
     if cfg.n_shared_experts:
-        y = y + glu_ffn(x_flat, moe_p["shared_wi_gate"], moe_p["shared_wi_up"], moe_p["shared_wo"], cfg.activation)
+        y = y + _shared_ffn(x_flat, moe_p, cfg, plan if plan is not None and not plan.is_null else None)
     return MoEOut(y.reshape(B, S, d), aux * cfg.router_aux_loss_coef, idx)

@@ -1,8 +1,12 @@
-"""Parameter shapes, initialization and the bridge from the JAX pytree.
+"""Parameter shapes, sharding specs, initialization and the bridge from
+the JAX pytree.
 
 Parameters are a nested dict of tensors with the keys of the JAX pytree,
 every per-layer leaf STACKED along a leading ``num_layers`` axis; the
-forward pass loops over that axis.
+forward pass loops over that axis. On a mesh each rank holds only its
+shard of every leaf, as ``param_pspecs`` assigns it: ``shard_params``
+cuts one rank's shard out of a whole tree, and ``init_params(...,
+shard=(plan, rank))`` draws it directly.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import QuantizedExpert
+from repro_torch.sharding.specs import Spec, packed_spec_for, shard_slices
 
 Params = Dict[str, Any]
 
@@ -93,50 +98,153 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes
 
 
-def _init_leaf(name: str, shape, stacked: bool, generator, device, dt) -> torch.Tensor:
+def param_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
+    """The spec of every leaf of ``param_shapes`` under a ShardingPlan (the
+    reference's ``param_pspecs``, without ``fsdp``): a tuple per leaf, an
+    axis name on each sharded dimension. The embedding is sharded over the
+    vocabulary, ``lm_head`` over its vocabulary columns, attention over
+    heads (k/v only when the kv heads divide), the dense FFN and the shared
+    experts over d_ff, and the routed experts over E (EP) or d_ff (TP).
+    A dimension that does not divide its axis stays replicated."""
+    tp = plan.ffn_tp_axis
+    at = plan.attn_tp_axis if plan.attn_mode == "tp_heads" else None
+    kv_ok = at is not None and cfg.num_kv_heads % plan.axis_size(at) == 0
+    ep = plan.ep_axis
+    specs: Dict[str, Any] = {"embed": (tp, None), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, tp)
+    layers: Dict[str, Any] = {"ln1": (None, None)}
+    if cfg.use_post_norm:
+        layers["ln1_post"] = (None, None)
+        layers["ln2_post"] = (None, None)
+    if cfg.has_attention:
+        layers["attn"] = {"wq": (None, None, at), "wk": (None, None, at if kv_ok else None),
+                          "wv": (None, None, at if kv_ok else None), "wo": (None, at, None)}
+    if cfg.ffn_type == "dense":
+        layers["ln2"] = (None, None)
+        if cfg.activation in ("silu", "gelu"):
+            layers["ffn"] = {"wi_gate": (None, None, tp), "wi_up": (None, None, tp), "wo": (None, tp, None)}
+        else:
+            layers["ffn"] = {"wi": (None, None, tp), "wo": (None, tp, None)}
+    elif cfg.ffn_type == "moe":
+        layers["ln2"] = (None, None)
+        if ep is not None:
+            moe = {"router": (None, None, None), "wi_gate": (None, ep, None, None),
+                   "wi_up": (None, ep, None, None), "wo": (None, ep, None, None)}
+        else:
+            moe = {"router": (None, None, None), "wi_gate": (None, None, None, tp),
+                   "wi_up": (None, None, None, tp), "wo": (None, None, tp, None)}
+        if cfg.n_shared_experts:
+            moe.update(shared_wi_gate=(None, None, tp), shared_wi_up=(None, None, tp), shared_wo=(None, tp, None))
+        layers["moe"] = moe
+    specs["layers"] = layers
+    return _sanitize(param_shapes(cfg), specs, plan)
+
+
+def _sanitize(shapes, specs, plan):
+    """Drop sharding on any dim whose size does not divide its axis."""
+    if isinstance(specs, dict):
+        return {k: _sanitize(shapes[k], v, plan) for k, v in specs.items()}
+    return tuple(ax if ax is not None and dim % plan.axis_size(ax) == 0 else None
+                 for dim, ax in zip(shapes, specs))
+
+
+def take_shard(x, spec: Spec, rank: int, sizes: Dict[str, int]):
+    """``rank``'s shard of ``x`` (numpy or torch; a ``QuantizedExpert``
+    takes ``spec`` as its dense spec) under ``spec``."""
+    if isinstance(x, QuantizedExpert) or _is_quantized(x):
+        qspec = packed_spec_for(spec, tuple(x.packed.shape), sizes)
+        return QuantizedExpert(*(t[shard_slices(qspec, t.shape, rank, sizes)] for t in (x.packed, x.scales, x.zeros)))
+    return x[shard_slices(spec, x.shape, rank, sizes)]
+
+
+def shard_params(params: Params, cfg: ModelConfig, plan, rank: int) -> Params:
+    """``rank``'s shard of a whole params tree (numpy arrays, as the JAX
+    pytree converts to, or tensors) under ``plan``; feed the result to
+    ``params_from_numpy``."""
+    sizes = dict(plan.mesh.shape)
+    specs = param_pspecs(cfg, plan)
+
+    def walk(tree, spec):
+        return {k: walk(v, spec[k]) if isinstance(v, dict) else take_shard(_array(v), spec[k], rank, sizes)
+                for k, v in tree.items()}
+
+    return walk(params, specs)
+
+
+def _array(v):
+    if isinstance(v, torch.Tensor) or _is_quantized(v):
+        return v
+    return np.asarray(v)
+
+
+def _init_leaf(name: str, shape, stacked: bool, generator, device, dt, index=None) -> torch.Tensor:
     """One leaf by the reference's rules (``repro.models.params``): norms
     and ``D`` ones, ``A_log`` log(1..N), conv/dt biases zeros, the embedding
     N(0, 0.02), every other weight N(0, 1/fan_in). Random leaves are drawn
     one layer slice at a time straight into ``dt``, so a full-width model
-    never holds a float32 copy of a stacked leaf."""
-    out = torch.empty(shape, dtype=dt, device=device)
+    never holds a float32 copy of a stacked leaf. ``index`` (slices of the
+    global ``shape``) keeps only that shard: each slice is drawn whole, in
+    the same generator sequence, and cut, so a shard holds the values the
+    whole leaf would."""
+    local = shape if index is None else tuple(len(range(*ix.indices(n))) for ix, n in zip(index, shape))
+    out = torch.empty(local, dtype=dt, device=device)
     if "norm" in name or name.startswith("ln") or name == "D":
         return out.fill_(1.0)
     if name in ("conv_b", "dt_b"):
         return out.zero_()
     if name == "A_log":
-        n = shape[-1]
-        a = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device))
-        return out.copy_(a.expand(shape))
+        n = local[-1]
+        a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device))
+        return out.copy_(a[index[-1] if index else slice(None)].expand(local[:-1] + (n,)))
     if name == "embed":
         std = 0.02
     else:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = 1.0 / math.sqrt(max(fan_in, 1))
+    if index is None:
+        for piece in out if stacked else (out,):
+            piece.normal_(0.0, std, generator=generator)
+        return out
+    whole = torch.empty(shape[1:] if stacked else shape, dtype=dt, device=device)
+    cut = index[1:] if stacked else index
     for piece in out if stacked else (out,):
-        piece.normal_(0.0, std, generator=generator)
+        piece.copy_(whole.normal_(0.0, std, generator=generator)[cut])
     return out
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, dtype=None) -> Params:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, dtype=None, shard=None) -> Params:
     """Seeded random weights at the config's shapes, on ``device`` (the
     card when None; raises without one).
 
     ``generator`` must live on ``device``. The values differ from the JAX
     package's (torch cannot replay ``jax.random``); tests that compare the
     two frameworks bridge the JAX weights with ``params_from_numpy``.
+    ``shard=(plan, rank)`` draws only ``rank``'s shard of every leaf under
+    the ShardingPlan ``plan`` (``param_pspecs``), equal to the same slice
+    of the whole init from the same seed, and never holds more of a leaf
+    than one layer slice beside the shard.
     """
     dt = torch_dtype(dtype or cfg.dtype)
     device = resolve_device(device)
+    shapes = param_shapes(cfg)
+    specs, sizes, rank = None, None, 0
+    if shard is not None:
+        plan, rank = shard
+        specs, sizes = param_pspecs(cfg, plan), dict(plan.mesh.shape)
 
-    def build(tree, stacked):
-        return {
-            k: build(v, stacked or k == "layers") if isinstance(v, dict)
-            else _init_leaf(k, v, stacked, generator, device, dt)
-            for k, v in tree.items()
-        }
+    def build(tree, spec, stacked):
+        out = {}
+        for k, v in tree.items():
+            sp = spec[k] if spec is not None else None
+            if isinstance(v, dict):
+                out[k] = build(v, sp, stacked or k == "layers")
+            else:
+                index = shard_slices(sp, v, rank, sizes) if sp is not None and any(sp) else None
+                out[k] = _init_leaf(k, v, stacked, generator, device, dt, index)
+        return out
 
-    return build(param_shapes(cfg), False)
+    return build(shapes, specs, False)
 
 
 def _to_tensor(leaf, device, dtype: Optional[torch.dtype]) -> torch.Tensor:

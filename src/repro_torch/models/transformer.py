@@ -1,5 +1,5 @@
 """The stacked-layer decoder (the port of ``repro.models.transformer`` for
-attention-only families, one device).
+attention-only families).
 
 JAX scans one layer body over the stacked parameters; here a Python loop
 walks the leading L axis. Entry points:
@@ -10,6 +10,14 @@ walks the leading L axis. Entry points:
   init_paged_cache  an empty block-pooled cache for continuous batching
   decode_step       one cache-appending step (a token or a prefill chunk),
                     over either layout
+
+Each entry point takes a ShardingPlan (``plan``; None is one device). On a
+mesh every rank runs the same loop on its shards of the weights and of the
+KV cache: the embedding is vocab-parallel (a masked lookup and one
+all-reduce), attention and the FFN / MoE sublayers complete their products
+with the collectives their mode needs (``attention``, ``moe``), and the
+logits of the rank's vocabulary columns are all-gathered, so every rank
+holds the whole logits.
 """
 
 from __future__ import annotations
@@ -62,8 +70,16 @@ def _check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------
-def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, plan=None) -> torch.Tensor:
+    if plan is not None and plan.divides(cfg.vocab_size):
+        # vocab-parallel: each rank looks up the tokens of its rows
+        rows = params["embed"].shape[0]
+        local = tokens - plan.mesh.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = params["embed"][torch.where(mine, local, 0)] * mine[..., None].to(params["embed"].dtype)
+        plan.mesh.all_reduce(x)
+    else:
+        x = params["embed"][tokens]
     if cfg.scale_embeddings:
         # the factor rounded to the activation dtype, as a host scalar: a
         # device tensor made here would be a host-to-device copy per step
@@ -71,24 +87,29 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     return x
 
 
-def unembed(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+def unembed(params, cfg: ModelConfig, hidden: torch.Tensor, plan=None) -> torch.Tensor:
     h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = h @ params["embed"].T
     else:
         logits = h @ params["lm_head"]
+    if plan is not None and plan.divides(cfg.vocab_size):
+        logits = plan.mesh.all_gather(logits, dim=-1)
     if cfg.final_logit_softcap > 0:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits
 
 
-def _ffn(x, lp, cfg: ModelConfig, backend=None) -> torch.Tensor:
-    """FFN / MoE sublayer on the residual stream."""
+def _ffn(x, lp, cfg: ModelConfig, backend=None, plan=None) -> torch.Tensor:
+    """FFN / MoE sublayer on the residual stream; a dense FFN runs TP on a
+    mesh (its d_ff sharded, one all-reduce)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.ffn_type == "dense":
         out = glu_ffn(h, lp["ffn"]["wi_gate"], lp["ffn"]["wi_up"], lp["ffn"]["wo"], cfg.activation)
+        if plan is not None and plan.divides(cfg.d_ff):
+            plan.mesh.all_reduce(out)
     else:
-        out = moe_mod.apply_moe(h, lp["moe"], cfg, backend=backend).y
+        out = moe_mod.apply_moe(h, lp["moe"], cfg, backend=backend, plan=plan).y
     if cfg.use_post_norm:
         out = rms_norm(out, lp["ln2_post"], cfg.norm_eps)
     return out
@@ -97,9 +118,12 @@ def _ffn(x, lp, cfg: ModelConfig, backend=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> DecodeCache:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+               plan=None) -> DecodeCache:
+    """A contiguous decode cache; on a mesh with ``kv_shard="heads"`` it
+    holds this rank's kv heads."""
     kv_dt = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else dtype
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_len, attn_mod.local_kv_heads(cfg, plan), cfg.head_dim)
     return DecodeCache(
         k=torch.zeros(shape, dtype=kv_dt, device=device),
         v=torch.zeros(shape, dtype=kv_dt, device=device),
@@ -108,12 +132,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def init_paged_cache(cfg: ModelConfig, nslots: int, num_blocks: int, block_size: int, max_blocks: int,
-                     dtype=torch.bfloat16, device=None) -> DecodeCache:
+                     dtype=torch.bfloat16, device=None, plan=None) -> DecodeCache:
     """A block-pooled decode cache (DESIGN.md §4b): K/V pages shared by all
     ``nslots`` rows, addressed through per-row block tables. ``num_blocks``
-    includes the reserved trash block 0 (``repro_torch.serving.kv_cache``)."""
+    includes the reserved trash block 0 (``repro_torch.serving.kv_cache``).
+    On a mesh with ``kv_shard="heads"`` the pages hold this rank's kv
+    heads; every rank's tables are the same."""
     kv_dt = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else dtype
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, num_blocks, block_size, attn_mod.local_kv_heads(cfg, plan), cfg.head_dim)
     return DecodeCache(
         k=torch.zeros(shape, dtype=kv_dt, device=device),
         v=torch.zeros(shape, dtype=kv_dt, device=device),
@@ -123,7 +149,7 @@ def init_paged_cache(cfg: ModelConfig, nslots: int, num_blocks: int, block_size:
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: int,
-            backend=None, cache: Optional[DecodeCache] = None) -> Tuple[torch.Tensor, DecodeCache]:
+            backend=None, cache: Optional[DecodeCache] = None, plan=None) -> Tuple[torch.Tensor, DecodeCache]:
     """Process the prompt ``batch["tokens"]`` (B, S); return (last-position
     logits (B, V), a cache of ``max_len`` positions primed with the prompt).
     ``backend`` selects the kernel path of prefill attention and the expert
@@ -133,10 +159,10 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
     captured step can read them); None makes a new one. Positions past S
     keep what they held: decode reads none of them before writing it."""
     _check_family(cfg)
-    x = embed_tokens(params, cfg, batch["tokens"])
+    x = embed_tokens(params, cfg, batch["tokens"], plan)
     B, S = x.shape[0], x.shape[1]
     if cache is None:
-        cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
+        cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device, plan=plan)
     elif cache.block_tables is not None or tuple(cache.k.shape[1:3]) != (B, max_len):
         raise ValueError(f"prefill fills a contiguous cache of {B} rows x {max_len} positions, "
                          f"got k {tuple(cache.k.shape)}")
@@ -145,17 +171,17 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
         lp = layer_slice(params["layers"], layer)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         out, (k, v) = attn_mod.attention_block(
-            h, attn_mod.AttnTemps(**lp["attn"]), cfg, flags[layer], return_kv=True, backend=backend
+            h, attn_mod.AttnTemps(**lp["attn"]), cfg, flags[layer], return_kv=True, backend=backend, plan=plan
         )
         if cfg.use_post_norm:
             out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
         x = x + out
-        x = x + _ffn(x, lp, cfg, backend)
+        x = x + _ffn(x, lp, cfg, backend, plan)
         # in place, layer by layer: JAX wrote the stacked K/V in one update
         cache.k[layer, :, :S] = k.to(cache.k.dtype)
         cache.v[layer, :, :S] = v.to(cache.v.dtype)
     cache.pos.fill_(S)
-    logits = unembed(params, cfg, x[:, -1:, :])
+    logits = unembed(params, cfg, x[:, -1:, :], plan)
     return logits[:, 0], cache
 
 
@@ -163,7 +189,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
 # decode
 # ---------------------------------------------------------------------------
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCache,
-                backend=None) -> Tuple[torch.Tensor, DecodeCache]:
+                backend=None, plan=None) -> Tuple[torch.Tensor, DecodeCache]:
     """One cache-appending step: token (B, C) -> (last-position logits
     (B, V), the cache advanced by C). C == 1 is plain decode; C > 1 appends
     a chunk: in lockstep on a contiguous cache, or at each row's own
@@ -173,7 +199,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
     pin ``pos`` again before the next step."""
     _check_family(cfg)
     C = token.shape[1]
-    x = embed_tokens(params, cfg, token)
+    x = embed_tokens(params, cfg, token, plan)
     pos = torch.as_tensor(cache.pos, dtype=torch.int32, device=x.device)
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
@@ -181,11 +207,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         out, _, _ = attn_mod.decode_attention(
             h, attn_mod.AttnTemps(**lp["attn"]), cfg, flags[layer], cache.k[layer], cache.v[layer], pos,
-            block_tables=cache.block_tables, prefix_groups=cache.prefix_groups, backend=backend,
+            block_tables=cache.block_tables, prefix_groups=cache.prefix_groups, backend=backend, plan=plan,
         )
         if cfg.use_post_norm:
             out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
         x = x + out
-        x = x + _ffn(x, lp, cfg, backend)
-    logits = unembed(params, cfg, x[:, -1:, :])
+        x = x + _ffn(x, lp, cfg, backend, plan)
+    logits = unembed(params, cfg, x[:, -1:, :], plan)
     return logits[:, 0], dataclasses.replace(cache, pos=cache.pos + C)

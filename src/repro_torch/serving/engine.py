@@ -1,5 +1,5 @@
-"""Inference engine (the port of ``repro.serving.engine.InferenceEngine``,
-null plan, one device). Two serving loops share it (DESIGN.md §4/§4b):
+"""Inference engine (the port of ``repro.serving.engine.InferenceEngine``).
+Two serving loops share it (DESIGN.md §4/§4b):
 
   ``run()``              static batching: the scheduler left-pads a batch to
                          its prompt bucket, ``prefill`` primes a contiguous
@@ -37,17 +37,31 @@ follows the plan: each static batch, and each continuous admission,
 re-buckets its workload through the session, and where the plan's expert
 layouts differ the Eq.-6 transition moves the expert weights, by the
 INT4 restore from pinned host backups (``TransitionExecutor``) when the
-mechanism is ``int4_upload``. On one device every layout is the identity,
-so a switching plan exercises the INT4 round trip alone. With
+mechanism is ``int4_upload``, else by a reshard. On one device every layout
+is the identity, so a switching plan exercises the INT4 round trip alone.
+With
 ``async_transitions`` the decode-layout restore is kicked onto a
 background worker (its own CUDA stream) when the plan is decided, and
 ``transition_expert_layout`` is the barrier. ``resident_int4`` makes INT4
 the serving format: the expert leaves stay packed on the card and every
 expert matmul dequantizes its weight with ``int4_dequant`` first.
 
-Multi-card meshes, the robustness layer, expert replication and prefetch,
-and the contiguous continuous fallback come in later slices; their knobs
-raise ``NotImplementedError`` naming the ROADMAP item.
+On a mesh (a ``HAPSession`` whose ``mesh`` is a ``RankMesh``) every rank
+runs one engine over its shards of the weights (``params``, laid out by
+``params_plan``: the pinned plan's prefill layout by default) and of the
+KV cache, each step under the plan's ``ShardingPlan`` for its phase. Every
+rank runs the same schedule, which is a deterministic function of the
+requests; after each step the ranks all-gather their sampled tokens and
+the engine raises if they differ. A plan switch moves the leaves whose
+layout changes: the expert leaves by the Eq.-6 mechanism (a reshard moves
+slices between the ranks, an INT4 restore uploads each rank's target shard
+from the whole-leaf host backup), the attention leaves by a reshard.
+Data-parallel mesh axes of size > 1 and sequence-sharded caches raise
+(ROADMAP A.9).
+
+The robustness layer, expert replication and prefetch, and the contiguous
+continuous fallback come in later slices; their knobs raise
+``NotImplementedError`` naming the ROADMAP item.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 CUDA device and no ``device`` it raises rather than fall back. The kernel
@@ -72,6 +86,9 @@ from repro_torch.core.quantization import pick_group_size
 from repro_torch.core.transition import TransitionExecutor
 from repro_torch.device import resolve_device
 from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_cache, prefill
+from repro_torch.models.attention import local_kv_heads
+from repro_torch.models.params import param_pspecs, param_shapes
+from repro_torch.sharding.specs import sharded_dim, unported_layout
 
 from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, blocks_for
 from .prefix_cache import PrefixCache
@@ -132,6 +149,7 @@ class EngineStats:
     prefix_grouped_steps: int = 0  # decode steps where a row read its shared run through another's table
     decode_step_ms_sum: float = 0.0  # host clock of the decode steps, fused ones included
     decode_step_ms_max: float = 0.0
+    reshard_bytes: int = 0  # weight bytes a reshard received from other ranks (a mesh only)
 
 
 @dataclasses.dataclass
@@ -213,9 +231,16 @@ class InferenceEngine:
         replicate_experts: int = 0,
         prefetch: bool = False,
         capture_steps: Optional[bool] = None,
+        moe_pipeline: int = 0,
+        params_plan=None,
     ):
-        if session is not None and session.mesh is not None:
-            raise _not_ported("serving a HAPSession plan over a multi-card mesh", "A.3")
+        self.mesh = session.mesh if session is not None else None
+        if self.mesh is not None:
+            big = [a for a in self.mesh.axis_names if a != "model" and self.mesh.shape[a] > 1]
+            if big:
+                raise _not_ported(f"a mesh with data-parallel axes {big} of size > 1", "A.9")
+            if not hasattr(self.mesh, "rank"):
+                raise TypeError(f"the port serves on a repro_torch.sharding.RankMesh, got {type(self.mesh).__name__}")
         if kv_overcommit is not None or faults is not None:
             raise _not_ported("kv_overcommit, preemption and fault injection (DESIGN.md §4f)", "A.5")
         if replicate_experts or prefetch:
@@ -223,16 +248,32 @@ class InferenceEngine:
         self.device = resolve_device(device)
         # step capture: None means on for the card, off for the CPU; False on
         # the card is the eager A/B (the same bodies and buffers, op by op)
+        capturable = self.mesh is None or self.mesh.capturable
         if capture_steps is None:
-            capture_steps = self.device.type == "cuda"
+            capture_steps = self.device.type == "cuda" and capturable
         if capture_steps and self.device.type != "cuda":
             raise ValueError(f"capture_steps=True captures CUDA graphs; the engine runs on {self.device}")
+        if capture_steps and not capturable:
+            raise ValueError(f"capture_steps=True captures CUDA graphs, and the mesh's {self.mesh.backend} group's "
+                             "collectives (staged through the host) cannot be captured; serve on an NCCL group, "
+                             "or pass capture_steps=False")
         self.steps = StepCache(self.device, capture_steps)
         self._static: Optional[Tuple[Tuple[int, int], DecodeCache]] = None  # ((B, max_len), its contiguous cache)
         self.cfg = cfg
         self.params = params
         self.session = session  # HAPSession (adaptive mode) or None
         self.hap_plan = hap_plan  # active HAPPlan (pinned, or per-batch)
+        self.moe_pipeline = int(moe_pipeline)
+        self._specs: Dict[Any, Dict[str, Any]] = {}
+        # the layout the params are in (None: one device)
+        self._layout = None
+        if self.mesh is not None:
+            if params_plan is None:
+                pinned = hap_plan or getattr(session.source, "plan", None)
+                if pinned is None:
+                    raise ValueError("on a mesh, pass params_plan: the ShardingPlan the params are laid out in")
+                params_plan = pinned.to_sharding_plan(self.mesh, cfg, phase="prefill")
+            self._layout = self._checked(params_plan)
         self.eos_id = eos_id
         self.kernel_backend = kernel_backend
         bucket = session.prompt_bucket if session is not None else 64
@@ -289,54 +330,142 @@ class InferenceEngine:
         self.params = dict(self.params, layers=dict(self.params["layers"], moe=moe))
         self.steps.new_weights()
 
+    # -- layouts on a mesh ---------------------------------------------------
+    def _checked(self, plan):
+        """``plan`` with the engine's EP pipeline knob, or a named error for
+        what the port cannot execute yet."""
+        if plan is None:
+            return None
+        why = unported_layout(plan)
+        if why is not None:
+            raise _not_ported(f"serving {why}", "A.9")
+        if self.moe_pipeline and plan.moe_pipeline != self.moe_pipeline:
+            plan = dataclasses.replace(plan, moe_pipeline=self.moe_pipeline)
+        return plan
+
+    def _sharding_for(self, phase: str):
+        """The execution layout of ``phase`` under the active plan (None on
+        one device; the params' layout on a mesh before a plan is active)."""
+        if self.mesh is None:
+            return None
+        if self.hap_plan is None:
+            return self._layout
+        return self._checked(self.hap_plan.to_sharding_plan(self.mesh, self.cfg, phase=phase))
+
+    def _leaf_specs(self, plan) -> Dict[str, Any]:
+        """The specs of the leaves that plans move: ``attn/*`` and
+        ``moe/*`` (the expert leaves) under ``plan``."""
+        key = dataclasses.replace(plan, moe_pipeline=0)
+        if key not in self._specs:
+            layers = param_pspecs(self.cfg, plan)["layers"]
+            self._specs[key] = {f"{g}/{k}": v for g in ("attn", "moe") for k, v in layers.get(g, {}).items()}
+        return self._specs[key]
+
+    def _shard_of(self, plan, key: str):
+        """``(spec, rank, sizes)``: this rank's shard of leaf ``key`` under
+        ``plan`` (None on one device)."""
+        if plan is None:
+            return None
+        return self._leaf_specs(plan)[key], self.mesh.rank, dict(self.mesh.shape)
+
+    def _gather(self, key: str, w):
+        """The whole layer ``l`` of leaf ``key`` from every rank's shard
+        under the current layout (None on one device, or when it is whole)."""
+        if self._layout is None:
+            return None
+        a = sharded_dim(self._leaf_specs(self._layout)[key])
+        if a is None:
+            return None
+        return lambda layer: self.mesh.all_gather(w[layer], dim=a - 1)
+
+    def _same_layout(self, a, b) -> bool:
+        return a is None or b is None or self._leaf_specs(a) == self._leaf_specs(b)
+
     def _backup_experts(self) -> None:
         for name, w in self._expert_leaves().items():
-            self._tx.backup(f"moe/{name}", w)
+            self._tx.backup(f"moe/{name}", w, gather=self._gather(f"moe/{name}", w))
 
     def _make_experts_resident(self) -> None:
         """Flip the expert FFN leaves to resident ``QuantizedExpert``s: the
         dense weights are quantized once into structured host backups (which
-        the transitions re-upload), the packed leaves replace the dense ones
-        on the device, and every expert matmul dequantizes its weight."""
+        the transitions re-upload; on a mesh, of the whole leaf), the packed
+        leaves of this rank's shard replace the dense ones on the device, and
+        every expert matmul dequantizes its weight."""
         saved = 0
         leaves = {}
         for name, w in self._expert_leaves().items():
             key = f"moe/{name}"
-            gs = pick_group_size(int(w.shape[-1]), self.int4_group_size or 128)
-            self._tx.backup_packed(key, w, gs)
-            leaves[name] = self._tx.restore_packed(key)
+            full = param_shapes(self.cfg)["layers"]["moe"][name]
+            gs = pick_group_size(int(full[-1]), self.int4_group_size or 128)
+            self._tx.backup_packed(key, w, gs, gather=self._gather(key, w))
+            leaves[name] = self._tx.restore_packed(key, shard=self._shard_of(self._layout, key))
             saved += w.nbytes - leaves[name].nbytes
         self._set_expert_leaves(leaves)
         self.stats.resident_bytes_saved = int(saved)
         log.info("resident INT4 experts: %.2f MiB dense -> packed residency freed", saved / 2**20)
 
-    def _restore_leaf(self, name: str, dtype=None):
-        """One expert leaf from its INT4 backup: packed under residency,
-        else dequantized into ``dtype``."""
+    def _restore_leaf(self, name: str, dtype=None, target=None):
+        """One expert leaf from its INT4 backup, this rank's shard under
+        ``target``: packed under residency, else dequantized into ``dtype``."""
         key = f"moe/{name}"
+        kw = {} if target is None else {"shard": self._shard_of(target, key)}
         if self.resident_int4:
-            return self._tx.restore_packed(key)
-        return self._tx.restore(key, dtype=dtype)
+            return self._tx.restore_packed(key, **kw)
+        return self._tx.restore(key, dtype=dtype, **kw)
 
-    def _relayout_experts(self, mechanism: str) -> float:
-        """Move the expert weights to a new layout; returns ms. ``reshard``
-        is the identity on one device; ``int4_upload`` restores the INT4
-        backups (resident leaves stay packed through it)."""
-        if not self.cfg.is_moe or not self._expert_leaves():
+    def _relayout_experts(self, mechanism: str, target=None) -> float:
+        """Move the weights to ``target``'s layout; returns ms. The expert
+        leaves move by ``mechanism``: ``int4_upload`` restores the INT4
+        backups (resident leaves stay packed through it), ``reshard`` moves
+        slices between the ranks (the identity on one device). On a mesh the
+        attention leaves whose layout changes move by a reshard. Each leaf
+        is installed as it lands, so the old and the new layout are resident
+        together for one leaf at a time."""
+        moe = self.cfg.is_moe and bool(self._expert_leaves())
+        moves = self.mesh is not None and not self._same_layout(self._layout, target)
+        if not moe and not moves:
             return 0.0
         # a sync relayout supersedes an in-flight background restore: drain
         # it (never install) so leaves cannot tear across layouts
         self._drop_pending_restore()
         t0 = time.perf_counter()
-        if mechanism == "int4_upload":
-            leaves = {}
-            for name, w in self._expert_leaves().items():
+        if moves:
+            self._reshard_group("attn", target)
+        if moe and mechanism == "int4_upload":
+            for name in _EXPERT_LEAVES:
+                w = self.params["layers"]["moe"][name]
                 if not self.resident_int4 and f"moe/{name}" not in self._tx._backups:
-                    self._tx.backup(f"moe/{name}", w)
-                leaves[name] = self._restore_leaf(name, dtype=None if self.resident_int4 else w.dtype)
-            self._set_expert_leaves(leaves)
-            self._sync()
+                    self._tx.backup(f"moe/{name}", w, gather=self._gather(f"moe/{name}", w))
+                dtype = None if self.resident_int4 else w.dtype
+                del w
+                self._set_expert_leaves({name: self._restore_leaf(name, dtype, target)})
+        elif moe and moves:
+            self._reshard_group("moe", target)
+        if self.mesh is not None:
+            self._layout = target
+        self._sync()
         return (time.perf_counter() - t0) * 1e3
+
+    def _reshard_group(self, group: str, target) -> None:
+        """Reshard every leaf of ``layers[group]`` whose spec differs
+        between the current layout and ``target``, installing each as it
+        lands; counts the bytes received."""
+        old, new = self._leaf_specs(self._layout), self._leaf_specs(target)
+        shapes = param_shapes(self.cfg)["layers"][group]
+        for name in list(self.params["layers"][group]):
+            key = f"{group}/{name}"
+            if key not in old or old[key] == new[key]:
+                continue
+            moved, nbytes = self._tx.reshard(self.params["layers"][group][name], old[key], new[key], self.mesh,
+                                             shape=shapes[name])
+            self.stats.reshard_bytes += nbytes
+            if group == "moe":
+                self._set_expert_leaves({name: moved})
+            else:
+                tree = dict(self.params["layers"][group], **{name: moved})
+                self.params = dict(self.params, layers=dict(self.params["layers"], **{group: tree}))
+                self.steps.new_weights()
+            del moved
 
     def _plan_mechanism(self) -> str:
         """INT4 vs reshard for the active plan's phase switch.
@@ -353,7 +482,7 @@ class InferenceEngine:
         abandoned."""
         if self._pending_restore is None:
             return
-        _, futures, _ = self._pending_restore
+        futures = self._pending_restore[2]
         self._pending_restore = None
         for f in futures.values():
             try:
@@ -375,16 +504,18 @@ class InferenceEngine:
             return
         if not self.cfg.is_moe or not self._expert_leaves():
             return
+        target = self._sharding_for(phase)
         if self._pending_restore is not None:
-            if self._pending_restore[0] == phase:
+            if self._pending_restore[:2] == (phase, target):
                 return  # the right restore is already in flight
             self._drop_pending_restore()
         futures = {}
         for name, w in self._expert_leaves().items():
             if not self.resident_int4 and f"moe/{name}" not in self._tx._backups:
-                self._tx.backup(f"moe/{name}", w)
-            futures[name] = self._tx.submit(self._restore_leaf, name, None if self.resident_int4 else w.dtype)
-        self._pending_restore = (phase, futures, time.perf_counter())
+                # on the serving thread: a mesh gathers the leaf with collectives
+                self._tx.backup(f"moe/{name}", w, gather=self._gather(f"moe/{name}", w))
+            futures[name] = self._tx.submit(self._restore_leaf, name, None if self.resident_int4 else w.dtype, target)
+        self._pending_restore = (phase, target, futures, time.perf_counter())
         self.stats.async_restores += 1
 
     def _join_async_restore(self, phase: str) -> Optional[float]:
@@ -397,7 +528,7 @@ class InferenceEngine:
         if pending is None:
             return None
         self._pending_restore = None
-        p_phase, futures, t_kick = pending
+        p_phase, p_target, futures, t_kick = pending
         t0 = time.perf_counter()
         try:
             deadline = t0 + self.restore_timeout_s
@@ -407,10 +538,12 @@ class InferenceEngine:
             self.stats.restore_errors += 1
             self.stats.background_errors += 1
             return None
-        if p_phase != phase:
+        if p_phase != phase or p_target != self._sharding_for(phase):
             log.info("async restore discarded: target layout changed in flight")
             return None
         self._set_expert_leaves({n: r.install() for n, r in results.items()})
+        if self.mesh is not None:
+            self._layout = p_target
         for r in results.values():
             if r.event is not None:
                 r.event.synchronize()  # the wait the decode would otherwise absorb
@@ -428,14 +561,23 @@ class InferenceEngine:
         ms = self._join_async_restore("decode")
         if ms is not None:
             return ms
-        return self._relayout_experts(self._plan_mechanism())
+        return self._relayout_experts(self._plan_mechanism(), self._sharding_for("decode"))
 
     def _restore_prefill_layout(self) -> float:
         """Undo the previous batch's prefill->decode switch so a reused
         switching plan prefills under its prefill layout again; returns ms."""
         if self.hap_plan is None or not self.hap_plan.switches:
             return 0.0
-        return self._relayout_experts(self._plan_mechanism())
+        return self._relayout_experts(self._plan_mechanism(), self._sharding_for("prefill"))
+
+    def _match_layout(self, phase: str) -> float:
+        """On a mesh, reshard whatever of the params is not yet in the
+        active plan's ``phase`` layout (the params' own layout at the first
+        plan, or attention after a plan switch); returns ms."""
+        target = self._sharding_for(phase)
+        if self.mesh is None or self._same_layout(self._layout, target):
+            return 0.0
+        return self._relayout_experts("reshard", target)
 
     # -- adaptive re-planning ---------------------------------------------
     def _activate_plan(self, batch_workload: Workload, phase: str = "prefill") -> float:
@@ -457,7 +599,8 @@ class InferenceEngine:
         if old is None or not self._plan_ran:
             self.hap_plan = new
             log.info("initial plan [%s]: %s", bucket, new.describe())
-            return self.transition_expert_layout() if phase == "decode" else 0.0
+            ms = self._match_layout("prefill")
+            return ms + (self.transition_expert_layout() if phase == "decode" else 0.0)
         if new is old:
             # a switching plan left the experts in the decode layout after
             # the previous batch: a prefill-phase entry restores its layout
@@ -470,11 +613,12 @@ class InferenceEngine:
         mech, predicted = self.session.transition_between(old, new, batch_workload)
         ms = 0.0
         if mech != "none":
-            ms = self._relayout_experts(mech)
+            ms = self._relayout_experts(mech, self._sharding_for(phase))
         elif phase == "decode" and new.switches:
             # Eq. 6 judged old-decode -> new-prefill free, but a decode-phase
             # entry must land in the new plan's decode layout
             ms = self.transition_expert_layout()
+        ms += self._match_layout(phase)
         self.stats.plan_switches += 1
         log.info(
             "plan switch [%s]: %s -> %s via %s (%.1f ms, predicted %.1f ms)",
@@ -510,6 +654,16 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
+    def _sample(self, logits: torch.Tensor, sampling: SamplingParams, gen) -> torch.Tensor:
+        """Sample the step's tokens; on a mesh, all-gather every rank's and
+        raise unless they are equal (every rank runs the same schedule)."""
+        toks = sample(logits, sampling, gen)
+        if self.mesh is not None and self.mesh.size > 1:
+            seen = self.mesh.all_gather(toks.reshape(1, -1), dim=0)
+            if not bool((seen == seen[:1]).all()):
+                raise RuntimeError(f"rank {self.mesh.rank}: the ranks sampled different tokens: {seen.tolist()}")
+        return toks
+
     def _generator(self, sampling: SamplingParams) -> Optional[torch.Generator]:
         """One explicit generator per serving call (temperature > 0 only)."""
         if sampling.temperature <= 0:
@@ -517,9 +671,10 @@ class InferenceEngine:
         return torch.Generator(device=self.device).manual_seed(sampling.seed)
 
     # -- captured steps (the reference's _jit / _fn_cache) ---------------
-    # Every key's plan slot is None: on one card every plan runs the same
-    # layout, so a replan reuses the graphs, as it reuses the reference's jit
-    # entries (multi-card plans are ROADMAP A.3).
+    # Every key carries the step's ShardingPlan (None on one card, where every
+    # plan runs the same layout, so a replan reuses the graphs as it reuses
+    # the reference's jit entries); on a mesh each (kind, plan, shape class)
+    # is a graph of its own, its body running under that plan.
     def _run_step(self, g: StepGraph) -> torch.Tensor:
         """Run a fed step. No capture while a background restore is in
         flight: the joined leaves are installed at the barrier, which drops
@@ -531,10 +686,12 @@ class InferenceEngine:
         shape: the static steps' graphs read its tensors. Only one is kept: a
         batch of another shape releases it and drops its graphs first, so
         varied output budgets do not pile up caches and graph pools."""
-        if self._static is None or self._static[0] != (B, max_len):
+        plan = self._sharding_for("decode")
+        heads = local_kv_heads(self.cfg, plan)  # a plan of another attention layout needs another cache
+        if self._static is None or self._static[0] != (B, max_len) or self._static[1].k.shape[3] != heads:
             self._static = None
             self.steps.new_cache("static")
-            cache = init_cache(self.cfg, B, max_len, dtype=self.params["embed"].dtype, device=self.device)
+            cache = init_cache(self.cfg, B, max_len, dtype=self.params["embed"].dtype, device=self.device, plan=plan)
             self._static = ((B, max_len), cache)
         return self._static[1]
 
@@ -543,13 +700,14 @@ class InferenceEngine:
         cache; returns the last position's logits (B, V)."""
         B, S = toks.shape
         cache = self._static_cache(B, max_len)
+        plan = self._sharding_for("prefill")
 
         def body(g: StepGraph) -> torch.Tensor:
             logits, _ = prefill(self.params, self.cfg, {"tokens": g.bufs["tokens"]}, max_len,
-                                backend=self.kernel_backend, cache=cache)
+                                backend=self.kernel_backend, cache=cache, plan=plan)
             return logits
 
-        g = self.steps.graph(("prefill", None, B, S, max_len),
+        g = self.steps.graph(("prefill", plan, B, S, max_len),
                              lambda: self.steps.buffers(tokens=((B, S), torch.long)), body, "static")
         g.feed("tokens", toks)
         return self._run_step(g)
@@ -561,12 +719,14 @@ class InferenceEngine:
         buffers."""
         B = tok.shape[0]
         cache = self._static_cache(B, max_len)
+        plan = self._sharding_for("decode")
 
         def body(g: StepGraph) -> torch.Tensor:
-            logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend)
+            logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
+                                    plan=plan)
             return logits
 
-        g = self.steps.graph(("decode", None, B, max_len),
+        g = self.steps.graph(("decode", plan, B, max_len),
                              lambda: dict(self.steps.buffers(tokens=((B, 1), torch.long)), pos=cache.pos), body,
                              "static")
         g.feed("tokens", tok[:, None])
@@ -610,7 +770,7 @@ class InferenceEngine:
 
             generated = np.zeros((B, max_new), np.int32)
             t1 = time.perf_counter()
-            next_tok = sample(logits, sampling, gen)
+            next_tok = self._sample(logits, sampling, gen)
             done = np.zeros((B,), bool)
             for step in range(max_new):
                 host_tok = next_tok.cpu().numpy()
@@ -618,7 +778,7 @@ class InferenceEngine:
                 if step == max_new - 1:
                     break
                 logits = self._decode_step_static(next_tok, S + step, max_len)
-                next_tok = sample(logits, sampling, gen)
+                next_tok = self._sample(logits, sampling, gen)
                 if self.eos_id >= 0:
                     done |= next_tok.cpu().numpy() == self.eos_id
                     if done.all():
@@ -682,7 +842,8 @@ class InferenceEngine:
             kv_capacity=max_blocks * bs,
             slots=[None] * nslots,
             cache=init_paged_cache(
-                self.cfg, nslots, pool + 1, bs, max_blocks, dtype=self.params["embed"].dtype, device=self.device
+                self.cfg, nslots, pool + 1, bs, max_blocks, dtype=self.params["embed"].dtype, device=self.device,
+                plan=self._sharding_for("decode"),
             ),
             pos=np.zeros((nslots,), np.int32),
             next_tok=np.zeros((nslots,), np.int32),
@@ -857,7 +1018,8 @@ class InferenceEngine:
         chunk takes no group indirection."""
         sub = DecodeCache(k=self._live.cache.k, v=self._live.cache.v, pos=g.bufs["chunk_pos"],
                           block_tables=g.bufs["chunk_table"])
-        logits, _ = decode_step(self.params, self.cfg, g.bufs["chunk"], sub, backend=self.kernel_backend)
+        logits, _ = decode_step(self.params, self.cfg, g.bufs["chunk"], sub, backend=self.kernel_backend,
+                                plan=g.key[1])
         return logits
 
     def _decode_half(self, g: StepGraph) -> torch.Tensor:
@@ -865,7 +1027,8 @@ class InferenceEngine:
         and group buffers; returns the logits (nslots, V)."""
         cache = DecodeCache(k=self._live.cache.k, v=self._live.cache.v, pos=g.bufs["pos"],
                             block_tables=g.bufs["tables"], prefix_groups=g.bufs.get("groups"))
-        logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend)
+        logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
+                                plan=g.key[1])
         return logits
 
     def _fused_body(self, g: StepGraph) -> torch.Tensor:
@@ -882,6 +1045,9 @@ class InferenceEngine:
         plus the shape class."""
         live = self._live
         n, mb, pfx = len(live.slots), live.max_blocks, live.prefix is not None
+        plan = self._sharding_for("decode")
+        if local_kv_heads(self.cfg, plan) != live.cache.k.shape[3]:
+            raise _not_ported("moving a live KV pool to another attention layout", "A.9")
         specs = {}
         if kind in ("chunk", "fused"):
             specs.update(chunk=((1, C), torch.long), chunk_pos=((1,), torch.int32),
@@ -891,11 +1057,11 @@ class InferenceEngine:
             if pfx:
                 specs["groups"] = ((2, n), torch.int32)
         if kind == "chunk":
-            key, body = ("chunk", None, C, n, mb), self._chunk_half
+            key, body = ("chunk", plan, C, n, mb), self._chunk_half
         elif kind == "paged_decode":
-            key, body = ("paged_decode", None, n, mb, pfx), self._decode_half
+            key, body = ("paged_decode", plan, n, mb, pfx), self._decode_half
         else:
-            key, body = ("fused", None, C, n, mb, pfx), self._fused_body
+            key, body = ("fused", plan, C, n, mb, pfx), self._fused_body
         return self.steps.graph(key, lambda: self.steps.buffers(**specs), body, "live")
 
     def _prefill_chunk_step(self, i: int, active: List[int], sampling: SamplingParams, gen) -> None:
@@ -932,7 +1098,7 @@ class InferenceEngine:
         t0 = time.perf_counter()
         if fused:
             logits = self._run_step(g)
-            toks = sample(logits, sampling, gen).cpu().numpy()
+            toks = self._sample(logits, sampling, gen).cpu().numpy()
             step_ms = (time.perf_counter() - t0) * 1e3
             # booked once, as the live rows' decode step; the joiner's
             # prefill_ms counts only its unfused chunks
@@ -942,7 +1108,7 @@ class InferenceEngine:
             return
         logits = self._run_step(g)
         if final:
-            tok0 = int(sample(logits, sampling, gen).cpu()[0])
+            tok0 = int(self._sample(logits, sampling, gen).cpu()[0])
         else:
             self._sync()
         s.prefill_ms += (time.perf_counter() - t0) * 1e3
@@ -986,7 +1152,7 @@ class InferenceEngine:
             g.feed("groups", groups)
         t0 = time.perf_counter()
         logits = self._run_step(g)
-        toks = sample(logits, sampling, gen).cpu().numpy()
+        toks = self._sample(logits, sampling, gen).cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1e3
         self.stats.decode_steps += 1
         self._apply_sampled(toks, active, step_ms)

@@ -147,7 +147,7 @@ ENGINE_CASES = {
 
 
 # the port's own measurement counters, which the JAX engine does not keep
-PORT_ONLY_STATS = ("prefix_grouped_steps", "decode_step_ms_sum", "decode_step_ms_max")
+PORT_ONLY_STATS = ("prefix_grouped_steps", "decode_step_ms_sum", "decode_step_ms_max", "reshard_bytes")
 
 
 @pytest.fixture(scope="module")
@@ -238,7 +238,8 @@ def test_engine_mirrors_and_groups(moe_setup):
         (dict(paged=False, prefix_cache=True), ValueError),
         (dict(kv_overcommit=0.5), NotImplementedError),
         (dict(faults=object()), NotImplementedError),
-        (dict(session=types.SimpleNamespace(mesh="a multi-card mesh")), NotImplementedError),  # A.3
+        (dict(session=types.SimpleNamespace(mesh=types.SimpleNamespace(
+            axis_names=("data", "model"), shape={"data": 2, "model": 2}))), NotImplementedError),  # A.9
         (dict(replicate_experts=2), NotImplementedError),
         (dict(prefetch=True), NotImplementedError),
         (dict(kv_block_size=0), ValueError),

@@ -83,7 +83,7 @@ CONT_REQS = [(SHARED + [40, 41], 6), (SHARED + [40, 41], 4), (SHARED + [40, 41],
              ([3, 1, 4, 1, 5, 9, 2, 6, 5, 3], 5)]
 CONT_KW = dict(max_batch=3, prefill_chunk=8, kv_block_size=8, kv_blocks=9, prefix_cache=True)
 # the port's own measurement counters, which the JAX engine does not keep
-PORT_ONLY_STATS = ("prefix_grouped_steps", "decode_step_ms_sum", "decode_step_ms_max")
+PORT_ONLY_STATS = ("prefix_grouped_steps", "decode_step_ms_sum", "decode_step_ms_max", "reshard_bytes")
 
 
 @pytest.mark.parametrize("name", FAMILIES)

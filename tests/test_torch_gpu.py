@@ -741,3 +741,133 @@ def test_captured_full_width_family_equals_eager(name):
         if continuous:
             assert launches["prefix_paged_attention"] > 0 and captured[5].stats.prefix_hit_blocks > 0
         assert not any(k.split(".")[1].startswith("ref") for k in captured[4])
+
+
+# ---------------------------------------------------------------------------
+# sharded execution on the card
+# ---------------------------------------------------------------------------
+class _HalfMesh:
+    """Rank ``rank`` of a two-rank model axis for the grouped-matmul seam,
+    its all-reduce left to the test (which sums the two ranks' partials)."""
+
+    def __init__(self, rank):
+        self.rank, self.size, self.shape = rank, 2, {"model": 2}
+
+    def all_reduce(self, x):
+        return x
+
+
+@pytest.mark.parametrize("f", [704, 352, 96])
+def test_sharded_grouped_matmul_on_the_card(f):
+    """Each rank's column-parallel (wi) and row-parallel (wo) grouped matmul
+    at DeepSeek's TP2 / TP4 widths (and 96 = 3 INT4 groups of 32, which do
+    not split in two) against the plain product of the whole weight: dense
+    and resident INT4, the dequant on the rank's slice where the group axis
+    divides and on the whole leaf where it does not."""
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import LAUNCH_COUNTS
+    from repro_torch.sharding.specs import KernelShardAxes
+
+    dev = _card()
+    rng = np.random.default_rng(f)
+    E, C, d = 8, 16, 256
+    gs = 32 if f == 96 else 64
+    lhs = _randn(rng, (E, C, d), "bfloat16", dev)
+    wi = _randn(rng, (E, d, f), "bfloat16", dev, std=d**-0.5)
+    wo = _randn(rng, (E, f, d), "bfloat16", dev, std=f**-0.5)
+    qi, qo = ops.quantize_weight(wi, gs), ops.quantize_weight(wo, gs)
+    for rhs_i, rhs_o, quantized in ((wi, wo, False), (qi, qo, True)):
+        want_h = gm.grouped_matmul_plain(lhs, ops._dequant_weight(rhs_i, lhs.dtype, "hopper"))
+        want_o = gm.grouped_matmul_plain(want_h, ops._dequant_weight(rhs_o, lhs.dtype, "hopper"))
+        half, parts = f // 2, []
+        for r in (0, 1):
+            ax = KernelShardAxes(_HalfMesh(r), "model", f)
+            cols = slice(r * half, (r + 1) * half)
+            if quantized:
+                fused = qi.packed.shape[-2] % 2 == 0
+                g = qi.packed.shape[-2] // 2
+                loc_i = ops.QuantizedExpert(*(t[..., r * g:(r + 1) * g, :] for t in (qi.packed, qi.scales, qi.zeros))) \
+                    if fused else qi
+                loc_o = qo[:, cols]
+            else:
+                loc_i, loc_o = wi[..., cols].contiguous(), wo[:, cols].contiguous()
+            LAUNCH_COUNTS.clear()
+            h = ops.grouped_matmul(lhs, loc_i, shard_axes=ax, sharded_dim="out")
+            torch.testing.assert_close(h.float(), want_h[..., cols].float(), atol=2e-2, rtol=2e-2)
+            parts.append(ops.grouped_matmul(want_h[..., cols].contiguous(), loc_o, shard_axes=ax, sharded_dim="in"))
+            assert LAUNCH_COUNTS["grouped_matmul"] == 2
+            assert LAUNCH_COUNTS.get("int4_dequant", 0) == (2 if quantized else 0)
+        torch.testing.assert_close((parts[0].float() + parts[1].float()), want_o.float(), atol=5e-2, rtol=2e-2)
+
+
+def _one_rank_group(tmp_path, backend):
+    import torch.distributed as dist
+
+    from repro_torch.sharding import RankMesh
+
+    dist.init_process_group(backend, store=dist.FileStore(str(tmp_path / f"store_{backend}"), 1), rank=0,
+                            world_size=1)
+    return RankMesh()
+
+
+def test_one_rank_nccl_sharded_engine_captured_equals_eager(tmp_path):
+    """A one-rank NCCL group, reduced DeepSeekMoE-16B in bf16 under
+    fixed_plan("TP2", "EP2") with the serial and the pipelined EP schedule:
+    the steps (their all-reduce, all-gather and all-to-all included) are
+    captured in CUDA graphs and give the eager steps' tokens, logits and
+    launch counts, and the plain one-card engine's tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import HAPSession, fixed_plan
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+
+    dev = _card()
+    mesh = _one_rank_group(tmp_path, "nccl")
+    try:
+        cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+        plan = fixed_plan("TP2", "EP2")
+        splan = plan.to_sharding_plan(mesh, cfg, phase="prefill")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, shard=(splan, 0))
+        reqs = [([1, 2, 3, 4], 6), ([5, 6, 7, 8, 9, 10], 6), (list(range(11, 31)), 6)]
+        plain = _served_both_ways(lambda cap: InferenceEngine(cfg, params, max_batch=2, capture_steps=cap), reqs,
+                                  False)[True][0]
+        for k in (1, 2):
+            runs = _served_both_ways(lambda cap: HAPSession(cfg, "h100", 1, source=plan, mesh=mesh, prompt_bucket=64)
+                                     .engine(params, max_batch=2, capture_steps=cap, moe_pipeline=k), reqs, False)
+            eager, captured = runs[False], runs[True]
+            assert captured[0] == eager[0] == plain
+            for a, b in zip(captured[1], eager[1]):
+                assert torch.equal(a, b)
+            assert captured[2:5] == eager[2:5]
+            assert captured[5].steps.stats.captures > 0 and captured[5].steps.stats.replays > 0
+            assert captured[4].get("moe.ep_serial" if k == 1 else "moe.ep_pipeline_k2")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_capture_on_a_gloo_group_raises(tmp_path):
+    """gloo stages CUDA collectives through the host: a step cannot be
+    captured, so capture_steps=True raises and names the reason; None
+    serves eagerly."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import HAPSession, fixed_plan
+    from repro_torch.models import init_params
+
+    dev = _card()
+    mesh = _one_rank_group(tmp_path, "gloo")
+    try:
+        cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+        plan = fixed_plan("TP2", "TP2")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                             shard=(plan.to_sharding_plan(mesh, cfg, phase="prefill"), 0))
+        session = HAPSession(cfg, "h100", 1, source=plan, mesh=mesh)
+        with pytest.raises(ValueError, match="gloo"):
+            session.engine(params, capture_steps=True)
+        assert not session.engine(params).steps.capture
+    finally:
+        dist.destroy_process_group()

@@ -237,17 +237,27 @@ def test_fixed_plan_from_names():
 
 
 def test_to_sharding_plan_null_mesh_only():
+    """No mesh: the null plan. A mesh of two ranks: each phase's layout
+    (tests/test_torch_sharding_plan.py holds the resolver to the
+    reference's). A mesh the port cannot serve on raises, naming ROADMAP
+    A.9, and one that is not a RankMesh is refused."""
+    import types
+
     cfg = get_config("deepseek-moe-16b").reduced()
     plan = fixed_plan("TP1", "TP2", "EP2", mechanism="int4_upload")
     assert plan.to_sharding_plan(None, cfg, phase="prefill") is None
     assert plan.to_sharding_plan(None, cfg, phase="decode") is None
     with pytest.raises(ValueError):
         plan.to_sharding_plan(None, cfg, phase="train")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        plan.to_sharding_plan(object(), cfg)
-    s = HAPSession(cfg, "h100", 1, source=plan, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.3"):
+    mesh = types.SimpleNamespace(axis_names=("model",), shape={"model": 2})
+    pre, dec = (plan.to_sharding_plan(mesh, cfg, phase=ph) for ph in ("prefill", "decode"))
+    assert (pre.attn_mode, pre.ffn_mode, dec.ffn_mode, dec.ep_axis) == ("replicated", "tp", "ep", "model")
+    s = HAPSession(cfg, "h100", 4, source=plan,
+                   mesh=types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 2}))
+    with pytest.raises(NotImplementedError, match="A.9"):
         s.engine({}, device="cpu")
+    with pytest.raises(TypeError, match="RankMesh"):
+        HAPSession(cfg, "h100", 2, source=plan, mesh=mesh).engine({}, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,7 @@ SCENARIOS = {
 }
 # timings, and the port's own counter, are not compared with the JAX engine
 NOT_COMPARED = ("transition_ms_total", "last_transition_ms", "restore_wait_ms", "restore_overlap_ms",
-                "prefix_grouped_steps", "decode_step_ms_sum", "decode_step_ms_max")
+                "prefix_grouped_steps", "decode_step_ms_sum", "decode_step_ms_max", "reshard_bytes")
 
 
 class FakeGraph:

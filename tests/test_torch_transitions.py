@@ -116,9 +116,11 @@ def test_executor_async_and_identity_reshard():
     assert torch.equal(packed.packed, tx.restore_packed("p").packed)
     with pytest.raises(ValueError, match="flat"):
         tx.restore_packed("w")
-    assert TransitionExecutor.reshard(w) is w
-    with pytest.raises(NotImplementedError, match="A.3"):
-        TransitionExecutor.reshard(w, sharding=object())
+    # the identity with no mesh, or between equal layouts (tests/test_torch_sharded_serving.py moves
+    # expert slices between two ranks)
+    assert TransitionExecutor.reshard(w) == (w, 0)
+    moved, nbytes = TransitionExecutor.reshard(w, (None, "model", None), (None, None, "model"))
+    assert moved is w and nbytes == 0
     tx.close()
     assert tx._pool is None
 
