@@ -41,7 +41,26 @@ printing one JSON line:
              pinned plan with ``use_int4_transition=True``: async and sync
              tokens equal, restored leaves bit-equal to the numpy dequant
              of the same backup, the restores' int4_dequant launches counted
-8. families - DeepSeek's weights freed, then three more families, each at
+8. replication - the same model (the resident phase's INT4 round trip in
+             its expert leaves): prefetch (``prefetch=True,
+             prefetch_top_p=0.9``) on the resident session, sync and async,
+             against prefetch off (equal tokens, rows hit), and dense INT4
+             restores from staged rows at 4 layers against the transitions
+             phase's tokens; free routing with ``replicate_experts=4,
+             rebalance_interval=8`` (68 slots), hopper against ref on the
+             slot layout and on the same experts; then the router doctored
+             in place so that expert 0 is in every token's top-2, at
+             capacity factor E / k (nothing drops): resident INT4 with
+             replication against a dense engine on its round trip, and the
+             replicated engine eager and captured against the unreplicated
+             one (equal tokens, teacher-forced logits within rel L2 1e-3).
+             Each run prints rebalances, degrees, peak memory, decode ms per
+             step, prefill ms and the prefetch counters; every launch is
+             recorded by shape, and phase ``replication_kernels`` holds gmm
+             and dequant against their plain versions at the shapes the
+             kernels phase has no row for (68 slots, the slot leaf, the
+             barrier's assembled leaf)
+9. families - DeepSeek's weights freed, then three more families, each at
              full width on seeded random weights, freed before the next:
              Qwen3-30B-A3B (48 layers, 128 experts top-8, GQA 32/4): the
              serve phase's ``run()`` eager and captured, the agree check,
@@ -49,9 +68,10 @@ printing one JSON line:
              (equal tokens); Gemma-2-9B (42 layers, head dim 256, softcaps,
              alternating 4096-token window): ``run()``, agree, and the
              continuous traffic with the prefix cache on; Mixtral-8x7B at
-             its first 16 of 32 layers (93.4 GB in bf16 does not fit the
-             80 GB card): ``run()`` and agree. Each prints its peak memory
-9. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
+             its first 8 of 32 layers (93.4 GB in bf16 does not fit the
+             80 GB card, and 8 layers keep the whole run inside its time
+             limit): ``run()`` and agree. Each prints its peak memory
+10. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
              gloo group, both on the one card (NCCL refuses two ranks on one
              device), spawned by ``repro_torch.sharding.launch``; each rank
              draws only its shard (``init_params(..., shard=...)``, the
@@ -67,8 +87,13 @@ printing one JSON line:
              teacher-forced logits of the agree phase's first batch under
              each TP2/EP2 layout are held to the agree bound with the expert
              flips counted, and one MoE layer sharded against the same layer
-             whole (EP2: exact; TP2: the kernel tolerance). Then one NCCL
-             rank serves TP2/EP2 captured and eager: equal tokens
+             whole (EP2: exact; TP2: the kernel tolerance). A last gloo run
+             serves resident INT4 under the switching TP2 -> EP2 plan with
+             replication and prefetch at the replication phase's capacity
+             factor: the ranks' replica sets equal, each rank holding half
+             of the slots, rows hit, and its teacher-forced logits within
+             the same-expert bound of that phase's one-rank reference. Then
+             one NCCL rank serves TP2/EP2 captured and eager: equal tokens
 
 Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
 default on the card; ``repro_torch.serving.step_cache``). The serve phase,
@@ -155,15 +180,19 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # families phase: (name, layers kept or None for all, continuous runs as
 # prefix-cache settings, agree bounds as AGREE_TOL). Mixtral-8x7B is
 # 93.4 GB in bf16: its first 16 of 32 layers (47.0 GB) fit the 80 GB card.
+# The first 8 of Mixtral, 24 of Qwen3-30B-A3B's 48 and 21 of Gemma-2-9B's
+# 42 keep the whole script well inside its time limit (the replication
+# phase and the replicated two-rank run added ~2.5 min; one full run took
+# 1068 s of the 1200 allowed).
 # The agree bounds with each path routing on its own sit 2-4x above what
 # the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
 # 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
 # flips an expert where the two paths' router scores near-tie, which moves
 # its logits most (its steps without a flip read 0.018-0.019).
 FAMILIES = (
-    ("qwen3-moe-30b-a3b", None, (False, True), (0.15, 0.2)),
-    ("gemma2-9b", None, (True,), (0.1, 0.1)),
-    ("mixtral-8x7b", 16, (), (0.35, 0.6)),
+    ("qwen3-moe-30b-a3b", 24, (False, True), (0.15, 0.2)),
+    ("gemma2-9b", 21, (True,), (0.1, 0.1)),
+    ("mixtral-8x7b", 8, (), (0.35, 0.6)),
 )
 
 
@@ -237,6 +266,18 @@ def timed_row(fn, library, reps: int) -> dict:
 def kernel_times(fn, reps: int) -> dict:
     """A kernel with no library yardstick, by graph and eagerly."""
     return {"ms": graph_ms(fn, reps), "eager_ms": cuda_ms(fn, reps), "host_us": host_us(fn)}
+
+
+def launch_shapes() -> dict:
+    """``_build.SHAPE_COUNTS`` as ``{kernel: {shape: launches}}``: each
+    wrapper's launches by the shape it gives (see ``_build``) since the
+    counts were last set to 0, replays of captured steps included."""
+    from repro_torch.kernels import _build
+
+    out = {}
+    for (kernel, shape), n in _build.SHAPE_COUNTS.items():
+        out.setdefault(kernel, {})[shape] = n
+    return out
 
 
 def variant_counts() -> dict:
@@ -804,7 +845,7 @@ def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER) -> dict:
             raise AssertionError(f"{phase} ({name}): the captured run captured or replayed nothing: {res['steps']}")
         if not capture and res["steps"]["captures"]:
             raise AssertionError(f"{phase} ({name}): the eager run captured a step")
-        emit({"phase": phase, "run": name, **{k: v for k, v in res.items() if k != "tokens"}})
+        emit({"phase": phase, "run": name, **{k: v for k, v in res.items() if k not in ("tokens", "shapes")}})
         results.append(res)
         eng.close()
         del eng
@@ -813,8 +854,8 @@ def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER) -> dict:
     for r in results:
         if r["tokens"] != main["tokens"]:
             raise AssertionError(f"{phase} ({name}): captured and eager tokens differ")
-        for k in ("launches", "variants", "dispatch"):
-            if r[k] != main[k]:
+        for k in ("launches", "variants", "dispatch", "shapes"):
+            if r.get(k) != main.get(k):
                 raise AssertionError(f"{phase} ({name}): {k} differ, captured {main[k]} against {r[k]}")
     keys = ("wall_s", "tokens_per_s", "decode_ms_per_step", "decode_step_ms_mean", "prefill_ms",
             "max_memory_allocated")
@@ -1032,10 +1073,10 @@ def _ep_halves(*records, n: int = 2):
 
     local = moe._moe_local
 
-    def parts(x_flat, moe_p, cfg, backend=None, axes=None):
+    def parts(x_flat, moe_p, cfg, backend=None, axes=None, rep=None):
         if x_flat.shape[0] % n:
-            return local(x_flat, moe_p, cfg, backend=backend, axes=axes)
-        outs = [local(x, moe_p, cfg, backend=backend, axes=axes) for x in x_flat.chunk(n)]
+            return local(x_flat, moe_p, cfg, backend=backend, axes=axes, rep=rep)
+        outs = [local(x, moe_p, cfg, backend=backend, axes=axes, rep=rep) for x in x_flat.chunk(n)]
         for rec in records:
             rec[-n:] = [torch.cat(rec[-n:]) if isinstance(rec[-1], torch.Tensor) else sum(rec[-n:])]
         return torch.cat([o[0] for o in outs]), sum(o[1] for o in outs) / n, torch.cat([o[2] for o in outs])
@@ -1146,6 +1187,7 @@ def _serve_static(eng, cfg, name: str) -> dict:
     comps = eng.run()
     wall = time.perf_counter() - t0
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    shapes = launch_shapes()
     variants = check_variants(name, launches)
     if len(comps) != N_REQUESTS or any(len(c.tokens) != MAX_NEW for c in comps):
         raise AssertionError(f"{name}: expected {N_REQUESTS} completions of {MAX_NEW} tokens")
@@ -1167,7 +1209,7 @@ def _serve_static(eng, cfg, name: str) -> dict:
         "restore_wait_ms": st.restore_wait_ms, "restore_overlap_ms": st.restore_overlap_ms,
         "async_restores": st.async_restores, "resident_bytes_saved": st.resident_bytes_saved,
         "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
-        "dispatch": dispatch, "tokens": [c.tokens for c in comps],
+        "dispatch": dispatch, "shapes": shapes, "tokens": [c.tokens for c in comps],
     }
 
 
@@ -1341,7 +1383,7 @@ def phase_transitions(cfg, params) -> dict:
             raise AssertionError("transitions: the sync restore's leaves differ from the async restore's")
         emit({"phase": "transitions", "async_transitions": asy, "model": cfg.name,
               "reduced": {"num_layers": TRANSITION_LAYERS}, "groups_checked_against_numpy": checked,
-              **{k: v for k, v in res.items() if k != "tokens"}})
+              **{k: v for k, v in res.items() if k not in ("tokens", "shapes")}})
         runs[asy] = res
         eng.close()
         del eng, leaves
@@ -1350,6 +1392,350 @@ def phase_transitions(cfg, params) -> dict:
     if runs[True]["tokens"] != runs[False]["tokens"]:
         raise AssertionError("transitions: async tokens differ from the sync ones")
     return runs[True]
+
+
+# replication phase: hot-expert replication and predictive prefetch on
+# DeepSeekMoE-16B at full width and depth (ROADMAP A.4)
+REPL_REPLICAS = 4  # extra replica slots: 64 experts -> 68 slots
+REPL_INTERVAL = 8  # tracked decode steps between rebalances
+# the doctored runs' capacity factor: E / top_k gives every expert the
+# capacity of all the tokens, so nothing drops. (At 8.0, which drops nothing
+# at the reduced config's 4 experts top-2, DeepSeek's capacity is 0.75 of
+# the tokens, and experts 0 and 2-5 each receive every token.)
+REPL_CAPACITY = 64 / 6
+REPL_TOL = 1e-3  # rel L2, replicated against unreplicated teacher-forced logits (replicas are copies)
+PREFETCH_TOP_P = 0.9
+REPLICATED = "deepseek-moe-16b replicated"  # the model of a kernel row at a replicated (slot) shape
+
+
+def _doctored_router(cfg):
+    """The router of ``tests/test_replication.py`` at full width: expert 1
+    projects onto +v and every other expert onto -v, so the experts other
+    than 1 tie and the lowest ids win: expert 0 is in every token's top-2
+    (and 0, 2-5 in every token's top-6), a guaranteed hot expert."""
+    import numpy as np
+    import torch
+
+    L, d, E = cfg.num_layers, cfg.d_model, cfg.n_routed_experts
+    v = torch.from_numpy(np.random.default_rng(SEED + 5).normal(size=d).astype(np.float32))
+    r = (-v)[None, :, None].expand(L, d, E).clone()
+    r[:, :, 1] = v
+    return r.to("cuda", torch.bfloat16)
+
+
+_SMI = []
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the card, read once."""
+    if not _SMI:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True)
+        _SMI.append(smi.stdout.strip().splitlines()[0])
+    return _SMI[0]
+
+
+def _forced_logits(cfg, params, tokens, backend, feed=None, plan=None) -> list:
+    """Prefill of ``tokens`` and MAX_NEW - 1 decode steps under ``plan``,
+    each step fed the argmax of ``feed``'s logits at that step (its own
+    with None); every step's float32 logits on the host."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    with torch.inference_mode():
+        logits, cache = prefill(params, cfg, {"tokens": tokens}, tokens.shape[1] + MAX_NEW + 1, backend=backend,
+                                plan=plan)
+        out = [logits.float().cpu()]
+        for step in range(MAX_NEW - 1):
+            tok = (feed or out)[step].argmax(-1)[:, None].cuda()
+            logits, cache = decode_step(params, cfg, tok, cache, backend=backend, plan=plan)
+            out.append(logits.float().cpu())
+    return out
+
+
+def _first_batch(cfg):
+    """The serve traffic's first batch, padded as the engine pads it."""
+    import torch
+
+    from repro_torch.serving.scheduler import FifoScheduler
+
+    sched = FifoScheduler(max_batch=MAX_BATCH)
+    for p in prompts(cfg)[:MAX_BATCH]:
+        sched.submit(p, MAX_NEW)
+    toks, _ = sched.pad_batch(sched.next_batch())
+    return torch.as_tensor(toks, dtype=torch.long, device="cuda")
+
+
+def _replication_stats(eng, res) -> dict:
+    """A served run's replication and prefetch accounting."""
+    st, rep = eng.stats, eng._replication
+    return {
+        "rebalances": st.replication_rebalances, "routing_steps": st.routing_steps,
+        "degrees": list(rep.degrees) if rep is not None else None, "order": list(rep.order) if rep is not None else None,
+        "slots": rep.total_slots if rep is not None else eng.cfg.n_routed_experts,
+        "rebalance_ms_total": st.transition_ms_total if eng.session is None else None,
+        "peak_gb": res["max_memory_allocated"] / 1e9, "decode_ms_per_step": res["decode_ms_per_step"],
+        "prefill_ms": res["prefill_ms"], "transition_ms_total": st.transition_ms_total,
+        "restore_wait_ms": st.restore_wait_ms,
+        **{k: getattr(st, k) for k in ("prefetch_predicted", "prefetch_hits", "prefetch_misses", "prefetch_bytes",
+                                       "prefetch_hidden_ms", "prefetch_exposed_ms", "prefetch_errors")},
+        "card": card_line(),
+    }
+
+
+def _replication_reference(cfg, params, tokens) -> dict:
+    """The teacher-forced logits and expert choices of ``tokens`` on one
+    rank (the reference of the sharded phase's replicated run)."""
+    seen = []
+    with _routing(seen):
+        logits = _forced_logits(cfg, params, tokens, "hopper")
+    return dict(tokens=tokens.cpu().numpy(), logits=logits, experts=[e.cpu() for e in seen])
+
+
+UNPRINTED = ("tokens", "dispatch", "variants", "shapes")  # a served run's keys its JSON line leaves out
+
+
+def phase_replication(cfg, params, trans, shapes) -> dict:
+    """Hot-expert replication and predictive prefetch at full width and
+    depth. (d) prefetch on the resident phase's switching session, sync and
+    async, against prefetch off, and dense INT4 restores from staged rows at
+    the transitions phase's 4 layers; (b) free routing (capacity factor
+    1.25) with replication, hopper against ref on the replicated layout;
+    then, with the doctored router at capacity factor E / k (nothing drops):
+    (c) resident INT4 with replication against a dense engine on the
+    round-tripped weights, and (a) the replicated engine eager and captured
+    against the unreplicated one, tokens and teacher-forced logits. Each
+    run's kernel launches are recorded by shape in ``shapes`` (kernel ->
+    shape -> run -> launches in that run alone, captured replays
+    included). Returns the reference the sharded phase's replicated run is
+    held to: the teacher-forced logits and expert choices of these weights
+    (the INT4 round trip the resident phase left) with the model's own
+    router at capacity factor E / k, where nothing drops, so that each half
+    of the tokens routed with its own capacity (EP2's function) and any
+    replica set compute the same function."""
+    import torch
+
+    from repro_torch.serving import InferenceEngine
+
+    L = cfg.num_layers
+    batches, steps = math.ceil(N_REQUESTS / MAX_BATCH), MAX_NEW - 1
+    gmm = batches * (1 + steps) * 3 * L
+    cfg_nd = dataclasses.replace(cfg, capacity_factor=REPL_CAPACITY)
+    tokens = _first_batch(cfg)
+    out = _replication_reference(cfg_nd, params, tokens)
+
+    def record(run, res):
+        for kernel, by_shape in res["shapes"].items():
+            for key, n in by_shape.items():
+                shapes.setdefault(kernel, {}).setdefault(key, {})[run] = n
+
+    def check_rebalanced(name, eng):
+        rep = eng._replication
+        freqs = eng._tracker.frequencies()
+        hot = int(freqs.argmax())
+        if eng.stats.replication_rebalances < 1 or rep is None:
+            raise AssertionError(f"replication ({name}): no rebalance in {eng.stats.routing_steps} tracked steps")
+        if rep.degrees[hot] != max(rep.degrees) or rep.total_slots != cfg.n_routed_experts + REPL_REPLICAS:
+            raise AssertionError(f"replication ({name}): hot expert {hot} holds degree {rep.degrees[hot]} of "
+                                 f"{rep.degrees}")
+        if eng.params["layers"]["moe"]["wi_gate"].shape[1] != rep.total_slots:
+            raise AssertionError(f"replication ({name}): the expert leaves are not in the replica set's slots")
+
+    # (d) prefetch on the resident session; the same path dense at 4 layers
+    pf = {}
+    for asy in (True, False):
+        for on in (False, True):
+            eng = _session(cfg).engine(params, max_batch=MAX_BATCH, resident_int4=True, use_int4_transition=True,
+                                       async_transitions=asy, prefetch=on, prefetch_top_p=PREFETCH_TOP_P)
+            name = f"prefetch resident (async={asy}, prefetch={on})"
+            res = _serve_static(eng, cfg, name)
+            record(name, res)
+            if res["launches"].get("int4_dequant") != gmm:
+                raise AssertionError(f"{name}: launches {res['launches']}")
+            pf[asy, on] = dict(res, **_replication_stats(eng, res))
+            emit({"phase": "replication", "run": name, **{k: v for k, v in pf[asy, on].items()
+                                                          if k not in UNPRINTED}})
+            eng.close()
+            del eng
+            _free()
+        if pf[asy, True]["tokens"] != pf[asy, False]["tokens"]:
+            raise AssertionError(f"replication: prefetch-on tokens differ from prefetch-off (async={asy})")
+        if pf[asy, True]["prefetch_hits"] <= 0 or pf[asy, True]["prefetch_errors"]:
+            raise AssertionError(f"replication: prefetch (async={asy}) hit nothing: {pf[asy, True]}")
+    if pf[True, True]["tokens"] != pf[False, True]["tokens"]:
+        raise AssertionError("replication: async prefetch tokens differ from the sync ones")
+    cfg4 = dataclasses.replace(cfg, num_layers=TRANSITION_LAYERS)
+    params4 = dict(params, layers=_first_layers(params["layers"], TRANSITION_LAYERS))
+    for asy in (True, False):
+        eng = _session(cfg4).engine(params4, max_batch=MAX_BATCH, use_int4_transition=True, async_transitions=asy,
+                                    prefetch=True, prefetch_top_p=PREFETCH_TOP_P)
+        name = f"prefetch dense 4 layers (async={asy})"
+        res = _serve_static(eng, cfg4, name)
+        record(name, res)
+        row = dict(res, **_replication_stats(eng, res), reduced={"num_layers": TRANSITION_LAYERS},
+                   prefetch_off_transition_ms_total=trans["transition_ms_total"])
+        emit({"phase": "replication", "run": name, **{k: v for k, v in row.items()
+                                                      if k not in UNPRINTED}})
+        if res["tokens"] != trans["tokens"] or row["prefetch_hits"] <= 0:
+            raise AssertionError(f"{name}: tokens differ from the transitions phase's, or nothing hit: {row}")
+        eng.close()
+        del eng
+        _free()
+    del params4
+
+    # (b) free routing with replication: hopper against ref on the replicated layout
+    eng = InferenceEngine(cfg, params, max_batch=MAX_BATCH, replicate_experts=REPL_REPLICAS,
+                          rebalance_interval=REPL_INTERVAL)
+    res = _serve_static(eng, cfg, "replication (free routing)")
+    record("free routing", res)
+    free = dict(res, **_replication_stats(eng, res))
+    check_rebalanced("free routing", eng)
+    slot_params, plan = eng.params, eng._sharding_for("decode")
+    eng.close()
+    del eng
+    hop_experts, ref_experts = [], []
+    with _routing(hop_experts):
+        hop = _forced_logits(cfg, slot_params, tokens, "hopper", plan=plan)
+    with _routing(ref_experts):
+        ref = _forced_logits(cfg, slot_params, tokens, "ref", feed=hop, plan=plan)
+    own = _errors(hop, ref)
+    del ref, ref_experts
+    with _routing([], hop_experts):
+        ref = _forced_logits(cfg, slot_params, tokens, "ref", feed=hop, plan=plan)
+    same = _errors(hop, ref)
+    del slot_params, hop, ref, hop_experts
+    _free()
+    emit({"phase": "replication", "run": "free routing (capacity factor 1.25)",
+          **{k: v for k, v in free.items() if k not in UNPRINTED},
+          "agree": own, "agree_same_experts": same, "same_experts_rel_l2_tol": AGREE_SAME_EXPERTS_TOL})
+    if max(same["rel_l2_err_per_step"]) > AGREE_SAME_EXPERTS_TOL:
+        raise AssertionError(f"replication (free routing): hopper and ref differ on the same experts: {same}")
+
+    # the doctored router, nothing dropped (the router leaf is overwritten
+    # in place: no later phase serves these weights)
+    params["layers"]["moe"]["router"].copy_(_doctored_router(cfg))
+
+    # (c) resident INT4 with replication, then a dense engine on the round-tripped weights
+    def make_resident(capture):
+        return InferenceEngine(cfg_nd, params, max_batch=MAX_BATCH, resident_int4=True,
+                               replicate_experts=REPL_REPLICAS, rebalance_interval=REPL_INTERVAL,
+                               capture_steps=capture)
+
+    eng = make_resident(True)
+    res = _serve_static(eng, cfg_nd, "replication (resident)")
+    record("resident", res)
+    resident = dict(res, **_replication_stats(eng, res))
+    check_rebalanced("resident", eng)
+    slots = eng._replication.total_slots
+    want_g = slots * cfg.d_model * cfg.moe_d_ff // 128
+    if res["launches"].get("int4_dequant") != gmm or not any(
+            key[0] == want_g for key in res["shapes"].get("int4_dequant", {})):
+        raise AssertionError(f"replication (resident): no dequant launch at the {slots}-slot leaf: {res['launches']}")
+    backups = eng._tx._backups
+    eng.close()
+    del eng
+    _round_trip_in_place(params, backups)
+    del backups
+    _free()
+    emit({"phase": "replication", "run": "resident", **{k: v for k, v in resident.items()
+                                                         if k not in UNPRINTED}})
+
+    # (a) the unreplicated reference, then the replicated engine eager and captured
+    eng = InferenceEngine(cfg_nd, params, max_batch=MAX_BATCH)
+    base = _serve_static(eng, cfg_nd, "replication (unreplicated)")
+    record("unreplicated", base)
+    eng.close()
+    del eng
+    if base["tokens"] != resident["tokens"]:
+        raise AssertionError("replication: the resident replicated engine's tokens differ from the dense engine's")
+    base_experts = []
+    with _routing(base_experts):
+        base_logits = _forced_logits(cfg_nd, params, tokens, "hopper")
+    emit({"phase": "replication", "run": "unreplicated (doctored router, no drops)",
+          **{k: v for k, v in base.items() if k not in UNPRINTED}, "card": card_line()})
+
+    sets = set()  # the replica set and decode plan each run ended in
+
+    def serve(eng):
+        res = _serve_static(eng, cfg_nd, "replication (doctored)")
+        check_rebalanced("doctored", eng)
+        sets.add((eng._replication, eng._sharding_for("decode")))
+        return dict(res, **_replication_stats(eng, res))
+
+    def make(capture):
+        return InferenceEngine(cfg_nd, params, max_batch=MAX_BATCH, replicate_experts=REPL_REPLICAS,
+                               rebalance_interval=REPL_INTERVAL, capture_steps=capture)
+
+    main = ab_runs("replication", "doctored_replicated", make, serve)
+    record("doctored replicated, captured", main)
+    if main["tokens"] != base["tokens"]:
+        raise AssertionError("replication: the replicated engine's greedy tokens differ from the unreplicated one's")
+    if len(sets) != 1:
+        raise AssertionError(f"replication: the doctored runs ended in different replica sets: {sets}")
+    # the teacher-forced logits on the weights laid out in that set's slots
+    from repro_torch.models.moe import slot_weights
+
+    (rep, plan), = sets
+    moe = params["layers"]["moe"]
+    slot_params = dict(params, layers=dict(params["layers"], moe=dict(moe, **{
+        n: slot_weights(moe[n], rep, dim=1) for n in ("wi_gate", "wi_up", "wo")})))
+    got = _forced_logits(cfg_nd, slot_params, tokens, "hopper", feed=base_logits, plan=plan)
+    del slot_params
+    _free()
+    l2 = [((g - w).norm() / w.norm()).item() for g, w in zip(got, base_logits)]
+    dmax = max((g - w).abs().max().item() for g, w in zip(got, base_logits))
+    decode = {"replicated": main["decode_ms_per_step"], "unreplicated": base["decode_ms_per_step"]}
+    emit({"phase": "replication", "run": "doctored_replicated_vs_unreplicated", "tokens_equal": True,
+          "teacher_forced_rel_l2_per_step": l2, "teacher_forced_max_abs_delta": dmax, "rel_l2_tol": REPL_TOL,
+          "decode_ms_per_step": decode, "prefill_ms": {"replicated": main["prefill_ms"],
+                                                       "unreplicated": base["prefill_ms"]},
+          "rebalance_ms_total": main["rebalance_ms_total"], "degrees": main["degrees"], "card": card_line()})
+    if max(l2) > REPL_TOL:
+        raise AssertionError(f"replication: replicated logits differ from the unreplicated ones: {l2}")
+    del got, base_logits, base_experts
+    return out
+
+
+def replication_kernel_rows(cfg, rows, shapes) -> None:
+    """The grouped matmul and the dequant against their plain versions at
+    each shape the replication phase's runs sent them that the kernels
+    phase has no row for (the slot counts, the slot leaves, the barrier's
+    assembled leaf), each with its launches in each run that sent it
+    (``launches_replication``: run -> launches)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    by_name = {r["name"]: r for r in rows}
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def randn(*shape, std=1.0):  # on the card: a weight of 68 slots is 196M values
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    added = []
+    for key, per_run in sorted(shapes.get("grouped_matmul", {}).items()):
+        E, C, K, N = key
+        if E == cfg.n_routed_experts and C in (8, 16, 64):
+            continue  # the kernels phase's rows
+        row = gmm_case(randn, REPLICATED, E, C, K, N, "wi" if K == cfg.d_model else "wo")
+        row["launches_replication"] = per_run
+        by_name["grouped_matmul"]["also"].append(row)
+        added.append(row)
+        torch.cuda.empty_cache()
+    one_layer = cfg.n_routed_experts * cfg.d_model * cfg.moe_d_ff // 128
+    for key, per_run in sorted(shapes.get("int4_dequant", {}).items()):
+        G, gs, dt = key
+        if G == one_layer and gs == 128 and dt == "bfloat16":
+            continue  # the kernels phase's main row
+        row = dequant_case(rng, dev, G, gs, getattr(torch, dt), REPLICATED)
+        row["launches_replication"] = per_run
+        by_name["int4_dequant"]["also"].append(row)
+        added.append(row)
+        torch.cuda.empty_cache()
+    emit({"phase": "replication_kernels", "rows": added})
 
 
 def phase_families() -> dict:
@@ -1376,7 +1762,8 @@ def phase_families() -> dict:
               "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated(),
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "reduced": ({"num_layers": layers, "of": get_config(name).num_layers,
-                           "why": "the full depth's bf16 weights do not fit one 80 GB card"} if layers else None)})
+                           "why": "the script's time limit (Mixtral-8x7B's full depth does not fit one 80 GB "
+                                  "card either)"} if layers else None)})
         serve = phase_serve(cfg, params, "families")
         agree = phase_agree(cfg, params, serve, "families_agree", tol)
         cont = phase_continuous(cfg, params, "families", caches) if caches else None
@@ -1396,50 +1783,7 @@ def phase_families() -> dict:
 
 # sharded phase: DeepSeekMoE-16B on two ranks of a gloo group, both on the
 # one card (NCCL refuses two ranks on one device), then one NCCL rank
-# the kernels' wrappers as ``kernels.ops`` calls them
-SPIED = {"_flash_hopper": "flash_attention", "_paged_hopper": "paged_attention",
-         "_prefix_hopper": "prefix_paged_attention", "_gmm_hopper": "grouped_matmul",
-         "_dequant_hopper": "int4_dequant"}
 SHARDED_RANK = "deepseek-moe-16b rank of 2"  # the model of a kernel row at a sharded per-rank shape
-
-
-def _launch_key(kernel: str, args, kw) -> tuple:
-    """The shape a launch is keyed by: flash (B, S, Hq, Hkv, hd, window,
-    softcap), the paged and prefix kernels (B, C, Hq, Hkv, hd), gmm
-    (E, C, K, N), dequant (G, group size, output dtype)."""
-    if kernel == "flash_attention":
-        (B, Hq, S, hd), Hkv = args[0].shape, args[1].shape[1]
-        return B, S, Hq, Hkv, hd, kw.get("window", 0), kw.get("softcap", 0.0)
-    if kernel == "grouped_matmul":
-        return (*args[0].shape, args[1].shape[-1])
-    if kernel == "int4_dequant":
-        return args[0].shape[0], 2 * args[0].shape[1], str(kw["out_dtype"]).split(".")[1]
-    B, C, Hq, hd = args[0].shape
-    return B, C, Hq, args[1].shape[2], hd
-
-
-@contextlib.contextmanager
-def _launch_shapes(seen: dict):
-    """Inside the block every kernel call through ``kernels.ops`` adds one
-    to ``seen[kernel][shape]`` (``_launch_key``); shapes only, so that it
-    syncs nothing and may run under capture."""
-    from repro_torch.kernels import ops
-
-    saved = {name: getattr(ops, name) for name in SPIED}
-
-    def spy(kernel, fn):
-        def call(*args, **kw):
-            seen.setdefault(kernel, collections.Counter())[_launch_key(kernel, args, kw)] += 1
-            return fn(*args, **kw)
-        return call
-
-    for name, fn in saved.items():
-        setattr(ops, name, spy(SPIED[name], fn))
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(ops, name, fn)
 
 
 SHARDED_TIMEOUT_S = 600.0
@@ -1452,6 +1796,14 @@ SHARDED_PLANS = {  # name -> (attn, expert prefill, expert decode, mechanism, en
     "switch_int4_resident": ("TP2", "EP2", "TP2", "int4_upload", {"use_int4_transition": True, "resident_int4": True}),
 }
 SHARDED_LOGITS = ("tp2_tp2", "tp2_ep2_serial", "tp2_ep2_k2")  # teacher-forced against the one-rank run
+# replication and prefetch on two ranks: the switching INT4 plan (experts TP2
+# in prefill, EP2 in decode) from resident INT4 experts (two dense ranks'
+# restores with replication do not fit the one card together) at the
+# replication phase's capacity factor (nothing drops), held to that phase's
+# one-rank reference
+SHARDED_REPLICATED = ("TP2", "TP2", "EP2", "int4_upload",
+                      {"use_int4_transition": True, "resident_int4": True, "replicate_experts": REPL_REPLICAS,
+                       "rebalance_interval": REPL_INTERVAL, "prefetch": True, "prefetch_top_p": PREFETCH_TOP_P})
 
 
 def _hap(plan):
@@ -1483,8 +1835,10 @@ def _teacher_forced(cfg, params, plan, ref) -> dict:
 
     ep = plan.ffn_mode == "ep"
     tokens = torch.as_tensor(ref["tokens"], dtype=torch.long, device="cuda")
-    hop, want = ref["logits"], ref["logits_ep2" if ep else "logits"]
-    whole = ref["experts_ep2" if ep else "experts"]
+    # under EP the function of one rank routing each half of the tokens
+    # with its own capacity where the reference has it; else the one rank's
+    hop, want = ref["logits"], ref.get("logits_ep2", ref["logits"]) if ep else ref["logits"]
+    whole = ref.get("experts_ep2", ref["experts"]) if ep else ref["experts"]
 
     def run(seen, drops, forced=None):
         with torch.inference_mode(), _routing(seen, forced), _dropping(drops):
@@ -1581,13 +1935,12 @@ def _serve_rank(eng, reqs, continuous: bool) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    shapes = {}
     t0 = time.perf_counter()
-    with _launch_shapes(shapes):
-        comps = eng.serve_continuous() if continuous else eng.run()
+    comps = eng.serve_continuous() if continuous else eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    shapes = launch_shapes()
     variants = check_variants("sharded", launches)
     refs = ref_ops(dispatch)
     if refs:
@@ -1610,7 +1963,7 @@ def _serve_rank(eng, reqs, continuous: bool) -> dict:
     return res
 
 
-def sharded_rank(mesh, ref_path: str, captures=(False,), only=None) -> dict:
+def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path=None) -> dict:
     """One rank of the sharded phase (``repro_torch.sharding.launch``): the
     serve traffic through ``run()`` under each plan of ``SHARDED_PLANS`` (or
     ``only``), the teacher-forced logits, the one-layer checks and the
@@ -1677,10 +2030,46 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None) -> dict:
             _free()
     del params
     _free()
+    if rep_ref_path is not None:
+        out["runs"]["replicated_switch_int4"], out["replicated_logits"] = _replicated_rank(mesh, rep_ref_path)
     return out
 
 
-def phase_sharded(serve, cont, agree_ref) -> dict:
+def _replicated_rank(mesh, rep_ref_path: str):
+    """One rank of the replicated two-rank run: ``SHARDED_REPLICATED`` on
+    this rank's shard at the replication phase's capacity factor; then the
+    teacher-forced logits under the decode layout the run ended in (EP2,
+    this rank's half of the slots of resident INT4 experts)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import HAPSession
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), capacity_factor=REPL_CAPACITY)
+    ref = torch.load(rep_ref_path, weights_only=False)
+    hap = _hap(SHARDED_REPLICATED)
+    splan = hap.to_sharding_plan(mesh, cfg, phase="prefill")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda", shard=(splan, mesh.rank))
+    eng = HAPSession(cfg, "h100", mesh.size, source=hap, mesh=mesh, prompt_bucket=64).engine(
+        params, max_batch=MAX_BATCH, capture_steps=False, **SHARDED_REPLICATED[4])
+    del params  # the engine alone holds them: old leaves free as new ones land
+    run = _serve_rank(eng, [(p, MAX_NEW) for p in prompts(cfg)], False)
+    st, rep = eng.stats, eng._replication
+    run.update(steps=step_stats(eng), rebalances=st.replication_rebalances, routing_steps=st.routing_steps,
+               degrees=list(rep.degrees) if rep is not None else None,
+               slots_on_rank=int(eng.params["layers"]["moe"]["wi_gate"].shape[1]),
+               **{k: getattr(st, k) for k in ("prefetch_predicted", "prefetch_hits", "prefetch_misses",
+                                              "prefetch_bytes", "prefetch_hidden_ms", "prefetch_exposed_ms",
+                                              "prefetch_errors", "restore_wait_ms")})
+    logits = _teacher_forced(cfg, eng.params, eng._sharding_for("decode"), ref)
+    eng.close()
+    del eng
+    _free()
+    return run, logits
+
+
+def phase_sharded(serve, cont, agree_ref, repl) -> dict:
     """DeepSeekMoE-16B at full width and depth on two ranks that share the
     card over a gloo group, each holding only its shard; then one NCCL rank
     with its steps captured. Each run is held to the one-rank serve and
@@ -1692,10 +2081,12 @@ def phase_sharded(serve, cont, agree_ref) -> dict:
     from repro_torch.sharding.launch import spawn
 
     work = tempfile.mkdtemp(prefix="sharded_")
-    ref_path = os.path.join(work, "ref.pt")
+    ref_path, rep_ref_path = os.path.join(work, "ref.pt"), os.path.join(work, "rep_ref.pt")
     torch.save(agree_ref, ref_path)
+    torch.save(repl, rep_ref_path)
     t0 = time.perf_counter()
-    ranks = spawn("chip_smoke:sharded_rank", 2, backend="gloo", args={"ref_path": ref_path},
+    ranks = spawn("chip_smoke:sharded_rank", 2, backend="gloo", args={"ref_path": ref_path,
+                                                                      "rep_ref_path": rep_ref_path},
                   timeout=SHARDED_TIMEOUT_S, pythonpath=(ROOT,))
     two_rank_s = time.perf_counter() - t0
     r0, r1 = ranks
@@ -1729,7 +2120,13 @@ def phase_sharded(serve, cont, agree_ref) -> dict:
             for kernel, by_shape in rr["shapes"].items():
                 for key, n in by_shape.items():
                     shapes.setdefault(kernel, {}).setdefault(key, {}).setdefault(name, [0, 0])[r] = n
-        emit({"phase": "sharded", "run": name, "plan": list(SHARDED_PLANS.get(name, ("TP2", "EP2", "", "reshard", {}))[:4]),
+        plan = SHARDED_REPLICATED if name.startswith("replicated") else SHARDED_PLANS.get(
+            name, ("TP2", "EP2", "", "reshard", {}))
+        extra = {k: [run[k], other[k]] for k in ("rebalances", "routing_steps", "degrees", "slots_on_rank",
+                                                 "prefetch_predicted", "prefetch_hits", "prefetch_misses",
+                                                 "prefetch_bytes", "prefetch_hidden_ms", "prefetch_exposed_ms",
+                                                 "restore_wait_ms") if k in run}
+        emit({"phase": "sharded", "run": name, "plan": list(plan[:4]), **extra,
               "two_ranks_one_card_gloo": True,
               "token_agreement_with_one_rank": _agreement(run["tokens"], want),
               "tokens_equal_one_rank": run["tokens"] == want,
@@ -1742,6 +2139,22 @@ def phase_sharded(serve, cont, agree_ref) -> dict:
                                                  "async_restores") if k in run}})
     if r0["runs"]["switch_reshard"]["reshard_bytes"] <= 0:
         raise AssertionError("sharded (switch_reshard): the reshard moved nothing between the ranks")
+    rr = [r["runs"]["replicated_switch_int4"] for r in ranks]
+    if any(r["rebalances"] < 1 or r["prefetch_hits"] <= 0 or r["prefetch_errors"] for r in rr):
+        raise AssertionError(f"sharded (replicated): no rebalance or no prefetch hit: {rr}")
+    if rr[0]["degrees"] != rr[1]["degrees"] or rr[0]["slots_on_rank"] * 2 != sum(rr[0]["degrees"]):
+        raise AssertionError(f"sharded (replicated): the ranks' replica sets differ, or a rank holds other than "
+                             f"half the slots: {rr}")
+    lg, lg1 = r0["replicated_logits"], r1["replicated_logits"]
+    if (lg["rel_l2_err_per_step"], lg["same_experts_rel_l2_err_per_step"]) != (
+            lg1["rel_l2_err_per_step"], lg1["same_experts_rel_l2_err_per_step"]):
+        raise AssertionError("sharded (replicated): the two ranks' logits differ")
+    res = {"phase": "sharded_agree", "run": "replicated_switch_int4", "steps": MAX_NEW, **lg,
+           "reference": "the replication phase's one-rank run (INT4 round-tripped weights, no drops)",
+           "same_experts_rel_l2_tol": AGREE_SAME_EXPERTS_TOL, "two_ranks_one_card_gloo": True}
+    emit(res)
+    if not lg["finite"] or max(lg["same_experts_rel_l2_err_per_step"]) > AGREE_SAME_EXPERTS_TOL:
+        raise AssertionError(f"sharded (replicated): logits beyond the same-experts bound: {res}")
     for mode, chk in r0["one_layer"].items():
         chk1 = r1["one_layer"][mode]
         tol = 0.0 if mode == "ep" else KERNEL_ATOL + KERNEL_RTOL * chk["max_abs_ref"]
@@ -1787,6 +2200,7 @@ def phase_sharded(serve, cont, agree_ref) -> dict:
           "steps": cap["steps"], "launches": cap["launches"], "seconds": time.perf_counter() - t0,
           **{k: [cap[k], eag[k]] for k in ("wall_s", "decode_ms_per_step", "prefill_ms", "max_memory_allocated")}})
     os.remove(ref_path)
+    os.remove(rep_ref_path)
     os.rmdir(work)
     summary["nccl_seconds"] = time.perf_counter() - t0
     emit(summary)
@@ -1826,8 +2240,10 @@ def sharded_kernel_rows(cfg, rows, shapes) -> None:
                         got = launches.setdefault(run, [0] * len(per_rank))
                         launches[run] = [a + b for a, b in zip(got, per_rank)]
 
-    def randn(*shape, std=1.0):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def randn(*shape, std=1.0):  # on the card: a weight of 68 slots is 196M values
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
 
     scale = attn_of(cfg)[4]
     for kernel in ("flash_attention", "grouped_matmul", "int4_dequant"):
@@ -1886,10 +2302,14 @@ def main() -> int:
     # the resident phase overwrites the expert leaves with their INT4 round trip
     resident = timed("resident", phase_resident, cfg, params)
     trans = timed("transitions", phase_transitions, cfg, params)
+    # the replication phase doctors the router of these weights in place
+    repl_shapes = {}
+    repl = timed("replication", phase_replication, cfg, params, trans, repl_shapes)
     del params  # DeepSeek's weights, before the families' own
     families = timed("families", phase_families)
-    sharded = timed("sharded", phase_sharded, serve, cont, agree_ref)
+    sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl)
     timed("sharded_kernels", sharded_kernel_rows, cfg, rows, sharded["shapes"])
+    timed("replication_kernels", replication_kernel_rows, cfg, rows, repl_shapes)
     emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for
@@ -1915,9 +2335,7 @@ def main() -> int:
             if row.get("model") in families:
                 row["launches_families"] = r["launches_families"][row["model"]]
     emit({"kernels": rows})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -180,6 +180,27 @@ class HAPPlanner:
             mechanism=self._mechanism(w, i, j),
         )
 
+    def searched_replication(self, w: Workload, e_decode: ExpertStrategy,
+                             freqs, *, max_extra: int,
+                             max_degree: Optional[int] = None,
+                             window_steps: int = 64) -> tuple:
+        """Per-expert replica degrees as part of the strategy search.
+
+        ``replicate_experts`` stops being a fixed operator knob here: it
+        is only the CAP on extra slots, and the latency model decides how
+        many actually pay — each water-filled grant's bottleneck-load
+        gain (priced by ``expert_time``) is weighed against the
+        prefetch-bandwidth cost of keeping one more slot fresh
+        (``InferenceSimulator.prefetch_time``, amortized over the
+        ``window_steps`` rebalance window). Uniform routing grants
+        nothing; skewed routing concentrates degrees on the hot experts.
+        The engine's ``_maybe_rebalance`` consumes these degrees through
+        ``plan_replication(degrees=...)``.
+        """
+        return self.sim.replication_search(
+            w, e_decode, freqs, max_extra=max_extra,
+            max_degree=max_degree, window_steps=window_steps)
+
     def transition_between(self, w: Workload, e_from: ExpertStrategy,
                            e_to: ExpertStrategy):
         """Eq.-6 cost terms for switching the expert layout e_from→e_to

@@ -19,7 +19,7 @@ A brute-force cross-check lives in the tests.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -102,3 +102,164 @@ class HapIlp:
             raise ValueError("infeasible")
         (k, i, j), v = best
         return k, i, j, float(v)
+
+
+# ---------------------------------------------------------------------------
+# generic 0-1 ILP with one-hot blocks (used for tests & extensions)
+# ---------------------------------------------------------------------------
+class OneHotIlp:
+    """min c^T x + x^T Q x over one-hot blocks; exact DFS branch & bound.
+
+    blocks: list of index lists; exactly one variable per block is 1.
+    Q may couple variables across blocks (bilinear terms are handled by
+    direct evaluation during search — equivalent to the y_ij linearization
+    since blocks are one-hot).
+    """
+
+    def __init__(self, c: np.ndarray, Q: Optional[np.ndarray],
+                 blocks: Sequence[Sequence[int]],
+                 forbidden: Sequence[Tuple[int, int]] = ()):
+        self.c = np.asarray(c, float)
+        n = len(self.c)
+        self.Q = np.zeros((n, n)) if Q is None else np.asarray(Q, float)
+        self.blocks = [list(b) for b in blocks]
+        self.forbidden = set(tuple(sorted(f)) for f in forbidden)
+
+    def solve(self) -> Tuple[List[int], float]:
+        order = sorted(range(len(self.blocks)),
+                       key=lambda b: -len(self.blocks[b]))
+        best: Tuple[Optional[List[int]], float] = (None, np.inf)
+        chosen: List[int] = []
+
+        def lower_bound(next_pos: int, cur: float) -> float:
+            lb = cur
+            for bpos in range(next_pos, len(order)):
+                blk = self.blocks[order[bpos]]
+                lb += min(self.c[v] + min(0.0, self.Q[v].min()
+                                          + self.Q[:, v].min())
+                          for v in blk)
+            return lb
+
+        def value_with(v: int) -> float:
+            val = self.c[v]
+            for u in chosen:
+                val += self.Q[u, v] + self.Q[v, u]
+            val += self.Q[v, v]
+            return val
+
+        def dfs(pos: int, cur: float):
+            nonlocal best
+            if pos == len(order):
+                if cur < best[1]:
+                    best = (list(chosen), cur)
+                return
+            if lower_bound(pos, cur) >= best[1]:
+                return
+            blk = self.blocks[order[pos]]
+            cand = sorted(blk, key=lambda v: self.c[v])
+            for v in cand:
+                if any(tuple(sorted((u, v))) in self.forbidden
+                       for u in chosen):
+                    continue
+                chosen.append(v)
+                dfs(pos + 1, cur + value_with(v))
+                chosen.pop()
+
+        dfs(0, 0.0)
+        if best[0] is None:
+            raise ValueError("infeasible")
+        return sorted(best[0]), best[1]
+
+
+def replication_degrees(freqs: Sequence[float], extra_replicas: int,
+                        max_degree: Optional[int] = None) -> Tuple[int, ...]:
+    """Water-filling replica assignment for hot-expert replication.
+
+    Greedy: every expert starts at one replica; each of the
+    ``extra_replicas`` grants goes to the expert with the highest
+    per-replica load ``f_e / r_e``. For the minimize-the-max-load
+    objective the greedy exchange argument makes this exact (each grant
+    is the unique step that lowers the current maximum the most), so no
+    ILP extension is needed — the planner treats replication as a
+    post-pass on the selected expert strategy.
+
+    Ties break toward the lower expert id, keeping the plan
+    deterministic under identical frequency snapshots.
+    """
+    f = np.maximum(np.asarray(freqs, np.float64), 0.0)
+    n = f.size
+    if n == 0:
+        return ()
+    if f.sum() <= 0:
+        f = np.ones(n)
+    degrees = np.ones(n, dtype=np.int64)
+    for _ in range(max(int(extra_replicas), 0)):
+        load = f / degrees
+        if max_degree is not None:
+            load[degrees >= max_degree] = -1.0
+        e = int(np.argmax(load))
+        if load[e] < 0:
+            break
+        degrees[e] += 1
+    return tuple(int(d) for d in degrees)
+
+
+def searched_replication_degrees(
+    freqs: Sequence[float],
+    *,
+    gain_scale: float,
+    cost_per_replica: float,
+    max_extra: int,
+    max_degree: Optional[int] = None,
+) -> Tuple[int, ...]:
+    """Per-expert replica degrees SEARCHED against prefetch bandwidth.
+
+    Extends the water-filling above from "spend a fixed operator budget"
+    to "spend while it pays": each candidate grant still goes to the
+    bottleneck expert (highest per-replica load f_e / r_e), but it is
+    only accepted while the decode-time gain it buys exceeds the
+    bandwidth cost of keeping one more replica slot fresh.
+
+    ``gain_scale`` prices bottleneck load in seconds: the busiest EP
+    device's expert time is ~ t_expert_uniform * E * max_e(f_e / r_e),
+    so a grant that drops the max load by Δ is worth gain_scale * Δ
+    seconds per decode step (gain_scale = t_expert * n_experts, from
+    ``latency.InferenceSimulator``). ``cost_per_replica`` is the
+    amortized per-step prefetch-bandwidth seconds of re-pulling one
+    extra expert's weights every rebalance window
+    (``InferenceSimulator.prefetch_time``).
+
+    Under uniform routing the first grant lowers nothing (every other
+    expert still carries the old max) so the search grants zero replicas
+    — degrees deviate from all-ones only on genuinely skewed workloads,
+    which is exactly the "searched, not operator default" behavior the
+    planner needs. Marginal gains are non-increasing along the
+    water-filling path, so the greedy stop rule is optimal.
+    """
+    f = np.maximum(np.asarray(freqs, np.float64), 0.0)
+    n = f.size
+    if n == 0:
+        return ()
+    if f.sum() <= 0:
+        f = np.ones(n)
+    f = f / f.sum()
+    degrees = np.ones(n, dtype=np.int64)
+    for _ in range(max(int(max_extra), 0)):
+        load = f / degrees
+        grantable = load.copy()
+        if max_degree is not None:
+            grantable[degrees >= max_degree] = -1.0
+        e = int(np.argmax(grantable))
+        if grantable[e] < 0:
+            break
+        # the true bottleneck after this grant (a capped hotter expert
+        # keeps the max where it is — the grant then buys nothing)
+        new_max = max(
+            float(np.max(np.delete(load, e))) if n > 1 else 0.0,
+            f[e] / (degrees[e] + 1),
+        )
+        gain = gain_scale * (float(load.max()) - new_max)
+        if gain <= cost_per_replica:
+            break
+        degrees[e] += 1
+    return tuple(int(d) for d in degrees)

@@ -216,18 +216,99 @@ class InferenceSimulator:
              else (self.cfg.d_ff or self.cfg.d_model))
         return min(self.cfg.d_model, f / e.tp)
 
-    def expert_time(self, w: Workload, phase: str, e: ExpertStrategy) -> float:
-        """Per-layer expert-module time under strategy ``e``. (The
-        reference's resident-INT4 and replication terms price options of
-        the engine's routing tracker, which the port has not reached.)"""
+    def expert_time(self, w: Workload, phase: str, e: ExpertStrategy,
+                    resident_int4: bool = False,
+                    replication=None) -> float:
+        """Per-layer expert-module time under strategy ``e``.
+
+        ``resident_int4`` models INT4-resident serving: weight reads
+        shrink to INT4_BYTES_PER_PARAM per param but every invocation
+        pays the fused dequant of the weights it touches (HBM-bound:
+        nibble read + fp write — ``GroundTruth.dequant_time``).
+
+        ``replication`` (an ``ExpertReplication`` or per-expert degree
+        sequence) models hot-expert replication under EP: the busiest
+        device's load drops from max_e f_e to max_e f_e/r_e, which
+        scales the imbalance-inflated compute term down by that ratio.
+        """
         f = flops_mod.expert_flops_dev(self.cfg, w, phase, e)
         if f <= 0:
             return 0.0
+        f *= self._replication_factor(e, replication)
         by = flops_mod.expert_bytes(self.cfg, w, phase, e)
+        dequant = 0.0
+        if resident_int4 and self.cfg.is_moe:
+            from .transition import INT4_BYTES_PER_PARAM
+            wb = flops_mod.expert_weight_bytes(self.cfg, w.dtype_bytes) \
+                / (e.tp * e.ep)
+            w_params = wb / w.dtype_bytes
+            by = max(by - wb * (1 - INT4_BYTES_PER_PARAM / w.dtype_bytes),
+                     0.0)
+            dequant = self.gt.dequant_time(w_params)
         t = self.model.predict_compute(
             [f], [by], [w.tokens(phase) / max(self.n // (e.tp * e.ep), 1)],
             [w.ctx(phase)], [self.cfg.d_model], [self._expert_min_dim(e)])
-        return float(t[0])
+        return float(t[0]) + dequant
+
+    def _replication_factor(self, e: ExpertStrategy, replication) -> float:
+        """Hot-load reduction from replica degrees, in [1/max_deg, 1]."""
+        if replication is None or e.ep <= 1 or not self.cfg.is_moe:
+            return 1.0
+        degrees = getattr(replication, "degrees", replication)
+        degrees = [max(int(d), 1) for d in degrees]
+        if not degrees or all(d == 1 for d in degrees):
+            return 1.0
+        # Ideal water-filled case (the planner grants replicas to the
+        # actually-hot experts until per-replica loads equalize): the
+        # busiest slot's load drops by the slot-count ratio. A lower
+        # bound on the real skew, but monotone in the replica budget —
+        # which is what the ILP's relative comparisons need.
+        return len(degrees) / float(sum(degrees))
+
+    def prefetch_time(self, w: Workload, *, window_steps: int = 1) -> float:
+        """Amortized per-decode-step bandwidth cost of keeping ONE extra
+        replica slot fresh through predictive prefetch (DESIGN.md §5c).
+
+        A granted replica slot is one more expert whose weights the
+        engine re-pulls (INT4 wire format — nibbles plus per-group
+        scale/zero) every rebalance window; the pull shares the
+        host-device link with the predictive prefetch of next-layer
+        experts, so its bandwidth is the price replication pays. The
+        one-expert pull time (rho comm model over the INT4 bytes)
+        divided by the ``window_steps`` decode steps it amortizes over
+        is the per-step term the degree search weighs against the
+        bottleneck-load gain.
+        """
+        if not self.cfg.is_moe:
+            return 0.0
+        from .transition import INT4_BYTES_PER_PARAM
+        wb = flops_mod.expert_weight_bytes(self.cfg, w.dtype_bytes)
+        per_expert_params = (wb / w.dtype_bytes) / self.cfg.n_routed_experts
+        v = per_expert_params * INT4_BYTES_PER_PARAM
+        if v <= 0:
+            return 0.0
+        t = float(self.model.predict_comm([v])[0])
+        return t / max(int(window_steps), 1)
+
+    def replication_search(self, w: Workload, e: ExpertStrategy,
+                           freqs, *, max_extra: int,
+                           max_degree: Optional[int] = None,
+                           window_steps: int = 64) -> tuple:
+        """Search per-expert replica degrees: decode-time gain priced by
+        ``expert_time`` against the prefetch-bandwidth cost of each
+        extra slot (``prefetch_time``). ``max_extra`` is the operator
+        knob demoted to a CAP — the search decides how much of it
+        actually pays on this workload (uniform routing grants zero).
+        """
+        from .ilp import searched_replication_degrees
+        t_exp = self.expert_time(w, "decode", e)
+        return searched_replication_degrees(
+            freqs,
+            gain_scale=t_exp * self.cfg.n_routed_experts,
+            cost_per_replica=self.prefetch_time(w, window_steps=window_steps),
+            max_extra=max_extra,
+            max_degree=max_degree,
+        )
 
     def comm_time(self, w: Workload, phase: str, a: AttnStrategy,
                   e: ExpertStrategy, pipeline_chunks: int = 1) -> float:

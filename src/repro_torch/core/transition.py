@@ -14,13 +14,18 @@ on-device (the ``int4_dequant`` kernel).
 ``TransitionExecutor`` performs both mechanisms on torch tensors so the
 serving engine can switch strategies mid-request: ``reshard`` moves a
 leaf's slices between the ranks of a mesh (one all-to-all per layer slice
-for a TP <-> EP move; the identity on one device), and the INT4 restores
-upload each rank's target shard from the host backup.
+for a TP <-> EP move; the identity on one device), the INT4 restores
+upload each rank's target shard from the host backup, and ``reslot`` lays
+an expert leaf out in the slots of a replica set (hot-expert
+replication). Predictive prefetch (DESIGN.md §5c) stages single
+(layer, expert) rows of a backup on the device ahead of a restore
+(``prefetch_row``), and ``restore_with_rows`` / ``restore_packed_with_rows``
+then upload only the rows that were not staged.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +133,42 @@ def _tensors(value) -> List[torch.Tensor]:
     if isinstance(value, torch.Tensor):
         return [value]
     return [value.packed, value.scales, value.zeros]
+
+
+@dataclasses.dataclass
+class StagedRow:
+    """One prefetched (layer, expert) row of an INT4 backup, on the device:
+    its packed nibbles, scales and zeros as the backup holds them, and the
+    event that ends their upload on the stream that made them (None off
+    the card). The reference stages a dequantized host row; here the row
+    stays packed and the restore dequantizes the assembled leaf."""
+
+    packed: torch.Tensor
+    scales: torch.Tensor
+    zeros: torch.Tensor
+    event: Optional[torch.cuda.Event] = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.packed.nbytes + self.scales.nbytes + self.zeros.nbytes
+
+    def ready(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The three tensors, usable on the caller's stream: it waits for
+        the upload, and their memory is tied to it (the stage may drop the
+        row while work queued here still reads it)."""
+        out = (self.packed, self.scales, self.zeros)
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.packed.device)
+            stream.wait_event(self.event)
+            for t in out:
+                t.record_stream(stream)
+        return out
+
+
+def _runs(mask: np.ndarray):
+    """The [start, stop) runs of True in a 1-D boolean mask."""
+    edges = np.flatnonzero(np.diff(np.concatenate(([0], mask.astype(np.int8), [0]))))
+    return zip(edges[::2].tolist(), edges[1::2].tolist())
 
 
 @dataclasses.dataclass
@@ -261,15 +302,20 @@ class TransitionExecutor:
         ``shard=(spec, rank, sizes)`` restores only ``rank``'s shard of the
         leaf under ``spec``: the groups that cover it are uploaded and
         dequantized, and cut to the shard where a group straddles it."""
+        qt = self._backups[name]
+        return self._dequant(qt, (qt.packed, qt.scales, qt.zeros), dtype, shard, upload=True)
+
+    def _dequant(self, qt, leaves, dtype, shard, upload: bool) -> torch.Tensor:
+        """``restore`` from ``leaves``, the flat packed, scales and zeros of
+        backup ``qt`` (on the host, ``upload``ed first; or already on the
+        device)."""
         from repro_torch.kernels import ops
 
-        qt = self._backups[name]
         half, gs, shape = qt.packed.shape[-1], qt.group_size, tuple(qt.shape)
         index = shard_slices(shard[0], shape, shard[1], shard[2]) if shard is not None else None
         cut = None
         if index is None or shape[-1] % gs:
             # the whole leaf (groups may cross rows of the last dim)
-            leaves = (qt.packed, qt.scales, qt.zeros)
             out_shape = shape
             cut = index
         else:
@@ -277,13 +323,13 @@ class TransitionExecutor:
             g0, g1 = last.start // gs, -(-last.stop // gs)
             part = index[:-1] + (slice(g0, g1),)
             lead = shape[:-1] + (shape[-1] // gs,)
-            leaves = (qt.packed.view(*lead, half)[part], qt.scales.view(*lead, 1)[part],
-                      qt.zeros.view(*lead, 1)[part])
+            leaves = (leaves[0].view(*lead, half)[part], leaves[1].view(*lead, 1)[part],
+                      leaves[2].view(*lead, 1)[part])
             out_shape = tuple(len(range(*ix.indices(n))) for ix, n in zip(index[:-1], shape[:-1])) + (
                 (g1 - g0) * gs,)
             if (last.start - g0 * gs, len(last)) != (0, out_shape[-1]):
                 cut = (slice(None),) * (len(shape) - 1) + (slice(last.start - g0 * gs, last.stop - g0 * gs),)
-        packed, scales, zeros = (self._upload(t) for t in leaves)
+        packed, scales, zeros = (self._upload(t) if upload else t.contiguous() for t in leaves)
         w = ops.int4_dequant(packed.reshape(-1, half), scales.reshape(-1, 1),
                              zeros.reshape(-1, 1),
                              out_dtype=dtype or torch.bfloat16).view(out_shape)
@@ -307,6 +353,194 @@ class TransitionExecutor:
             qspec = packed_spec_for(spec, tuple(qt.packed.shape), sizes)
             leaves = tuple(t[shard_slices(qspec, t.shape, rank, sizes)] for t in leaves)
         return QuantizedExpert(*(self._upload(t) for t in leaves))
+
+    # -- predictive per-expert prefetch (DESIGN.md §5c) --------------------
+    def prefetch_rows_of(self, name: str) -> Optional[int]:
+        """Number of (layer, expert) prefetch rows backup ``name`` can be
+        restored in, or None when per-row restore cannot reproduce the full
+        restore bit-exactly.
+
+        A "row" is one index of the flattened leading (L, E) dims. Flat
+        backups group the whole leaf, so rows slice on group boundaries
+        only when the per-row span is a whole number of quantization groups;
+        structured (last-dim-grouped) backups keep the leading dims and
+        always slice exactly."""
+        qt = self._backups.get(name)
+        if qt is None or len(qt.shape) < 3:
+            return None
+        n_rows = qt.shape[0] * qt.shape[1]
+        if qt.packed.ndim >= 3:  # structured residency layout
+            return n_rows
+        span = int(np.prod(qt.shape[2:]))
+        if span % qt.group_size:
+            return None
+        return n_rows
+
+    @staticmethod
+    def _rows(qt) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A backup's packed, scales and zeros as (rows, ...) views, one row
+        per (layer, expert)."""
+        n_rows = qt.shape[0] * qt.shape[1]
+        return tuple(t.view(n_rows, -1, t.shape[-1]) for t in (qt.packed, qt.scales, qt.zeros))
+
+    def prefetch_row(self, name: str, row: int) -> StagedRow:
+        """Stage ONE leading (layer*expert) row of backup ``name`` on the
+        device, on the caller's thread and stream: the unit of work the
+        engine's prefetch hides behind decode compute (the background
+        pull). The barrier's missed rows take another path, so a failing
+        pull only ever costs a miss."""
+        return self._restore_row(name, row)
+
+    def prefetch_rows(self, name: str, rows: Sequence[int]) -> Dict[int, StagedRow]:
+        """``prefetch_row`` for each of ``rows`` at once, as the engine's
+        pull stages a batch: each contiguous run of rows is one upload per
+        tensor, and the rows of a run are views of its device buffers (a
+        run's memory is freed when its last row is dropped)."""
+        src = self._rows(self._backups[name])
+        mask = np.zeros(src[0].shape[0], bool)
+        mask[list(rows)] = True
+        staged = {}
+        for a, b in _runs(mask):
+            bufs = [self._upload(t[a:b]) for t in src]
+            staged.update((r, StagedRow(*(buf[r - a] for buf in bufs))) for r in range(a, b))
+        if self.device.type == "cuda" and staged:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            for st in staged.values():
+                st.event = event
+        return staged
+
+    def _restore_row(self, name: str, row: int) -> StagedRow:
+        """Upload row ``row`` of backup ``name`` (packed, from pinned host
+        memory on the card) into fresh device tensors, and record the event
+        that ends the upload."""
+        return self.prefetch_rows(name, (row,))[row]
+
+    def _rows_needed(self, qt, spec, shard) -> Optional[np.ndarray]:
+        """The rows a restore of ``shard`` reads (a boolean mask over the
+        rows; None: all of them): those whose (layer, expert) lies in the
+        shard's index of the leading two dims of a leaf laid out by
+        ``spec``."""
+        if shard is None:
+            return None
+        L, E = qt.shape[0], qt.shape[1]
+        index = shard_slices(spec, (L, E) + tuple(qt.shape[2:]), shard[1], shard[2])
+        mask = np.zeros((L, E), bool)
+        mask[index[0], index[1]] = True
+        return None if mask.all() else mask.reshape(-1)
+
+    def _assemble(self, name: str, staged: Dict[int, StagedRow], need=None):
+        """The packed, scales and zeros of backup ``name`` on the device, in
+        the backup's own layout: staged rows copied on the device, every
+        other row (of ``need``, a row mask; None: all) uploaded in
+        contiguous runs. Byte for byte the backup."""
+        qt = self._backups[name]
+        rows = self._rows(qt)
+        n_rows = rows[0].shape[0]
+        out = [torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in rows]
+        miss = np.ones(n_rows, bool) if need is None else need.copy()
+        dst, src = [], []
+        for r in sorted(staged):
+            if r < n_rows and miss[r]:
+                miss[r] = False
+                for o, t in zip(out, staged[r].ready()):
+                    dst.append(o[r])
+                    src.append(t)
+        if dst:
+            torch._foreach_copy_(dst, src)
+        for a, b in _runs(miss):
+            for o, t in zip(out, rows):
+                o[a:b].copy_(t[a:b], non_blocking=True)
+        return tuple(o.view(full.shape) for o, full in zip(out, (qt.packed, qt.scales, qt.zeros)))
+
+    def restore_with_rows(self, name: str, staged: Dict[int, StagedRow], dtype=None, shard=None) -> torch.Tensor:
+        """``restore``, but the rows present in ``staged`` (from
+        ``prefetch_row``) are not uploaded again: only the missed rows cross
+        the host link at the barrier, and the assembled leaf is dequantized
+        with one ``int4_dequant`` launch. Bit-identical to a plain
+        ``restore`` whatever was staged: the kernel reads the same bytes.
+        ``shard`` as in ``restore``; rows outside the shard are not
+        uploaded."""
+        if self.prefetch_rows_of(name) is None:
+            return self.restore(name, dtype, shard)
+        qt = self._backups[name]
+        need = self._rows_needed(qt, shard[0], shard) if shard is not None else None
+        return self._dequant(qt, self._assemble(name, staged, need), dtype, shard, upload=False)
+
+    def restore_packed_with_rows(self, name: str, staged: Dict[int, StagedRow], shard=None):
+        """``restore_packed`` from staged rows plus the missed rows, uploaded
+        now: the same ``QuantizedExpert`` values as uploading the whole
+        backup at once."""
+        from repro_torch.kernels.ops import QuantizedExpert
+
+        qt = self._backups[name]
+        if qt.packed.ndim < 3:
+            raise ValueError(
+                f"backup {name!r} is flat; use backup_packed for residency")
+        if shard is None:
+            return QuantizedExpert(*self._assemble(name, staged))
+        spec, rank, sizes = shard
+        qspec = packed_spec_for(spec, tuple(qt.packed.shape), sizes)
+        leaves = self._assemble(name, staged, self._rows_needed(qt, qspec, shard))
+        return QuantizedExpert(*(t[shard_slices(qspec, t.shape, rank, sizes)].contiguous() for t in leaves))
+
+    @staticmethod
+    def reslot(w, src_map: Sequence[int], dst_map: Sequence[int], mesh=None):
+        """Lay a stacked expert leaf (L, N, ...) out anew along its expert
+        dim (dim 1): ``src_map[i]`` is the expert that row ``i`` of the
+        current layout holds (the identity for expert layout, a replica
+        set's ``slot_to_expert()`` for its slot layout) and ``dst_map[j]``
+        the expert row ``j`` must hold. Each destination row copies a row
+        that holds its expert. Dense tensors and ``QuantizedExpert``
+        leaves alike. Returns (the new leaf, bytes received from other
+        ranks).
+
+        With ``mesh`` the rows are sharded over its ranks (EP: rank r holds
+        rows [r*N/n, (r+1)*N/n) of each map): a rank copies the rows it
+        holds (preferring its own copy of an expert) and receives each
+        other row from the rank that holds its expert's first copy, all in
+        one batched point-to-point exchange."""
+        if hasattr(w, "packed"):
+            from repro_torch.kernels.ops import QuantizedExpert
+
+            moved = [TransitionExecutor.reslot(t, src_map, dst_map, mesh) for t in (w.packed, w.scales, w.zeros)]
+            return QuantizedExpert(*(m[0] for m in moved)), sum(m[1] for m in moved)
+        first: Dict[int, int] = {}
+        for i, e in enumerate(src_map):
+            first.setdefault(e, i)
+
+        def index(rows) -> torch.Tensor:
+            return torch.tensor(rows, dtype=torch.long, device=w.device)
+
+        if mesh is None or mesh.size == 1:
+            return w.index_select(1, index([first[e] for e in dst_map])), 0
+        n, me = mesh.size, mesh.rank
+        ns, nd = len(src_map) // n, len(dst_map) // n
+
+        def source(rank: int, e: int) -> int:
+            own = [i for i in range(rank * ns, (rank + 1) * ns) if src_map[i] == e]
+            return own[0] if own else first[e]
+
+        need = {q: [(j, source(q, dst_map[q * nd + j])) for j in range(nd)] for q in range(n)}
+        out = torch.empty((w.shape[0], nd) + tuple(w.shape[2:]), dtype=w.dtype, device=w.device)
+        local = [(j, s - me * ns) for j, s in need[me] if s // ns == me]
+        if local:
+            out.index_copy_(1, index([j for j, _ in local]), w.index_select(1, index([s for _, s in local])))
+        sends, recvs = [], []
+        for p in range(n):
+            if p == me:
+                continue
+            mine = [s - me * ns for _, s in need[p] if s // ns == me]
+            if mine:
+                sends.append((w.index_select(1, index(mine)), p))
+            theirs = [j for j, s in need[me] if s // ns == p]
+            if theirs:
+                recvs.append((torch.empty((w.shape[0], len(theirs)) + tuple(w.shape[2:]), dtype=w.dtype,
+                                          device=w.device), p, theirs))
+        mesh.exchange(sends, [(buf, p) for buf, p, _ in recvs]).wait()
+        for buf, _, rows in recvs:
+            out.index_copy_(1, index(rows), buf)
+        return out, sum(buf.numel() * buf.element_size() for buf, _, _ in recvs)
 
     @staticmethod
     def reshard(w, from_spec=None, to_spec=None, mesh=None, shape=None):

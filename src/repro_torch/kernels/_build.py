@@ -63,6 +63,11 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 # plan picks a variant: flash and grouped matmul (``wgmma`` or ``simt``),
 # paged and prefix-paged attention (``split`` or ``simt``).
 VARIANT_COUNTS: collections.Counter = collections.Counter()
+# The same launches by (kernel name, shape), the shape as each wrapper
+# gives it: flash (B, S, Hq, Hkv, hd, window, softcap), the paged and
+# prefix kernels (B, C, Hq, Hkv, hd), grouped matmul (E, C, K, N), dequant
+# (G, group size, output dtype name).
+SHAPE_COUNTS: collections.Counter = collections.Counter()
 # Which branch each seam call took (``op.hopper`` / ``op.ref``), kept here
 # beside the launch counts so that a step capture can record all three
 # (``repro_torch.kernels.ops`` re-exports it).
@@ -76,17 +81,20 @@ _lock = threading.Lock()
 
 @dataclasses.dataclass
 class Counts:
-    """Launch, variant and dispatch counts that a CUDA-graph capture would
-    have made; each replay of the graph adds them to the global counters."""
+    """Launch, variant, shape and dispatch counts that a CUDA-graph capture
+    would have made; each replay of the graph adds them to the global
+    counters."""
 
     launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     variants: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    shapes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     dispatch: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     def add_to_globals(self) -> None:
         with _count_lock:
             LAUNCH_COUNTS.update(self.launches)
             VARIANT_COUNTS.update(self.variants)
+            SHAPE_COUNTS.update(self.shapes)
             DISPATCH_COUNTS.update(self.dispatch)
 
 
@@ -105,20 +113,25 @@ def recording():
         _capturing.counts = outer
 
 
-def count_launch(kernel: str, variant: Optional[str] = None) -> None:
-    """Add one launch of ``kernel`` to ``LAUNCH_COUNTS`` and, where a launch
-    plan chose a ``variant``, to ``VARIANT_COUNTS`` (thread-safe); under
-    ``recording()`` to that thread's ``Counts`` instead."""
+def count_launch(kernel: str, variant: Optional[str] = None, shape: Optional[tuple] = None) -> None:
+    """Add one launch of ``kernel`` to ``LAUNCH_COUNTS``, where a launch
+    plan chose a ``variant`` to ``VARIANT_COUNTS``, and at its ``shape`` to
+    ``SHAPE_COUNTS`` (thread-safe); under ``recording()`` to that thread's
+    ``Counts`` instead."""
     counts = getattr(_capturing, "counts", None)
-    if counts is not None:
-        counts.launches[kernel] += 1
-        if variant is not None:
-            counts.variants[(kernel, variant)] += 1
+    if counts is None:
+        with _count_lock:
+            _add(LAUNCH_COUNTS, VARIANT_COUNTS, SHAPE_COUNTS, kernel, variant, shape)
         return
-    with _count_lock:
-        LAUNCH_COUNTS[kernel] += 1
-        if variant is not None:
-            VARIANT_COUNTS[(kernel, variant)] += 1
+    _add(counts.launches, counts.variants, counts.shapes, kernel, variant, shape)
+
+
+def _add(launches, variants, shapes, kernel: str, variant, shape) -> None:
+    launches[kernel] += 1
+    if variant is not None:
+        variants[(kernel, variant)] += 1
+    if shape is not None:
+        shapes[(kernel, shape)] += 1
 
 
 def count_dispatch(branch: str) -> None:
@@ -133,10 +146,12 @@ def count_dispatch(branch: str) -> None:
 
 
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCH_COUNTS``, ``VARIANT_COUNTS`` and ``DISPATCH_COUNTS``."""
+    """Zero ``LAUNCH_COUNTS``, ``VARIANT_COUNTS``, ``SHAPE_COUNTS`` and
+    ``DISPATCH_COUNTS``."""
     with _count_lock:
         LAUNCH_COUNTS.clear()
         VARIANT_COUNTS.clear()
+        SHAPE_COUNTS.clear()
         DISPATCH_COUNTS.clear()
 
 

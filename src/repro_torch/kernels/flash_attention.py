@@ -185,5 +185,5 @@ def flash_attention(
             stream,
         )
     _build.check(status, "flash_attention")
-    _build.count_launch("flash_attention", plan.variant)
+    _build.count_launch("flash_attention", plan.variant, (B, Sq, Hq, Hkv, hd, int(window), float(softcap)))
     return o

@@ -182,5 +182,5 @@ def _launch(lp: int, rp: int, out: torch.Tensor, plan: GmmPlan) -> torch.Tensor:
             stream,
         )
     _build.check(status, "grouped_matmul")
-    _build.count_launch("grouped_matmul", plan.variant)
+    _build.count_launch("grouped_matmul", plan.variant, (plan.E, plan.C, plan.d, plan.f))
     return out

@@ -51,5 +51,5 @@ def int4_dequant(packed, scales, zeros, *, out_dtype=torch.bfloat16) -> torch.Te
             _build.dtype_code(out_dtype), G, half, stream,
         )
     _build.check(status, "int4_dequant")
-    _build.count_launch("int4_dequant")
+    _build.count_launch("int4_dequant", shape=(G, 2 * half, str(out_dtype).split(".")[1]))
     return out

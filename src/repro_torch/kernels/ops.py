@@ -61,7 +61,8 @@ record = _build.count_dispatch
 
 
 def reset_counts() -> None:
-    """Zero ``DISPATCH_COUNTS``, ``LAUNCH_COUNTS`` and ``VARIANT_COUNTS``."""
+    """Zero ``DISPATCH_COUNTS``, ``LAUNCH_COUNTS``, ``VARIANT_COUNTS`` and
+    ``SHAPE_COUNTS``."""
     _build.reset_launch_counts()
 
 

@@ -340,5 +340,5 @@ def paged_attention(
             stream,
         )
     _build.check(status, "paged_attention")
-    _build.count_launch("paged_attention", plan.variant)
+    _build.count_launch("paged_attention", plan.variant, (B, C, Hq, Hkv, hd))
     return out, k_pages, v_pages

@@ -108,5 +108,5 @@ def prefix_paged_attention(
             stream,
         )
     _build.check(status, "prefix_paged_attention")
-    _build.count_launch("prefix_paged_attention", plan.variant)
+    _build.count_launch("prefix_paged_attention", plan.variant, (B, C, Hq, Hkv, hd))
     return out, k_pages, v_pages

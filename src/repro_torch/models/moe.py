@@ -17,18 +17,26 @@ Dispatch is GShard-style with a static capacity
 multiple of 8): tokens beyond an expert's capacity are dropped. Every
 per-expert product goes through the grouped-matmul seam
 (``repro_torch.kernels.ops.grouped_matmul``).
+
+When the plan carries an ``ExpertReplication`` (hot-expert replication),
+token copies go to replica *slots*, and the expert leaves must already be
+laid out in those slots: (S, ...) per layer, or this rank's S/ep under EP.
+The reference gathers ``w[slot_to_expert]`` inside every step; here the
+engine builds the slot leaves once per replica set (``slot_weights`` is
+that layout), so no step copies a weight.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.sharding.specs import ExpertReplication
 
 from .common import activation_fn, glu_ffn
 
@@ -120,6 +128,75 @@ def combine(y_buf, flat_expert, pos_in_expert, keep, flat_gates, T: int):
     return gathered.reshape(T, k, -1).sum(dim=1)
 
 
+def _replica_tables(rep: ExpertReplication, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rep``'s degrees and first-replica offsets as device tensors, made
+    once per device and kept on ``rep`` itself: a step captured in a CUDA
+    graph reads them (a graph holds raw pointers) and must not copy from
+    the host, and the plan a captured step was made under holds ``rep``,
+    so the tables live as long as that step and go with the replica set.
+    Each is E integers."""
+    tables = rep.__dict__.setdefault("_device_tables", {})  # not a field: equality and hashing ignore it
+    device = torch.device(device)
+    if device not in tables:
+        tables[device] = (torch.tensor(rep.degrees, dtype=torch.long, device=device),
+                          torch.tensor(rep.expert_offsets(), dtype=torch.long, device=device))
+    return tables[device]
+
+
+def replica_coords(flat_expert, pos_in_expert, rep: ExpertReplication):
+    """(expert id, pos within expert) -> (slot id, pos within replica).
+
+    Token copy ``p`` of expert ``e`` lands on replica ``p % degree(e)``
+    inside the expert's contiguous slot block: the deterministic
+    round-robin choice (replica loads differ by at most one token), two
+    table lookups."""
+    degrees, offsets = _replica_tables(rep, flat_expert.device)
+    deg = degrees[flat_expert]
+    slot = offsets[flat_expert] + pos_in_expert % deg
+    return slot, pos_in_expert // deg
+
+
+def slot_weights(w, rep: ExpertReplication, dim: int = 0):
+    """The slot layout of expert weights: dim ``dim`` (the expert dim; 1
+    for a stacked (L, E, ...) leaf) goes from E experts to
+    ``rep.total_slots`` slots, slot ``s`` holding expert
+    ``slot_to_expert()[s]``. Dense tensors and resident ``QuantizedExpert``
+    leaves alike (every leaf shares the expert dim)."""
+    sl = torch.tensor(rep.slot_to_expert(), dtype=torch.long, device=w.device)
+    if isinstance(w, kernel_ops.QuantizedExpert):
+        return kernel_ops.QuantizedExpert(*(t.index_select(dim, sl) for t in (w.packed, w.scales, w.zeros)))
+    return w.index_select(dim, sl)
+
+
+def _active_replication(plan) -> Optional[ExpertReplication]:
+    rep = getattr(plan, "replication", None) if plan is not None else None
+    if rep is None or rep.is_identity:
+        return None
+    return rep
+
+
+def _is_ep(plan) -> bool:
+    return plan is not None and not plan.is_null and plan.ffn_mode == "ep" and plan.ep_axis is not None
+
+
+def serving_replication(plan) -> Optional[ExpertReplication]:
+    """The replica set the experts serve under ``plan``, or None: the plan's
+    active replication, except under EP when its slot count does not divide
+    the EP axis (the reference then serves unreplicated; a planner with
+    ``align=ep`` never hits that). The expert leaves are in its slot
+    layout."""
+    rep = _active_replication(plan)
+    if rep is not None and _is_ep(plan) and rep.total_slots % plan.axis_size(plan.ep_axis):
+        return None
+    return rep
+
+
+def ep_token_split(plan, num_tokens: int) -> bool:
+    """Whether EP under ``plan`` splits ``num_tokens`` over the ranks (each
+    rank then routes, and reports the top-k of, its own share)."""
+    return _is_ep(plan) and num_tokens % plan.mesh.size == 0
+
+
 def expert_ffn(buf, wi_gate, wi_up, wo, act_name: str, backend=None, axes=None) -> torch.Tensor:
     """(E, C, d) x (E, d, f)^2 x (E, f, d) -> (E, C, d), through the
     grouped-matmul seam. ``axes`` (a TP plan's ``expert_kernel_axes``)
@@ -130,16 +207,22 @@ def expert_ffn(buf, wi_gate, wi_up, wo, act_name: str, backend=None, axes=None) 
     return kernel_ops.grouped_matmul(act(gate) * up, wo, shard_axes=axes, sharded_dim="in", backend=backend)
 
 
-def _moe_local(x_flat, moe_p, cfg: ModelConfig, backend=None, axes=None):
-    """One device, or TP with ``axes`` (a TP plan's ``expert_kernel_axes``:
-    column-parallel wi, row-parallel wo with one all-reduce; None where
-    the d_ff does not divide the axis, the experts then whole on every
-    rank): every token of every expert on this rank's d_ff columns."""
+def _moe_local(x_flat, moe_p, cfg: ModelConfig, backend=None, axes=None, rep=None):
+    """One device (the reference's ``_moe_local``), or TP with ``axes`` (a
+    TP plan's ``expert_kernel_axes``: column-parallel wi, row-parallel wo
+    with one all-reduce; None where the d_ff does not divide the axis, the
+    experts then whole on every rank; the reference's ``_moe_tp``): every
+    token of every expert on this rank's d_ff columns. ``rep``: the replica
+    set the slot-layout leaves hold."""
     T = x_flat.shape[0]
     E = cfg.n_routed_experts
     C = capacity(T, cfg)
     gates, idx, aux = route(x_flat, moe_p["router"], cfg)
     fe, pe, keep, fg = make_dispatch(idx, gates, E, C)
+    if rep is not None:
+        fe, pe = replica_coords(fe, pe, rep)
+        keep = pe < C  # per-SLOT capacity: hot experts hold degree*C
+        E = rep.total_slots
     buf, _ = dispatch(x_flat, fe, pe, E, C)
     y_buf = expert_ffn(buf, moe_p["wi_gate"], moe_p["wi_up"], moe_p["wo"], cfg.activation, backend=backend, axes=axes)
     y = combine(y_buf, fe, pe, keep, fg, T)
@@ -152,18 +235,27 @@ def _moe_ep(x_flat, moe_p, cfg: ModelConfig, plan, backend=None):
     the ranks when they divide (each rank routes T/ep of them, with the
     capacity of its own share) and replicated otherwise; each rank's
     outputs are gathered back, and the aux loss is averaged over ranks.
-    ``route_idx`` holds this rank's tokens' choices."""
+    ``route_idx`` holds this rank's tokens' choices.
+
+    With a replica set (``serving_replication``) the slot axis is what the
+    ranks shard: rank r holds slots [r*S/n, (r+1)*S/n), so a hot expert
+    owns replica slots on several ranks."""
     mesh = plan.mesh
     n = mesh.size
     E = cfg.n_routed_experts
     T = x_flat.shape[0]
-    split = T % n == 0
+    split = ep_token_split(plan, T)
     xl = x_flat[mesh.rank * (T // n):(mesh.rank + 1) * (T // n)] if split else x_flat
+    rep = serving_replication(plan)
+    n_slots = rep.total_slots if rep is not None else E
     T_loc = xl.shape[0]
     C_loc = capacity(T_loc, cfg)
     gates, idx, aux = route(xl, moe_p["router"], cfg)
     fe, pe, keep, fg = make_dispatch(idx, gates, E, C_loc)
-    buf, _ = dispatch(xl, fe, pe, E, C_loc)  # (E, C_loc, d)
+    if rep is not None:
+        fe, pe = replica_coords(fe, pe, rep)
+        keep = pe < C_loc
+    buf, _ = dispatch(xl, fe, pe, n_slots, C_loc)  # (S, C_loc, d)
     K = pipeline_chunks(C_loc, n, plan.moe_pipeline)
     y_buf = kernel_ops.pipelined_ep_ffn(
         buf, lambda b: expert_ffn(b, moe_p["wi_gate"], moe_p["wi_up"], moe_p["wo"], cfg.activation, backend=backend),
@@ -185,15 +277,21 @@ def _shared_ffn(x_flat, moe_p, cfg: ModelConfig, plan):
 
 def apply_moe(x: torch.Tensor, moe_p: Dict[str, Any], cfg: ModelConfig, backend=None, plan=None) -> MoEOut:
     """x: (B, S, d) -> MoEOut. Routed experts + optional shared experts,
-    in the mode ``plan`` selects (None: local)."""
+    in the mode ``plan`` selects (None: local).
+
+    When the plan carries an ``ExpertReplication``, token copies are routed
+    to replica slots (round-robin over each expert's replicas): the same
+    tokens as unreplicated serving whenever capacity drops do not bind,
+    since gates never change and replicas share weights."""
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
     if plan is None or plan.is_null:
-        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend)
-    elif plan.ffn_mode == "ep" and plan.ep_axis is not None:
+        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend, rep=_active_replication(plan))
+    elif _is_ep(plan):
         y, aux, idx = _moe_ep(x_flat, moe_p, cfg, plan, backend=backend)
     else:
-        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend, axes=plan.expert_kernel_axes(cfg.moe_d_ff))
+        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend, axes=plan.expert_kernel_axes(cfg.moe_d_ff),
+                                 rep=_active_replication(plan))
     if cfg.n_shared_experts:
         y = y + _shared_ffn(x_flat, moe_p, cfg, plan if plan is not None and not plan.is_null else None)
     return MoEOut(y.reshape(B, S, d), aux * cfg.router_aux_loss_coef, idx)

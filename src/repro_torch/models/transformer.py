@@ -48,6 +48,8 @@ class DecodeCache:
     int32 tensor of per-row depths. ``prefix_groups`` (2, B) int32, paged
     only, is the prefix cache's grouping (row 0 each row's representative,
     row 1 its shared leading block count); None leaves the prefix kernel off.
+    ``route_topk`` is an output only: ``decode_step(..., collect_routing=True)``
+    returns every layer's router top-k ids there, (L, B*C, k) int32.
     """
 
     k: torch.Tensor
@@ -55,6 +57,7 @@ class DecodeCache:
     pos: Union[int, torch.Tensor]
     block_tables: Optional[torch.Tensor] = None
     prefix_groups: Optional[torch.Tensor] = None
+    route_topk: Optional[torch.Tensor] = None
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -100,16 +103,20 @@ def unembed(params, cfg: ModelConfig, hidden: torch.Tensor, plan=None) -> torch.
     return logits
 
 
-def _ffn(x, lp, cfg: ModelConfig, backend=None, plan=None) -> torch.Tensor:
+def _ffn(x, lp, cfg: ModelConfig, backend=None, plan=None, routes=None) -> torch.Tensor:
     """FFN / MoE sublayer on the residual stream; a dense FFN runs TP on a
-    mesh (its d_ff sharded, one all-reduce)."""
+    mesh (its d_ff sharded, one all-reduce). ``routes``, a list, collects
+    the MoE router's top-k ids."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.ffn_type == "dense":
         out = glu_ffn(h, lp["ffn"]["wi_gate"], lp["ffn"]["wi_up"], lp["ffn"]["wo"], cfg.activation)
         if plan is not None and plan.divides(cfg.d_ff):
             plan.mesh.all_reduce(out)
     else:
-        out = moe_mod.apply_moe(h, lp["moe"], cfg, backend=backend, plan=plan).y
+        moe_out = moe_mod.apply_moe(h, lp["moe"], cfg, backend=backend, plan=plan)
+        out = moe_out.y
+        if routes is not None:
+            routes.append(moe_out.route_idx)
     if cfg.use_post_norm:
         out = rms_norm(out, lp["ln2_post"], cfg.norm_eps)
     return out
@@ -189,16 +196,23 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
 # decode
 # ---------------------------------------------------------------------------
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCache,
-                backend=None, plan=None) -> Tuple[torch.Tensor, DecodeCache]:
+                backend=None, plan=None, collect_routing: bool = False) -> Tuple[torch.Tensor, DecodeCache]:
     """One cache-appending step: token (B, C) -> (last-position logits
     (B, V), the cache advanced by C). C == 1 is plain decode; C > 1 appends
     a chunk: in lockstep on a contiguous cache, or at each row's own
     position on a paged one (chunked prefill). The cache tensors are updated
     in place (JAX returned new ones); the returned cache shares them, with
     ``pos + C``. Callers that freeze drained rows (the continuous engine)
-    pin ``pos`` again before the next step."""
+    pin ``pos`` again before the next step.
+
+    ``collect_routing`` (MoE only) stacks every layer's router top-k ids
+    and returns them on the new cache's ``route_topk``, (L, B*C, k) int32,
+    for the engine's routing tracker. Under EP with the tokens split over
+    the ranks, the ranks' shares are all-gathered (once per step), so every
+    rank sees every token's choice."""
     _check_family(cfg)
     C = token.shape[1]
+    routes = [] if collect_routing and cfg.ffn_type == "moe" else None
     x = embed_tokens(params, cfg, token, plan)
     pos = torch.as_tensor(cache.pos, dtype=torch.int32, device=x.device)
     flags = cfg.global_layer_flags()
@@ -212,6 +226,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
         if cfg.use_post_norm:
             out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
         x = x + out
-        x = x + _ffn(x, lp, cfg, backend, plan)
+        x = x + _ffn(x, lp, cfg, backend, plan, routes)
     logits = unembed(params, cfg, x[:, -1:, :], plan)
-    return logits[:, 0], dataclasses.replace(cache, pos=cache.pos + C)
+    route = None
+    if routes is not None:
+        route = torch.stack(routes).to(torch.int32)
+        if moe_mod.ep_token_split(plan, token.shape[0] * C):
+            route = plan.mesh.all_gather(route, dim=1)
+    return logits[:, 0], dataclasses.replace(cache, pos=cache.pos + C, route_topk=route)

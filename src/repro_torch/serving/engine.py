@@ -59,9 +59,21 @@ from the whole-leaf host backup), the attention leaves by a reshard.
 Data-parallel mesh axes of size > 1 and sequence-sharded caches raise
 (ROADMAP A.9).
 
-The robustness layer, expert replication and prefetch, and the contiguous
-continuous fallback come in later slices; their knobs raise
-``NotImplementedError`` naming the ROADMAP item.
+With ``replicate_experts`` or ``prefetch`` a routing tracker follows the
+router's top-k ids, which every decode step returns through a static
+buffer read back with the step's tokens (``serving.replication``).
+Replication: every ``rebalance_interval`` tracked steps the hot experts get
+replica slots, a new replica set and so a new plan; the expert leaves are
+laid out in its slots then, once (``TransitionExecutor.reslot``; an EP rank
+fetches each slot's expert from the rank that holds it), and every step
+graph is captured anew. The INT4 backups stay in expert layout: a restore
+lands expert rows, which are then laid out in slots. Prefetch: the
+predicted experts' (layer, expert) rows of the INT4 backups are staged on
+the device by the executor's worker while decode runs, and a restore
+barrier uploads only the rows that missed (DESIGN.md §5b/§5c).
+
+The robustness layer and the contiguous continuous fallback come in later
+slices; their knobs raise ``NotImplementedError`` naming the ROADMAP item.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 CUDA device and no ``device`` it raises rather than fall back. The kernel
@@ -73,6 +85,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -87,11 +100,13 @@ from repro_torch.core.transition import TransitionExecutor
 from repro_torch.device import resolve_device
 from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_cache, prefill
 from repro_torch.models.attention import local_kv_heads
+from repro_torch.models.moe import serving_replication
 from repro_torch.models.params import param_pspecs, param_shapes
-from repro_torch.sharding.specs import sharded_dim, unported_layout
+from repro_torch.sharding.specs import NULL_PLAN, ExpertReplication, sharded_dim, unported_layout
 
 from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, blocks_for
 from .prefix_cache import PrefixCache
+from .replication import NextLayerPredictor, RoutingTracker, plan_replication, replication_summary
 from .sampling import SamplingParams, sample
 from .scheduler import ContinuousScheduler, QueuedRequest, round_up
 from .step_cache import StepCache, StepGraph
@@ -137,14 +152,26 @@ class EngineStats:
     cow_copies: int = 0  # shared blocks forked at first write
     raw_block_need: int = 0  # sum of unshared worst-case admission needs
     effective_block_need: int = 0  # sum of post-sharing admission charges
+    # resident-INT4 + online replication (DESIGN.md §5b):
     resident_bytes_saved: int = 0  # dense-minus-packed expert residency delta
+    routing_steps: int = 0  # decode steps whose router top-k fed the tracker
+    replication_rebalances: int = 0  # replica-set changes applied online
     # async INT4 restore (overlap accounting; zeros with it off):
     async_restores: int = 0  # background restores kicked at decision time
     restore_wait_ms: float = 0.0  # residual barrier wait (the exposed cost)
     restore_overlap_ms: float = 0.0  # kick->barrier window hidden by prefill
+    # predictive expert prefetch (DESIGN.md §5c; zeros with it off):
+    prefetch_predicted: int = 0  # (layer, expert) rows submitted for pull
+    prefetch_hits: int = 0  # staged rows consumed at a restore barrier
+    prefetch_misses: int = 0  # rows a barrier restored synchronously
+    prefetch_bytes: int = 0  # host bytes pulled by background tasks
+    prefetch_hidden_ms: float = 0.0  # pull time spent off the critical path
+    prefetch_exposed_ms: float = 0.0  # consume-side restore time still paid
     planner_fallbacks: int = 0  # solves degraded to the static plan
     background_errors: int = 0  # background failures, all sites
+    prefetch_errors: int = 0  # _prefetch_pull rows that failed
     restore_errors: int = 0  # async restores failed or timed out
+    replication_search_errors: int = 0  # searched-degree solves that failed
     # the port's own (the JAX engine has no such counters):
     prefix_grouped_steps: int = 0  # decode steps where a row read its shared run through another's table
     decode_step_ms_sum: float = 0.0  # host clock of the decode steps, fused ones included
@@ -229,7 +256,10 @@ class InferenceEngine:
         kv_overcommit: Optional[float] = None,
         faults=None,
         replicate_experts: int = 0,
+        rebalance_interval: int = 32,
+        routing_ema: float = 0.9,
         prefetch: bool = False,
+        prefetch_top_p: float = 0.5,
         capture_steps: Optional[bool] = None,
         moe_pipeline: int = 0,
         params_plan=None,
@@ -243,8 +273,6 @@ class InferenceEngine:
                 raise TypeError(f"the port serves on a repro_torch.sharding.RankMesh, got {type(self.mesh).__name__}")
         if kv_overcommit is not None or faults is not None:
             raise _not_ported("kv_overcommit, preemption and fault injection (DESIGN.md §4f)", "A.5")
-        if replicate_experts or prefetch:
-            raise _not_ported("the routing tracker (expert replication, prefetch)", "A.4")
         self.device = resolve_device(device)
         # step capture: None means on for the card, off for the CPU; False on
         # the card is the eager A/B (the same bodies and buffers, op by op)
@@ -308,6 +336,44 @@ class InferenceEngine:
         self.int4_group_size = int4_group_size
         if self.resident_int4 and not cfg.is_moe:
             raise ValueError("resident_int4 requires an MoE config")
+        # online hot-expert replication: track router frequencies and grant
+        # up to `replicate_experts` extra replicas to the hot experts every
+        # `rebalance_interval` tracked decode steps
+        self.replicate_experts = int(replicate_experts)
+        if self.replicate_experts < 0:
+            raise ValueError("replicate_experts must be >= 0")
+        if self.replicate_experts and not cfg.is_moe:
+            raise ValueError("expert replication requires an MoE config")
+        self.rebalance_interval = max(int(rebalance_interval), 1)
+        # predictive expert prefetch (DESIGN.md §5c): stage the predicted
+        # experts' INT4 restore rows on the device from the background
+        # worker while decode steps run, so restore barriers only pay for
+        # the missed rows. Needs the routing tracker even without replication.
+        self.prefetch = bool(prefetch)
+        if self.prefetch and not cfg.is_moe:
+            raise ValueError("prefetch requires an MoE config")
+        self.prefetch_top_p = float(prefetch_top_p)
+        self._tracker: Optional[RoutingTracker] = (
+            RoutingTracker(cfg.num_layers, cfg.n_routed_experts, ema=routing_ema)
+            if self.replicate_experts or self.prefetch else None
+        )
+        self._predictor: Optional[NextLayerPredictor] = (
+            NextLayerPredictor(cfg.num_layers, cfg.n_routed_experts, top_p=self.prefetch_top_p)
+            if self.prefetch else None
+        )
+        # staging: (layer*E) row -> {leaf: StagedRow on the device}, filled
+        # by the background worker, consumed (whole rows only, never torn)
+        # at the next restore barrier; rows not in the current predicted
+        # window are evicted at issue time
+        self._prefetch_stage: Dict[int, Dict[str, Any]] = {}
+        self._prefetch_live: set = set()
+        self._prefetch_lock = threading.Lock()
+        # rebalance cadence is steps-since-last-rebalance, not an exact
+        # multiple of the tracker's step count
+        self._last_rebalance_step = 0
+        self._last_workload: Optional[Workload] = None
+        self._replication: Optional[ExpertReplication] = None  # the live replica set
+        self._slots: Optional[ExpertReplication] = None  # the replica set the expert leaves are laid out in
         if self.resident_int4 and self._expert_leaves():
             # the structured backups double as the transition backups (the
             # reference first makes flat ones, which these then replace)
@@ -345,12 +411,21 @@ class InferenceEngine:
 
     def _sharding_for(self, phase: str):
         """The execution layout of ``phase`` under the active plan (None on
-        one device; the params' layout on a mesh before a plan is active)."""
+        one device; the params' layout on a mesh before a plan is active),
+        with the live replica set folded in: a replica set is part of the
+        plan, so changing it is a plan change (on one device a null plan
+        then carries it)."""
         if self.mesh is None:
-            return None
+            return self._with_replication(None)
         if self.hap_plan is None:
-            return self._layout
-        return self._checked(self.hap_plan.to_sharding_plan(self.mesh, self.cfg, phase=phase))
+            return self._with_replication(self._layout)
+        return self._with_replication(self._checked(self.hap_plan.to_sharding_plan(self.mesh, self.cfg, phase=phase)))
+
+    def _with_replication(self, plan):
+        base = plan if plan is not None else NULL_PLAN
+        if base.replication == self._replication:
+            return plan
+        return dataclasses.replace(base, replication=self._replication)
 
     def _leaf_specs(self, plan) -> Dict[str, Any]:
         """The specs of the leaves that plans move: ``attn/*`` and
@@ -364,7 +439,7 @@ class InferenceEngine:
     def _shard_of(self, plan, key: str):
         """``(spec, rank, sizes)``: this rank's shard of leaf ``key`` under
         ``plan`` (None on one device)."""
-        if plan is None:
+        if plan is None or self.mesh is None:
             return None
         return self._leaf_specs(plan)[key], self.mesh.rank, dict(self.mesh.shape)
 
@@ -382,8 +457,42 @@ class InferenceEngine:
         return a is None or b is None or self._leaf_specs(a) == self._leaf_specs(b)
 
     def _backup_experts(self) -> None:
-        for name, w in self._expert_leaves().items():
-            self._tx.backup(f"moe/{name}", w, gather=self._gather(f"moe/{name}", w))
+        for name in _EXPERT_LEAVES:
+            self._backup_leaf(name)
+
+    def _backup_leaf(self, name: str) -> None:
+        """The flat INT4 backup of expert leaf ``name``, taken in expert
+        layout: from a slot layout, each expert from its first replica."""
+        key = f"moe/{name}"
+        w = self._reslot(self.params["layers"]["moe"][name], self._slots, None, self._layout)
+        self._tx.backup(key, w, gather=self._gather(key, w))
+
+    # -- slot layouts (hot-expert replication) ------------------------------
+    def _reslot(self, w, src: Optional[ExpertReplication], dst: Optional[ExpertReplication], plan):
+        """Expert leaf ``w`` from the slot layout of ``src`` to that of
+        ``dst`` (None: expert layout) under ``plan``'s sharding; the bytes
+        received from other ranks count as reshard bytes."""
+        if src == dst:
+            return w
+        E = self.cfg.n_routed_experts
+        src_map = src.slot_to_expert() if src is not None else tuple(range(E))
+        dst_map = dst.slot_to_expert() if dst is not None else tuple(range(E))
+        sharded = self.mesh is not None and plan is not None and sharded_dim(
+            self._leaf_specs(plan)["moe/wi_gate"]) == 1
+        out, nbytes = self._tx.reslot(w, src_map, dst_map, self.mesh if sharded else None)
+        self.stats.reshard_bytes += nbytes
+        return out
+
+    def _install_slots(self, rep: Optional[ExpertReplication], plan) -> None:
+        """Lay every expert leaf out in ``rep``'s slots (None: expert
+        layout) under ``plan``'s sharding, one leaf at a time."""
+        if rep == self._slots:
+            return
+        for name in _EXPERT_LEAVES:
+            new = self._reslot(self.params["layers"]["moe"][name], self._slots, rep, plan)
+            self._set_expert_leaves({name: new})
+            del new
+        self._slots = rep
 
     def _make_experts_resident(self) -> None:
         """Flip the expert FFN leaves to resident ``QuantizedExpert``s: the
@@ -404,23 +513,45 @@ class InferenceEngine:
         self.stats.resident_bytes_saved = int(saved)
         log.info("resident INT4 experts: %.2f MiB dense -> packed residency freed", saved / 2**20)
 
-    def _restore_leaf(self, name: str, dtype=None, target=None):
+    def _restore_leaf_with_stage(self, name: str, dtype=None, target=None):
         """One expert leaf from its INT4 backup, this rank's shard under
-        ``target``: packed under residency, else dequantized into ``dtype``."""
+        ``target`` in expert layout: packed under residency, else
+        dequantized into ``dtype``. With prefetch on it consumes the staged
+        rows, and only the rows the predictor missed are uploaded; the
+        values are the plain restore's either way."""
         key = f"moe/{name}"
-        kw = {} if target is None else {"shard": self._shard_of(target, key)}
+        shard = self._shard_of(target, key)
+        n_rows = self._tx.prefetch_rows_of(key) if self.prefetch else None
+        if n_rows is None:
+            kw = {} if shard is None else {"shard": shard}
+            if self.resident_int4:
+                return self._tx.restore_packed(key, **kw)
+            return self._tx.restore(key, dtype=dtype, **kw)
+        staged = self._prefetch_snapshot(name, n_rows)
         if self.resident_int4:
-            return self._tx.restore_packed(key, **kw)
-        return self._tx.restore(key, dtype=dtype, **kw)
+            return self._tx.restore_packed_with_rows(key, staged, shard=shard)
+        return self._tx.restore_with_rows(key, staged, dtype=dtype, shard=shard)
+
+    def _sync_restore_leaf(self, name: str, dtype=None, target=None):
+        """Barrier-path leaf restore: the time spent here is prefetch's
+        exposed cost (what the hidden pulls failed to cover)."""
+        t0 = time.perf_counter()
+        out = self._restore_leaf_with_stage(name, dtype, target)
+        self._sync()  # the leaf has landed, with prefetch on and off alike
+        if self.prefetch:
+            self.stats.prefetch_exposed_ms += (time.perf_counter() - t0) * 1e3
+        return out
 
     def _relayout_experts(self, mechanism: str, target=None) -> float:
         """Move the weights to ``target``'s layout; returns ms. The expert
         leaves move by ``mechanism``: ``int4_upload`` restores the INT4
         backups (resident leaves stay packed through it), ``reshard`` moves
         slices between the ranks (the identity on one device). On a mesh the
-        attention leaves whose layout changes move by a reshard. Each leaf
-        is installed as it lands, so the old and the new layout are resident
-        together for one leaf at a time."""
+        attention leaves whose layout changes move by a reshard. The expert
+        leaves end in the slot layout of ``target``'s replica set (a
+        reshard moves them in expert layout). Each leaf is installed as it
+        lands, so the old and the new layout are resident together for one
+        leaf at a time."""
         moe = self.cfg.is_moe and bool(self._expert_leaves())
         moves = self.mesh is not None and not self._same_layout(self._layout, target)
         if not moe and not moves:
@@ -431,16 +562,22 @@ class InferenceEngine:
         t0 = time.perf_counter()
         if moves:
             self._reshard_group("attn", target)
+        slots = serving_replication(target)
         if moe and mechanism == "int4_upload":
             for name in _EXPERT_LEAVES:
-                w = self.params["layers"]["moe"][name]
                 if not self.resident_int4 and f"moe/{name}" not in self._tx._backups:
-                    self._tx.backup(f"moe/{name}", w, gather=self._gather(f"moe/{name}", w))
-                dtype = None if self.resident_int4 else w.dtype
-                del w
-                self._set_expert_leaves({name: self._restore_leaf(name, dtype, target)})
+                    self._backup_leaf(name)
+                dtype = None if self.resident_int4 else self.params["layers"]["moe"][name].dtype
+                restored = self._sync_restore_leaf(name, dtype, target)
+                self._set_expert_leaves({name: self._reslot(restored, None, slots, target)})
+                del restored
+            self._slots = slots
         elif moe and moves:
+            self._install_slots(None, self._layout)
             self._reshard_group("moe", target)
+            self._install_slots(slots, target)
+        elif moe:
+            self._install_slots(slots, target)
         if self.mesh is not None:
             self._layout = target
         self._sync()
@@ -513,8 +650,9 @@ class InferenceEngine:
         for name, w in self._expert_leaves().items():
             if not self.resident_int4 and f"moe/{name}" not in self._tx._backups:
                 # on the serving thread: a mesh gathers the leaf with collectives
-                self._tx.backup(f"moe/{name}", w, gather=self._gather(f"moe/{name}", w))
-            futures[name] = self._tx.submit(self._restore_leaf, name, None if self.resident_int4 else w.dtype, target)
+                self._backup_leaf(name)
+            futures[name] = self._tx.submit(self._restore_leaf_with_stage, name,
+                                            None if self.resident_int4 else w.dtype, target)
         self._pending_restore = (phase, target, futures, time.perf_counter())
         self.stats.async_restores += 1
 
@@ -547,6 +685,9 @@ class InferenceEngine:
         for r in results.values():
             if r.event is not None:
                 r.event.synchronize()  # the wait the decode would otherwise absorb
+        # the restored leaves are in expert layout: lay them out in slots
+        self._slots = None
+        self._install_slots(serving_replication(p_target), p_target)
         wait_ms = (time.perf_counter() - t0) * 1e3
         self.stats.restore_wait_ms += wait_ms
         self.stats.restore_overlap_ms += (t0 - t_kick) * 1e3
@@ -579,6 +720,165 @@ class InferenceEngine:
             return 0.0
         return self._relayout_experts("reshard", target)
 
+    # -- online hot-expert replication ------------------------------------
+    def _ep_size(self) -> int:
+        """EP axis extent of the decode layout (replica totals must pad to
+        a multiple of it so the slot axis still shards)."""
+        plan = self._sharding_for("decode")
+        if plan is None or plan.is_null or plan.ffn_mode != "ep" or plan.ep_axis is None:
+            return 1
+        return plan.axis_size(plan.ep_axis)
+
+    def _observe_routing(self, route: Optional[torch.Tensor]) -> None:
+        """Feed a decode step's router top-k block (read back with its
+        tokens) into the frequency tracker. With prefetch on, this is also
+        where the predicted rows' pulls are issued: the worker stages them
+        while the next decode steps run."""
+        if self._tracker is None or route is None:
+            return
+        self._tracker.update(route.numpy())
+        self.stats.routing_steps += 1
+        self._maybe_prefetch()
+
+    # -- predictive expert prefetch (DESIGN.md §5c) -----------------------
+    def _prefetch_backup_key(self) -> Optional[str]:
+        """The backup leaf prefetch slices, when per-row restore is exact for
+        every expert leaf (row spans must land on INT4 group boundaries);
+        None disables prefetch for this engine."""
+        keys = [f"moe/{n}" for n in _EXPERT_LEAVES]
+        if any(self._tx.prefetch_rows_of(k) is None for k in keys):
+            return None
+        return keys[0]
+
+    def _maybe_prefetch(self) -> None:
+        """Issue background pulls for the predicted experts' restore rows.
+        The pulls run on the executor's single worker, on its own stream,
+        the worker the async restore uses, so pulls and restores stay
+        ordered and a barrier sees every pull queued before it. Mispredicted
+        or unpredicted rows stay unstaged: the barrier uploads them, with
+        the same bytes (the stage only ever holds exact backup rows)."""
+        if self._predictor is None or self._tracker is None:
+            return
+        if self._prefetch_backup_key() is None:
+            return
+        self._predictor.observe(self._tracker)
+        pred = self._predictor.predict()
+        E = self.cfg.n_routed_experts
+        rows = {layer * E + e for layer, experts in enumerate(pred) for e in experts}
+        n_rows = self._tx.prefetch_rows_of(f"moe/{_EXPERT_LEAVES[0]}")
+        rows = {r for r in rows if r < n_rows}
+        with self._prefetch_lock:
+            # bounded window: evict stale rows the predictor dropped
+            for r in [r for r in self._prefetch_stage if r not in rows]:
+                del self._prefetch_stage[r]
+            fresh = sorted(rows - set(self._prefetch_stage) - self._prefetch_live)
+            self._prefetch_live.update(fresh)
+        if not fresh:
+            return
+        self.stats.prefetch_predicted += len(fresh)
+        self._tx.submit(self._prefetch_pull, tuple(fresh))
+
+    def _prefetch_pull(self, rows) -> None:
+        """Background worker task: stage each predicted row's three leaves
+        on the device. Each leaf's rows are uploaded as contiguous runs on
+        the worker's stream (``prefetch_rows``), the worker waits for them,
+        and only then do the rows land in the stage: a row lands atomically
+        (all three leaves, uploaded, or nothing), so a barrier's snapshot
+        can never tear an expert. ``prefetch_hidden_ms`` is the batch's time
+        on the worker, off the serving thread (the uploads still share the
+        card with the decode steps they overlap)."""
+        t0 = time.perf_counter()
+        try:
+            leaves = {name: self._tx.prefetch_rows(f"moe/{name}", rows) for name in _EXPERT_LEAVES}
+            staged = {row: {name: leaves[name][row] for name in _EXPERT_LEAVES} for row in rows}
+        except Exception:
+            log.exception("prefetch pull failed for rows %s", rows)
+            self.stats.prefetch_errors += len(rows)
+            self.stats.background_errors += len(rows)
+            with self._prefetch_lock:
+                self._prefetch_live.difference_update(rows)
+            staged = {}
+        for st in {id(st.event): st for v in staged.values() for st in v.values()}.values():
+            if st.event is not None:
+                st.event.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._prefetch_lock:
+            for row, v in staged.items():
+                if row in self._prefetch_live:
+                    self._prefetch_live.discard(row)
+                    self._prefetch_stage[row] = v
+                    self.stats.prefetch_bytes += int(sum(st.nbytes for st in v.values()))
+            self.stats.prefetch_hidden_ms += ms
+
+    def _prefetch_snapshot(self, name: str, n_rows: int) -> Dict[int, Any]:
+        """Staged rows of one leaf, and the hit/miss accounting of a
+        barrier: counted once per restore (on the first leaf), so hits and
+        misses tally (layer, expert) rows, not row x leaf."""
+        with self._prefetch_lock:
+            snap = {r: v[name] for r, v in self._prefetch_stage.items()}
+        if name == _EXPERT_LEAVES[0]:
+            self.stats.prefetch_hits += len(snap)
+            self.stats.prefetch_misses += n_rows - len(snap)
+        return snap
+
+    def _maybe_rebalance(self) -> bool:
+        """Every ``rebalance_interval`` tracked steps since the last
+        rebalance, re-plan the replica set from the live routing
+        frequencies. A changed set is a changed ``ShardingPlan`` (new step
+        graphs), and the expert leaves move into its slots through the same
+        relayout path as any plan switch. Returns True when a rebalance was
+        applied."""
+        if self._tracker is None or self._tracker.steps == 0:
+            return False
+        if not self.replicate_experts:
+            return False
+        if self._tracker.steps - self._last_rebalance_step < self.rebalance_interval:
+            return False
+        self._last_rebalance_step = self._tracker.steps
+        new = plan_replication(self._tracker, self.replicate_experts, align=self._ep_size(),
+                               degrees=self._searched_degrees())
+        if new.is_identity:
+            new = None
+        if new == self._replication:
+            return False
+        old = self._replication
+        self._replication = new
+        ms = self._relayout_experts("reshard", self._sharding_for("decode"))
+        self.stats.replication_rebalances += 1
+        self.stats.transition_ms_total += ms
+        self.stats.last_transition_ms = ms
+        log.info(
+            "replication rebalance: %s -> %s (%.1f ms, %s)",
+            old.degrees if old is not None else "uniform",
+            new.degrees if new is not None else "uniform",
+            ms,
+            replication_summary(new, self._tracker.frequencies()) if new is not None else {},
+        )
+        return True
+
+    def _searched_degrees(self) -> Optional[tuple]:
+        """Planner-searched per-expert replica degrees: the latency model
+        trades each grant's bottleneck-load gain against the prefetch
+        bandwidth of keeping the slot fresh
+        (``HAPPlanner.searched_replication``), demoting
+        ``replicate_experts`` from fixed budget to cap. None (fixed
+        water-filling) when the session's planner was never built: fitting
+        the latency forests costs ~1 min, which a rebalance in a fixed-plan
+        engine must not trigger."""
+        sess = self.session
+        if sess is None or sess._planner is None or self.hap_plan is None or self._last_workload is None:
+            return None
+        try:
+            return sess.planner.searched_replication(
+                self._last_workload, self.hap_plan.expert_decode, self._tracker.frequencies(),
+                max_extra=self.replicate_experts, window_steps=self.rebalance_interval,
+            )
+        except Exception:
+            log.exception("replication degree search failed; water-filling")
+            self.stats.replication_search_errors += 1
+            self.stats.background_errors += 1
+            return None
+
     # -- adaptive re-planning ---------------------------------------------
     def _activate_plan(self, batch_workload: Workload, phase: str = "prefill") -> float:
         """Fetch/reuse the bucketed plan for this batch; run the Eq.-6
@@ -591,6 +891,7 @@ class InferenceEngine:
         moves nothing."""
         hits0 = self.session.hits
         fb0 = self.session.fallbacks
+        self._last_workload = batch_workload
         new = self.session.plan_for(batch_workload)
         self.stats.cache_hits += self.session.hits - hits0
         self.stats.planner_fallbacks += self.session.fallbacks - fb0
@@ -633,11 +934,15 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Drain an in-flight background restore and stop the executor's
-        worker thread; release the step graphs and the static cache."""
+        worker thread (after its queued pulls); release the step graphs, the
+        static cache and the prefetch stage."""
         self._drop_pending_restore()
         self._tx.close()
         self.steps.clear()
         self._static = None
+        with self._prefetch_lock:
+            self._prefetch_stage.clear()
+            self._prefetch_live.clear()
 
     def submit(self, req: Request) -> int:
         if req.deadline_ms is not None:
@@ -675,6 +980,19 @@ class InferenceEngine:
     # plan runs the same layout, so a replan reuses the graphs as it reuses
     # the reference's jit entries); on a mesh each (kind, plan, shape class)
     # is a graph of its own, its body running under that plan.
+    def _route_spec(self, rows: int) -> Dict[str, Any]:
+        """The static buffer a tracked decode step writes its router top-k
+        ids into (none with the tracker off)."""
+        if self._tracker is None:
+            return {}
+        return {"route": ((self.cfg.num_layers, rows, self.cfg.top_k), torch.int32)}
+
+    def _read_route(self, g: StepGraph) -> Optional[torch.Tensor]:
+        """Queue the read-back of a tracked step's top-k ids; the host tensor
+        holds them once the step's token read-back has synced (no second
+        sync)."""
+        return g.read_back("route") if self._tracker is not None else None
+
     def _run_step(self, g: StepGraph) -> torch.Tensor:
         """Run a fed step. No capture while a background restore is in
         flight: the joined leaves are installed at the barrier, which drops
@@ -712,26 +1030,29 @@ class InferenceEngine:
         g.feed("tokens", toks)
         return self._run_step(g)
 
-    def _decode_step_static(self, tok: torch.Tensor, pos: int, max_len: int) -> torch.Tensor:
+    def _decode_step_static(self, tok: torch.Tensor, pos: int, max_len: int):
         """One lockstep decode step of the (B, max_len) cache: ``tok`` (B,)
-        written at ``pos``; returns the logits (B, V). The position is fed,
-        not advanced inside the step, so the body stays a function of its
-        buffers."""
+        written at ``pos``; returns the logits (B, V) and the read-back of
+        the router top-k ids (None with the tracker off). The position is
+        fed, not advanced inside the step, so the body stays a function of
+        its buffers."""
         B = tok.shape[0]
         cache = self._static_cache(B, max_len)
         plan = self._sharding_for("decode")
 
         def body(g: StepGraph) -> torch.Tensor:
-            logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
-                                    plan=plan)
+            logits, new = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
+                                      plan=plan, collect_routing="route" in g.bufs)
+            if "route" in g.bufs:
+                g.bufs["route"].copy_(new.route_topk)
             return logits
 
         g = self.steps.graph(("decode", plan, B, max_len),
-                             lambda: dict(self.steps.buffers(tokens=((B, 1), torch.long)), pos=cache.pos), body,
-                             "static")
+                             lambda: dict(self.steps.buffers(tokens=((B, 1), torch.long), **self._route_spec(B)),
+                                          pos=cache.pos), body, "static")
         g.feed("tokens", tok[:, None])
         g.feed("pos", pos)
-        return self._run_step(g)
+        return self._run_step(g), self._read_route(g)
 
     # -- static batching ----------------------------------------------------
     def run(self, sampling: Optional[SamplingParams] = None) -> List[Completion]:
@@ -771,16 +1092,19 @@ class InferenceEngine:
             generated = np.zeros((B, max_new), np.int32)
             t1 = time.perf_counter()
             next_tok = self._sample(logits, sampling, gen)
+            host_tok = next_tok.cpu().numpy()
             done = np.zeros((B,), bool)
             for step in range(max_new):
-                host_tok = next_tok.cpu().numpy()
                 generated[:, step] = np.where(done, self.eos_id, host_tok)
                 if step == max_new - 1:
                     break
-                logits = self._decode_step_static(next_tok, S + step, max_len)
+                logits, route = self._decode_step_static(next_tok, S + step, max_len)
                 next_tok = self._sample(logits, sampling, gen)
+                host_tok = next_tok.cpu().numpy()  # the step's one sync
+                self._observe_routing(route)
+                self._maybe_rebalance()
                 if self.eos_id >= 0:
-                    done |= next_tok.cpu().numpy() == self.eos_id
+                    done |= host_tok == self.eos_id
                     if done.all():
                         break
             self._sync()
@@ -1027,8 +1351,10 @@ class InferenceEngine:
         and group buffers; returns the logits (nslots, V)."""
         cache = DecodeCache(k=self._live.cache.k, v=self._live.cache.v, pos=g.bufs["pos"],
                             block_tables=g.bufs["tables"], prefix_groups=g.bufs.get("groups"))
-        logits, _ = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
-                                plan=g.key[1])
+        logits, new = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
+                                  plan=g.key[1], collect_routing="route" in g.bufs)
+        if "route" in g.bufs:
+            g.bufs["route"].copy_(new.route_topk)
         return logits
 
     def _fused_body(self, g: StepGraph) -> torch.Tensor:
@@ -1053,7 +1379,8 @@ class InferenceEngine:
             specs.update(chunk=((1, C), torch.long), chunk_pos=((1,), torch.int32),
                          chunk_table=((1, mb), torch.int32))
         if kind in ("paged_decode", "fused"):
-            specs.update(tokens=((n, 1), torch.long), pos=((n,), torch.int32), tables=((n, mb), torch.int32))
+            specs.update(tokens=((n, 1), torch.long), pos=((n,), torch.int32), tables=((n, mb), torch.int32),
+                         **self._route_spec(n))
             if pfx:
                 specs["groups"] = ((2, n), torch.int32)
         if kind == "chunk":
@@ -1098,13 +1425,16 @@ class InferenceEngine:
         t0 = time.perf_counter()
         if fused:
             logits = self._run_step(g)
+            route = self._read_route(g)
             toks = self._sample(logits, sampling, gen).cpu().numpy()
             step_ms = (time.perf_counter() - t0) * 1e3
             # booked once, as the live rows' decode step; the joiner's
             # prefill_ms counts only its unfused chunks
             self.stats.decode_steps += 1
             self.stats.fused_steps += 1
+            self._observe_routing(route)
             self._apply_sampled(toks, active, step_ms)
+            self._maybe_rebalance()
             return
         logits = self._run_step(g)
         if final:
@@ -1152,10 +1482,13 @@ class InferenceEngine:
             g.feed("groups", groups)
         t0 = time.perf_counter()
         logits = self._run_step(g)
+        route = self._read_route(g)
         toks = self._sample(logits, sampling, gen).cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1e3
         self.stats.decode_steps += 1
+        self._observe_routing(route)
         self._apply_sampled(toks, active, step_ms)
+        self._maybe_rebalance()
 
     def _free_slot(self, i: int) -> _Slot:
         """Release row ``i``'s blocks, point its mirror at the trash block and

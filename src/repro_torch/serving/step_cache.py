@@ -33,7 +33,11 @@ reference's first call compiles. A capture that fails raises; nothing
 retries eagerly.
 
 Keys are ``(kind, plan, *shape class)`` as in the reference, plus a
-weights generation and the generation of the KV cache the step reads.
+weights generation and the generation of the KV cache the step reads. The
+plan carries the live replica set (hot-expert replication), and the
+rebalance that changes it lays the expert leaves out anew: a new plan and
+a new weights generation, so the old graphs are dropped and the new
+plan's are captured again (the reference's re-trace).
 ``new_weights`` (the engine installs new expert leaves) and ``new_cache``
 (a new live batch and its KV pool, or a new static cache) bump them and
 drop the graphs that read the old tensors: a graph holds raw pointers, so
@@ -44,11 +48,18 @@ steps its live pool; each has a generation of its own.
 Every graph gets its own memory pool: graphs are replayed in no fixed
 order, and one graph's intermediates must not overwrite another's logits
 before they are sampled.
+
+Python's cyclic garbage collector is paused while a step is captured: a
+collection on the capturing thread could destroy a dropped graph (or
+another CUDA object) there, which the capture's ``thread_local`` mode
+forbids, and the capture would fail.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -141,6 +152,32 @@ class StepGraph:
         host.numpy()[...] = np.asarray(value)
         buf.copy_(host, non_blocking=True)
 
+    def read_back(self, name: str) -> torch.Tensor:
+        """Queue a copy of buffer ``name`` (a step's output, such as the
+        router's top-k ids) into its pinned host twin and return the twin:
+        it holds the values once the stream has passed the copy, after the
+        step's token read-back, so reading it adds no sync."""
+        buf = self.bufs[name]
+        host = self._host.get(name)
+        if host is None:
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=buf.device.type == "cuda")
+            self._host[name] = host
+        host.copy_(buf, non_blocking=True)
+        return host
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Pause the cyclic garbage collector for the block (restoring its
+    state after)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
 
 class StepCache:
     """The engine's step graphs by key. ``capture`` False runs every step
@@ -187,7 +224,7 @@ class StepCache:
         if g.graph is None and self.capture and may_capture and g.eager_runs:
             t0 = time.perf_counter()
             graph = self.graph_factory()
-            with _build.recording() as counts:
+            with _build.recording() as counts, _collector_paused():
                 logits = graph.capture(lambda: g.body(g))
             g.graph, g.logits, g.counts = graph, logits, counts
             self.stats.captures += 1

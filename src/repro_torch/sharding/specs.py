@@ -28,8 +28,13 @@ keeps the decode cache sequence-sharded (``seq``: replicated attention, or
 kv heads that do not divide the axis), this one keeps the whole cache on
 every rank (``none``, a layout the reference also names). The tokens are
 the same; only the memory differs. The ``seq``/``seq_all`` layouts,
-data-parallel axes of size > 1, ``seq_shard_acts``, ``fsdp`` and expert
-replication are not ported yet (ROADMAP A.9, A.4).
+data-parallel axes of size > 1, ``seq_shard_acts`` and ``fsdp`` are not
+ported yet (ROADMAP A.9).
+
+Expert replication differs in one point: the reference gathers each slot's
+weights from the expert-layout leaves inside every step; here the engine
+lays the expert leaves out in slots once, when a replica set is installed,
+and the model reads them as they are (``repro_torch.models.moe``).
 """
 
 from __future__ import annotations
@@ -57,6 +62,66 @@ class KernelShardAxes:
 
 
 @dataclasses.dataclass(frozen=True)
+class ExpertReplication:
+    """Replica-aware expert placement (hot-expert replication).
+
+    ``degrees[e]`` is the replica count of expert ``e`` (>= 1);
+    ``order`` is a permutation of expert ids giving the slot layout —
+    expert ``order[0]``'s replica block first, then ``order[1]``'s, and
+    so on. The replication planner orders experts by inter-layer
+    co-fire affinity so experts that fire together land in the same
+    EP slot-axis shard (cutting all2all fan-out); dispatch maps token
+    copy ``p`` of expert ``e`` to replica ``p % degrees[e]`` inside the
+    expert's contiguous slot block, which both balances replica load
+    deterministically and keeps the remap a cheap gather.
+
+    Frozen + tuple-typed so a plan carrying one stays hashable (step-graph
+    keys): a replica-set change is a NEW plan, so its steps are captured
+    anew, the Eq.-6 transition semantics the engine's rebalance hook
+    piggybacks on.
+    """
+    degrees: Tuple[int, ...]
+    order: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if not self.order:
+            object.__setattr__(self, "order",
+                               tuple(range(len(self.degrees))))
+        if sorted(self.order) != list(range(len(self.degrees))):
+            raise ValueError(f"order {self.order} is not a permutation")
+        if any(d < 1 for d in self.degrees):
+            raise ValueError(f"degrees must be >= 1, got {self.degrees}")
+
+    @property
+    def n_experts(self) -> int:
+        return len(self.degrees)
+
+    @property
+    def total_slots(self) -> int:
+        return sum(self.degrees)
+
+    @property
+    def is_identity(self) -> bool:
+        return all(d == 1 for d in self.degrees) and \
+            self.order == tuple(range(len(self.degrees)))
+
+    def slot_to_expert(self) -> Tuple[int, ...]:
+        out = []
+        for e in self.order:
+            out.extend([e] * self.degrees[e])
+        return tuple(out)
+
+    def expert_offsets(self) -> Tuple[int, ...]:
+        """Slot index of each expert's first replica (indexed by expert id)."""
+        offsets = [0] * len(self.degrees)
+        pos = 0
+        for e in self.order:
+            offsets[e] = pos
+            pos += self.degrees[e]
+        return tuple(offsets)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShardingPlan:
     mesh: Any = None  # a RankMesh (or anything with axis_names and shape)
     dp_axes: Tuple[str, ...] = ()
@@ -67,6 +132,13 @@ class ShardingPlan:
     ffn_tp_axis: Optional[str] = None
     ep_axis: Optional[str] = None
     seq_axis: Optional[str] = None
+    # Hot-expert replication: when set, MoE dispatch routes token copies
+    # to replica *slots* (see ExpertReplication) instead of raw expert ids,
+    # and the expert leaves are laid out in those slots. Part of the frozen
+    # plan: a replica-set change is a plan change, so the engine's step
+    # graphs and transition machinery treat a rebalance like any other
+    # plan switch.
+    replication: Optional[ExpertReplication] = None
     # EP micro-batch pipelining: the dispatch buffer is split into K
     # capacity slabs, each slab's all-to-all overlapping the previous
     # slab's expert FFN. 0 = auto, 1 = serial, K >= 2 forced.

@@ -240,14 +240,14 @@ def test_engine_mirrors_and_groups(moe_setup):
         (dict(faults=object()), NotImplementedError),
         (dict(session=types.SimpleNamespace(mesh=types.SimpleNamespace(
             axis_names=("data", "model"), shape={"data": 2, "model": 2}))), NotImplementedError),  # A.9
-        (dict(replicate_experts=2), NotImplementedError),
-        (dict(prefetch=True), NotImplementedError),
+        (dict(replicate_experts=-1), ValueError),
+        (dict(prefetch=True, prefetch_top_p=0.0), ValueError),
         (dict(kv_block_size=0), ValueError),
     ],
 )
 def test_unported_and_invalid_options_raise(moe_setup, kw, err):
     _, cfg_t, _, tparams = moe_setup
-    with pytest.raises(err, match="ROADMAP|paged|positive"):
+    with pytest.raises(err, match="ROADMAP|paged|positive|>= 0|top_p"):
         InferenceEngine(cfg_t, tparams, device="cpu", **kw)
 
 

@@ -230,6 +230,8 @@ def test_paged_attention_split_edges(name, dtype):
         (8, 160, 14336, 4096),  # Mixtral-8x7B prefill wo: two row passes
         (60, 8, 2048, 1408),  # Qwen1.5-MoE-A2.7B: 60 experts
         (64, 8, 3584, 2560),  # Qwen2-57B-A14B
+        (68, 8, 2048, 1408),  # DeepSeekMoE-16B with 4 replica slots: decode wi over 68 slots
+        (34, 16, 1408, 2048),  # an EP2 rank's half of the 68 slots: decode wo
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -871,3 +873,146 @@ def test_capture_on_a_gloo_group_raises(tmp_path):
         assert not session.engine(params).steps.capture
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# hot-expert replication and predictive prefetch (ROADMAP A.4)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shard", [None, "ep1", "tp0"])
+def test_staged_row_restore_bit_equal_on_the_card(shard):
+    """Rows staged on the executor's worker (its own stream) and the missed
+    rows uploaded at the barrier give a restore bit-equal to the plain one,
+    dense (one int4_dequant launch over the assembled leaf) and packed,
+    whole and a rank's shard."""
+    from repro_torch.core.transition import TransitionExecutor
+    from repro_torch.kernels import _build
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    w = _randn(rng, (3, 8, 256, 384), "bfloat16", dev, std=0.05)
+    tx = TransitionExecutor(dev)
+    tx.backup("w", w)
+    tx.backup_packed("p", w)
+    sh = None if shard is None else (((None, "model", None, None) if shard[:2] == "ep" else
+                                      (None, None, None, "model")), int(shard[2]), {"model": 2})
+    kw = {} if sh is None else {"shard": sh}
+    rows = list(range(0, 24, 3))
+    staged = tx.submit(lambda: ({r: tx.prefetch_row("w", r) for r in rows},
+                                {r: tx.prefetch_row("p", r) for r in rows})).result().value
+    assert all(st.packed.is_cuda and st.event is not None for st in staged[0].values())
+    plain = tx.restore("w", torch.bfloat16, **kw)
+    n0 = _build.LAUNCH_COUNTS["int4_dequant"]
+    got = tx.restore_with_rows("w", staged[0], torch.bfloat16, **kw)
+    assert _build.LAUNCH_COUNTS["int4_dequant"] == n0 + 1
+    assert torch.equal(got, plain)
+    packed, want = tx.restore_packed_with_rows("p", staged[1], **kw), tx.restore_packed("p", **kw)
+    for a in ("packed", "scales", "zeros"):
+        assert torch.equal(getattr(packed, a), getattr(want, a))
+    tx.close()
+
+
+def test_prefetch_pull_while_a_step_is_captured():
+    """A prefetch pull that allocates and uploads on the worker thread's
+    stream while the engine thread captures a step (``thread_local``
+    capture, ``step_cache.CudaGraph``) is legal: the capture completes,
+    its replay computes the step, and the staged rows hold the backup's
+    bytes."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import fixed_plan
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving.step_cache import CudaGraph
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = InferenceEngine(cfg, params, max_batch=2, use_int4_transition=True, prefetch=True,
+                          hap_plan=fixed_plan("TP1", "TP2", "EP2", mechanism="int4_upload"))
+    capturing, pulled = threading.Event(), threading.Event()
+    orig = eng._tx.prefetch_rows
+
+    def in_capture(name, rows):
+        assert capturing.wait(30)  # the engine thread is inside its capture
+        return orig(name, rows)
+
+    eng._tx.prefetch_rows = in_capture
+    rows = tuple(range(cfg.num_layers * cfg.n_routed_experts))
+    eng._prefetch_live.update(rows)
+    fut = eng._tx.submit(lambda: (eng._prefetch_pull(rows), pulled.set()))
+    x = torch.randn(64, 64, device=dev)
+    x @ x  # the eager first run that precedes every capture (cuBLAS's state)
+    torch.cuda.synchronize()
+
+    def body():
+        y = x @ x  # a step's allocation and launch on the capture stream
+        capturing.set()
+        assert pulled.wait(30)  # every row uploaded while the capture is open
+        return torch.relu(y) + 1
+
+    graph = CudaGraph()
+    out = graph.capture(body)
+    fut.result(timeout=30)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.relu(x @ x) + 1)
+    assert set(eng._prefetch_stage) == set(rows) and eng.stats.prefetch_errors == 0
+    qt = eng._tx._backups["moe/wi_gate"]
+    gpr = qt.packed.shape[0] // len(rows)
+    for r in (0, len(rows) - 1):
+        assert torch.equal(eng._prefetch_stage[r]["wi_gate"].packed.cpu(), qt.packed[r * gpr:(r + 1) * gpr])
+    eng.close()
+
+
+def test_replicated_engine_on_the_card():
+    """Reduced DeepSeekMoE-16B in bf16 with the doctored router of
+    ``tests/test_replication.py``: a replicated engine rebalances, lays the
+    expert leaves out in its slots (the grouped matmul launched at the slot
+    count), and gives the unreplicated engine's tokens, eager and captured;
+    the captured step's router top-k reaches the tracker."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine, Request
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    L, d, E = params["layers"]["moe"]["router"].shape
+    v = torch.randn(d, generator=torch.Generator().manual_seed(3))
+    router = (-v)[None, :, None].expand(L, d, E).clone()
+    router[:, :, 1] = v
+    params["layers"]["moe"]["router"] = router.to(dev, params["layers"]["moe"]["router"].dtype)
+    prompts = ([1, 2, 3, 4], [9, 8, 7], list(range(10, 30)))
+
+    def serve(**kw):
+        eng = InferenceEngine(cfg, params, max_batch=2, **kw)
+        for p in prompts:
+            eng.submit(Request(p, max_new_tokens=10))
+        ops.reset_counts()
+        toks = [c.tokens for c in eng.run()]
+        eng.close()
+        return eng, toks
+
+    _, base = serve()
+    seen = {}
+    orig = ops._gmm_hopper
+
+    def spy(lhs, rhs, *a, **k):
+        seen[lhs.shape[0]] = seen.get(lhs.shape[0], 0) + 1
+        return orig(lhs, rhs, *a, **k)
+
+    for capture in (False, True):
+        ops._gmm_hopper = spy
+        try:
+            eng, toks = serve(replicate_experts=2, rebalance_interval=4, capture_steps=capture)
+        finally:
+            ops._gmm_hopper = orig
+        assert toks == base
+        rep = eng._replication
+        assert eng.stats.replication_rebalances >= 1 and rep.total_slots == E + 2
+        assert rep.degrees[0] == max(rep.degrees) and eng.stats.routing_steps > 0
+        assert eng.params["layers"]["moe"]["wi_gate"].shape[1] == rep.total_slots
+        assert seen.get(rep.total_slots, 0) > 0
+        assert (eng.steps.stats.captures > 0) == capture

@@ -294,15 +294,15 @@ def test_leaf_install_drops_graphs(moe_setup):
 def test_replays_add_the_recorded_counts(runs):
     """The first run is eager and counts as it launches; the second captures
     (the capture records and adds nothing) and replays; each replay adds
-    the recorded launches, variants and dispatches; a worker thread's
-    launch during the capture counts at once."""
+    the recorded launches, variants, shapes and dispatches; a worker
+    thread's launch during the capture counts at once."""
     steps = StepCache("cpu", True, FakeGraph)
     worker_launches = []
 
     def body(g):
         _build.count_launch("paged_attention", "split")
-        _build.count_launch("grouped_matmul", "wgmma")
-        _build.count_launch("grouped_matmul", "wgmma")
+        _build.count_launch("grouped_matmul", "wgmma", (68, 8, 16, 32))
+        _build.count_launch("grouped_matmul", "wgmma", (68, 8, 32, 16))
         ops.record("decode.hopper")
         if steps.stats.captures == 0 and _build._capturing.__dict__.get("counts") is not None:
             t = threading.Thread(target=lambda: (_build.count_launch("int4_dequant"), worker_launches.append(1)))
@@ -319,6 +319,8 @@ def test_replays_add_the_recorded_counts(runs):
     assert dict(ops.LAUNCH_COUNTS) == {"paged_attention": runs, "grouped_matmul": 2 * runs,
                                        **({"int4_dequant": 1} if worker_launches else {})}
     assert dict(_build.VARIANT_COUNTS) == {("paged_attention", "split"): runs, ("grouped_matmul", "wgmma"): 2 * runs}
+    assert dict(_build.SHAPE_COUNTS) == {("grouped_matmul", (68, 8, 16, 32)): runs,
+                                         ("grouped_matmul", (68, 8, 32, 16)): runs}
     assert dict(ops.DISPATCH_COUNTS) == {"decode.hopper": runs}
     assert worker_launches == ([1] if runs > 1 else [])
     assert (steps.stats.eager_runs, steps.stats.captures, steps.stats.replays) == (1, int(runs > 1), runs - 1)
@@ -341,6 +343,39 @@ def test_no_capture_while_a_restore_is_in_flight():
         assert g.graph is None and steps.stats.eager_runs == runs
     steps.run(g)
     assert g.graph is not None and steps.stats.captures == 1
+
+
+def test_garbage_collector_paused_during_capture():
+    """A collection on the capturing thread could destroy a dropped CUDA
+    graph inside the capture, which its ``thread_local`` mode forbids: the
+    cyclic collector is off while a step is captured, and back on after,
+    also when the capture fails."""
+    import gc
+
+    seen = []
+
+    class Spy(FakeGraph):
+        def capture(self, fn):
+            seen.append(gc.isenabled())
+            return super().capture(fn)
+
+    class Broken(FakeGraph):
+        def capture(self, fn):
+            raise RuntimeError("capture failed")
+
+    assert gc.isenabled()
+    for factory in (Spy, Broken):
+        steps = StepCache("cpu", True, factory)
+        g = steps.graph(("decode", None, 1), lambda: steps.buffers(x=((2,), torch.float32)),
+                        lambda g: g.bufs["x"] + 1, "static")
+        steps.run(g)
+        if factory is Spy:
+            steps.run(g)
+        else:
+            with pytest.raises(RuntimeError, match="capture failed"):
+                steps.run(g)
+        assert gc.isenabled()
+    assert seen == [False]
 
 
 def test_capture_error_raises():

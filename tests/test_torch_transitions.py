@@ -391,8 +391,7 @@ def test_stalled_restore_trips_watchdog_falls_back(moe_setup):
 
 
 def test_not_ported_knobs_raise(moe_setup):
-    for kw, item in ((dict(faults=object()), "A.5"), (dict(kv_overcommit=0.5), "A.5"),
-                     (dict(replicate_experts=2), "A.4"), (dict(prefetch=True), "A.4")):
+    for kw, item in ((dict(faults=object()), "A.5"), (dict(kv_overcommit=0.5), "A.5")):
         with pytest.raises(NotImplementedError, match=item):
             _port_engine(moe_setup, **kw)
     dense = dataclasses.replace(moe_setup[1], ffn_type="dense")

@@ -50,6 +50,18 @@ int64 key (the probability's bits, then the lower expert first), each as
 device ms per call (CUDA events around a CUDA graph of 50 calls), with
 whether their choices agree. It makes no model weights.
 
+With ``--prefetch`` it serves ``chip_smoke.py``'s serve traffic from resident
+INT4 experts through its switching session (``fixed_plan("TP1", "TP2",
+"EP2", mechanism="int4_upload")``), with predictive prefetch on and off,
+async and sync transitions, after a warm-up run: one ``timing`` line per
+run (exposed restore ms, restore wait, the ``prefetch_*`` counters, decode
+and prefill ms, and the host ms of the serving thread's routing reads and
+of the worker's row uploads being issued), then
+one traced prefetch-on async run, whose ``streams`` line gives each CUDA
+stream's kernel and copy time, the host-to-device bytes and their device
+rate, and how long the copies on the other streams overlapped the serving
+stream's kernels.
+
 The profiler adds host overhead of its own, so the idle share it shows is
 an upper bound; ``timing`` is the undisturbed wall clock.
 """
@@ -82,6 +94,8 @@ def main() -> int:
     ap.add_argument("--route", action="store_true", help="time the router's top-k selection only")
     ap.add_argument("--continuous", action="store_true", help="profile the continuous traffic instead")
     ap.add_argument("--resident", action="store_true", help="serve the experts from resident INT4 leaves")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="resident INT4 switching session, prefetch on and off, and one traced run")
     ap.add_argument("--captured", action="store_true",
                     help="eager against captured engine steps: static, continuous and resident cells")
     args = ap.parse_args()
@@ -111,6 +125,9 @@ def main() -> int:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     if args.captured:
         profile_captured(cfg, params, args)
+        return 0
+    if args.prefetch:
+        profile_prefetch(cfg, params)
         return 0
     if args.resident:
         params = resident(params)
@@ -323,6 +340,138 @@ def profile_captured(cfg, params, args) -> None:
         static_cell("resident", resident(params))
     elif experts:
         emit({"phase": "skipped", "cell": "resident", "why": "the INT4 copy does not fit beside the dense leaves"})
+    print_card()
+
+
+def _union(intervals):
+    """The disjoint union of [start, end) intervals, sorted."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(xs, ys) -> float:
+    """The measure of the intersection of two disjoint sorted unions."""
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        total += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_summary(trace_path: str) -> dict:
+    """Per CUDA stream of a chrome trace: kernels and copies, their device
+    ms, host-to-device bytes and their device rate; and the ms in which
+    copies on other streams ran while the serving stream (the one with the
+    most kernels) ran a kernel."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    streams = {}
+    for e in gpu:
+        st = streams.setdefault(e.get("args", {}).get("stream"), {"kernels": 0, "kernel_ms": 0.0, "copies": 0,
+                                                                  "copy_ms": 0.0, "htod_bytes": 0, "htod_ms": 0.0})
+        if e["cat"] == "kernel":
+            st["kernels"] += 1
+            st["kernel_ms"] += e["dur"] / 1e3
+        else:
+            st["copies"] += 1
+            st["copy_ms"] += e["dur"] / 1e3
+            if "HtoD" in e["name"]:
+                st["htod_bytes"] += int(e.get("args", {}).get("bytes", 0))
+                st["htod_ms"] += e["dur"] / 1e3
+    for st in streams.values():
+        st["htod_gb_per_s"] = st["htod_bytes"] / st["htod_ms"] / 1e6 if st["htod_ms"] else None
+    main = max(streams, key=lambda k: streams[k]["kernels"])
+    kernels = _union((e["ts"], e["ts"] + e["dur"]) for e in gpu
+                     if e["cat"] == "kernel" and e.get("args", {}).get("stream") == main)
+    copies = _union((e["ts"], e["ts"] + e["dur"]) for e in gpu
+                    if e["cat"] == "gpu_memcpy" and e.get("args", {}).get("stream") != main)
+    return {"serving_stream": main, "streams": {str(k): v for k, v in streams.items()},
+            "other_stream_copies_ms": sum(b - a for a, b in copies) / 1e3,
+            "other_stream_copies_during_serving_kernels_ms": _overlap(copies, kernels) / 1e3}
+
+
+def profile_prefetch(cfg, params) -> None:
+    """The ``--prefetch`` runs: the resident switching session's serve
+    traffic, async and sync transitions, prefetch off and on, then one
+    traced run with prefetch on and async transitions."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import MAX_BATCH, MAX_NEW, PREFETCH_TOP_P, _session, prompts
+    from repro_torch.serving import Request
+
+    def serve(asy, on, prof=None):
+        eng = _session(cfg).engine(params, max_batch=MAX_BATCH, resident_int4=True, use_int4_transition=True,
+                                   async_transitions=asy, prefetch=on, prefetch_top_p=PREFETCH_TOP_P)
+        for p in prompts(cfg):
+            eng.submit(Request(prompt=p, max_new_tokens=MAX_NEW))
+        # host ms of the serving thread's routing read (tracker, predictor,
+        # pulls issued) and of the worker's row uploads being issued
+        host = {"observe_ms": 0.0, "observes": 0, "upload_issue_ms": 0.0, "uploads": 0, "rows": 0, "runs": 0}
+        observe, stage = eng._observe_routing, eng._tx.prefetch_rows
+
+        def timed_observe(route):
+            t0 = time.perf_counter()
+            observe(route)
+            host["observe_ms"] += (time.perf_counter() - t0) * 1e3
+            host["observes"] += 1
+
+        def timed_stage(name, rows):
+            t0 = time.perf_counter()
+            out = stage(name, rows)
+            host["upload_issue_ms"] += (time.perf_counter() - t0) * 1e3
+            host["uploads"] += 1
+            host["rows"] += len(rows)
+            host["runs"] += 1 + sum(b != a + 1 for a, b in zip(sorted(rows), sorted(rows)[1:]))
+            return out
+
+        eng._observe_routing, eng._tx.prefetch_rows = timed_observe, timed_stage
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+        st, per_batch = eng.stats, comps[::MAX_BATCH]
+        row = {"async_transitions": asy, "prefetch": on, "wall_s": wall,
+               "prefill_ms": [c.prefill_ms for c in per_batch],
+               "decode_ms_per_step": [c.decode_ms / (MAX_NEW - 1) for c in per_batch],
+               "transition_ms": [c.transition_ms for c in per_batch], "transition_ms_total": st.transition_ms_total,
+               "restore_wait_ms": st.restore_wait_ms,
+               **{k: getattr(st, k) for k in ("prefetch_predicted", "prefetch_hits", "prefetch_misses",
+                                              "prefetch_bytes", "prefetch_hidden_ms", "prefetch_exposed_ms",
+                                              "prefetch_errors")}, "host": host}
+        eng.close()
+        return row, [c.tokens for c in comps]
+
+    serve(True, False)  # warm-up: builds the kernels
+    tokens = {}
+    for asy in (True, False):
+        for on in (False, True):
+            row, tokens[asy, on] = serve(asy, on)
+            emit({"phase": "timing", "what": "prefetch", **row, "tokens_equal_prefetch_off": tokens[asy, on]
+                  == tokens[asy, False]})
+    path = os.path.join(tempfile.mkdtemp(), "trace.json")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    row, _ = serve(True, True, prof)
+    prof.export_chrome_trace(path)
+    emit({"phase": "profile", "what": "prefetch traced (async, prefetch on)", **row, **stream_summary(path)})
+    os.remove(path)
+    os.rmdir(os.path.dirname(path))
     print_card()
 
 
