@@ -60,7 +60,29 @@ printing one JSON line:
              and dequant against their plain versions at the shapes the
              kernels phase has no row for (68 slots, the slot leaf, the
              barrier's assembled leaf)
-9. families - DeepSeek's weights freed, then three more families, each at
+9. robustness - the same weights (the router put back after the
+             replication phase) at capacity factor E / k, so nothing drops
+             and rows cannot couple: the continuous traffic at a pool of 51
+             blocks (3 rows' expected need, 2 rows' worst case) with
+             worst-case admission, then ``kv_overcommit=0.25`` eager and
+             captured (>= 2 preemptions), then with the prefix cache at 38
+             blocks (evictions under pressure and preemptions), then one
+             ``FaultInjector().fail("kv_alloc", at=N)`` at the last counted
+             allocation (exactly one more preemption): requests never
+             preempted give the worst-case run's tokens exactly, a
+             preempted one's stash is that run's prefix and its first
+             differing token a near-tie (teacher-forced gap under 2% of the
+             max |logit|); deadlines and cancels on an injected clock (one
+             each expiring and cancelled queued and live, partial outputs
+             the worst-case run's prefixes), eager and captured; every
+             allocator conserved. Then the resident session's degraded
+             modes on its first batch, each against its run with no fault:
+             a failed async restore and one stalled past a small watchdog
+             (sync failover), failed prefetch rows (``p=0.5``), and an
+             ILP-sourced session whose solve fails (the static TP plan).
+             Phase ``robustness_kernels`` adds paged rows at a replay's
+             tail chunk and gmm rows at new capacities
+10. families - DeepSeek's weights freed, then three more families, each at
              full width on seeded random weights, freed before the next:
              Qwen3-30B-A3B (48 layers, 128 experts top-8, GQA 32/4): the
              serve phase's ``run()`` eager and captured, the agree check,
@@ -71,7 +93,7 @@ printing one JSON line:
              its first 8 of 32 layers (93.4 GB in bf16 does not fit the
              80 GB card, and 8 layers keep the whole run inside its time
              limit): ``run()`` and agree. Each prints its peak memory
-10. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
+11. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
              gloo group, both on the one card (NCCL refuses two ranks on one
              device), spawned by ``repro_torch.sharding.launch``; each rank
              draws only its shard (``init_params(..., shard=...)``, the
@@ -108,7 +130,9 @@ continuous run also eager.
 
 Every serving phase also checks that each bfloat16 flash and grouped-matmul
 launch on its path took the ``wgmma`` variant, and each paged and
-prefix-paged launch the ``split`` variant (``_build.VARIANT_COUNTS``).
+prefix-paged launch the ``split`` variant (``_build.VARIANT_COUNTS``), and
+every run that injects no fault that the degraded paths' counters
+(``FALLBACK_COUNTERS``) read 0.
 
 Times: ``ms`` and ``library_ms`` (and the prefix row's ``paged_ms``) are
 device times per call from CUDA events around a CUDA graph of back-to-back
@@ -321,6 +345,17 @@ def compare(got, want, atol: float, rtol: float, what: str) -> dict:
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain version: {res}")
     return res
+
+
+# the counters of the degraded paths (DESIGN.md §4f): a run that injects no
+# fault must read 0 on each, or a failure went into a fallback unseen
+FALLBACK_COUNTERS = ("background_errors", "restore_errors", "prefetch_errors", "planner_fallbacks")
+
+
+def no_fallback(name: str, counts: dict) -> None:
+    got = {k: counts[k] for k in FALLBACK_COUNTERS}
+    if any(got.values()):
+        raise AssertionError(f"{name}: a degraded path ran in a run that injects no fault: {got}")
 
 
 def ref_ops(dispatch: dict) -> dict:
@@ -825,12 +860,13 @@ def step_stats(eng) -> dict:
     return dataclasses.asdict(eng.steps.stats)
 
 
-def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER) -> dict:
+def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER, logits: bool = True, same=()) -> dict:
     """Serve one workload on fresh engines, eager (``capture_steps=False``)
     and captured, in ``order``; one JSON line per run. Every run must give
-    the same tokens and the same launch, variant and dispatch counts. Where
-    ``order`` has both modes, ``logits_ab`` then compares the logits in two
-    more runs, outside the timed ones. Returns the first captured run's
+    the same tokens and the same launch, variant and dispatch counts (and
+    the same values of the result's keys ``same``). Where
+    ``order`` has both modes and ``logits``, ``logits_ab`` then compares the
+    logits in two more runs, outside the timed ones. Returns the first captured run's
     result (the main path) with ``ab`` = the per-run numbers."""
     import torch
 
@@ -854,7 +890,7 @@ def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER) -> dict:
     for r in results:
         if r["tokens"] != main["tokens"]:
             raise AssertionError(f"{phase} ({name}): captured and eager tokens differ")
-        for k in ("launches", "variants", "dispatch", "shapes"):
+        for k in ("launches", "variants", "dispatch", "shapes") + tuple(same):
             if r.get(k) != main.get(k):
                 raise AssertionError(f"{phase} ({name}): {k} differ, captured {main[k]} against {r[k]}")
     keys = ("wall_s", "tokens_per_s", "decode_ms_per_step", "decode_step_ms_mean", "prefill_ms",
@@ -862,9 +898,9 @@ def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER) -> dict:
     main = dict(main, ab=[{"capture_steps": r["capture_steps"], **{k: r[k] for k in keys if k in r},
                            "captures": r["steps"]["captures"], "capture_ms": r["steps"]["capture_ms"],
                            "replays": r["steps"]["replays"]} for r in results])
-    logits = logits_ab(phase, name, make, serve, main["tokens"]) if len(set(order)) == 2 else {}
+    logit = logits_ab(phase, name, make, serve, main["tokens"]) if logits and len(set(order)) == 2 else {}
     emit({"phase": phase, "run": name, "ab_order": ["captured" if c else "eager" for c in order],
-          "tokens_equal": True, "counts_equal": True, **logits, "ab": main["ab"]})
+          "tokens_equal": True, "counts_equal": True, **logit, "ab": main["ab"]})
     return main
 
 
@@ -1196,8 +1232,7 @@ def _serve_static(eng, cfg, name: str) -> dict:
     refs = ref_ops(dispatch)
     if refs:
         raise AssertionError(f"{name}: ref ops ran on the main path: {refs}")
-    if st.restore_errors or st.background_errors:
-        raise AssertionError(f"{name}: a background restore failed: {dataclasses.asdict(st)}")
+    no_fallback(name, dataclasses.asdict(st))
     per_batch = comps[::MAX_BATCH]  # one completion per batch: uids fill batches in order
     steps = MAX_NEW - 1
     tokens = sum(len(c.tokens) for c in comps)
@@ -1330,6 +1365,7 @@ def _serve_continuous(eng, cfg, name: str):
         raise AssertionError(f"{name}: ref ops ran on the main path: {refs}")
     if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
         raise AssertionError(f"{name}: a token outside the vocabulary")
+    no_fallback(name, dataclasses.asdict(st))
     tokens = sum(len(c.tokens) for c in comps)
     return {
         "model": cfg.name, "layers": cfg.num_layers, "requests": len(comps), "max_batch": CONT_MAX_BATCH,
@@ -1613,7 +1649,8 @@ def phase_replication(cfg, params, trans, shapes) -> dict:
         raise AssertionError(f"replication (free routing): hopper and ref differ on the same experts: {same}")
 
     # the doctored router, nothing dropped (the router leaf is overwritten
-    # in place: no later phase serves these weights)
+    # in place, and put back at the end of the phase)
+    router = params["layers"]["moe"]["router"].clone()
     params["layers"]["moe"]["router"].copy_(_doctored_router(cfg))
 
     # (c) resident INT4 with replication, then a dense engine on the round-tripped weights
@@ -1694,6 +1731,7 @@ def phase_replication(cfg, params, trans, shapes) -> dict:
     if max(l2) > REPL_TOL:
         raise AssertionError(f"replication: replicated logits differ from the unreplicated ones: {l2}")
     del got, base_logits, base_experts
+    params["layers"]["moe"]["router"].copy_(router)
     return out
 
 
@@ -1736,6 +1774,433 @@ def replication_kernel_rows(cfg, rows, shapes) -> None:
         added.append(row)
         torch.cuda.empty_cache()
     emit({"phase": "replication_kernels", "rows": added})
+
+
+# robustness phase (DESIGN.md §4f): the continuous traffic at the
+# replication phase's capacity factor E / k (C = T: nothing drops, so rows
+# cannot couple through an expert's capacity, and only a replay changes a
+# row's arithmetic). The schedule (admissions, growth, preemptions) depends
+# on the lengths alone, never on the weights or tokens, so the CPU tests'
+# reduced model gives the same one (tests/test_torch_faults.py).
+ROBUST_OVERCOMMIT = 0.25
+ROBUST_ROWS = 3  # the pool: this many rows' expected need (17 blocks each); worst case admits 2
+ROBUST_CACHE_BLOCKS = 38  # with the prefix cache on, the pool that evicts and preempts under growth
+NEAR_TIE = 0.02  # a replay's first differing token: logit gap below this share of the row's max |logit|
+# lifecycle run, on the worst-case pool (2 rows live, the rest queued), the
+# clock reading decode steps: uid -> deadline in decode steps (uid 15
+# expires queued, uid 1 live), and (uid, after so many engine steps) cancels
+# (uid 14 queued, uid 0 live)
+ROBUST_DEADLINES = {1: 6, 15: 5}
+ROBUST_CANCELS = ((14, 3), (0, 8))
+# what every eager and captured run of one workload must agree on, beside the tokens and counts
+ROBUST_SAME = ("done", "stash", "preemptions", "preempted_tokens", "prefix_evictions_on_pressure", "cancelled",
+               "deadline_expired", "recomputed_tokens")
+STALL_MARGIN = 10  # a restore stall outlasts the measured kick-to-barrier time this many times
+STALL_TIMEOUT_S = 0.05
+
+
+def robust_pool(cfg) -> tuple:
+    """(the pool in blocks, each request's worst-case and expected blocks)
+    of the continuous traffic: ``ROBUST_ROWS`` rows' expected need, which
+    admits one row fewer at the worst case."""
+    from repro_torch.serving.kv_cache import blocks_for
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    sch = ContinuousScheduler(max_batch=CONT_MAX_BATCH, bucket=64)
+    for p, g in cont_requests(cfg):
+        sch.submit(p, g)
+    worst = [blocks_for(sch.kv_need(r), CONT_BLOCK) for r in sch.queued()]
+    expect = [blocks_for(sch.expected_kv_need(r, ROBUST_OVERCOMMIT), CONT_BLOCK) for r in sch.queued()]
+    pool = ROBUST_ROWS * max(expect)
+    if sum(worst[:ROBUST_ROWS]) <= pool:
+        raise AssertionError(f"robustness: a pool of {pool} blocks admits {ROBUST_ROWS} rows at the worst case too")
+    return pool, worst, expect
+
+
+def _serve_robust(eng, cfg, name: str, cancels=(), deadlines=None) -> dict:
+    """``serve_continuous`` of the continuous traffic, with ``deadlines``
+    (uid -> decode steps, the engine's clock reading its decode steps) and
+    ``cancels`` ((uid, after so many steps)); every completion, each
+    preempted request's stash lengths, the replays' recomputed tokens, the
+    launch counts of the run (set to 0 just before it), and the pool's
+    conservation: every allocator ends with all blocks free and no
+    reservation, once its prefix cache (if any) lets its entries go."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+
+    stash, allocators, recomputed, steps = {}, [], [0], [0]
+    preempt, begin, admit_one, step = eng._preempt, eng._begin_live_batch, eng._admit_one, eng.step
+
+    def spy_preempt(j):
+        r = eng._live.slots[j].req
+        preempt(j)
+        stash.setdefault(r.uid, []).append(len(r.stashed))
+
+    def spy_begin():
+        begin()
+        allocators.append((eng._live.allocator, eng._live.prefix))
+
+    def spy_admit(i, r):
+        admit_one(i, r)
+        if r.preemptions:
+            recomputed[0] += sum(len(c) for c in eng._live.slots[i].pending)
+
+    def spy_step(*a):
+        steps[0] += 1
+        for uid, after in cancels:
+            if steps[0] == after and not eng.cancel(uid):
+                raise AssertionError(f"{name}: uid {uid} was not there to cancel after {after} steps")
+        return step(*a)
+
+    eng._preempt, eng._begin_live_batch, eng._admit_one, eng.step = spy_preempt, spy_begin, spy_admit, spy_step
+    eng.clock = lambda: float(eng.stats.decode_steps)
+    reqs = cont_requests(cfg)
+    for uid, (p, g) in enumerate(reqs):
+        d = (deadlines or {}).get(uid)
+        eng.submit(Request(prompt=p, max_new_tokens=g, deadline_ms=None if d is None else d * 1e3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    comps = eng.serve_continuous()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    shapes, variants = launch_shapes(), check_variants(name, launches)
+    if [c.uid for c in comps] != list(range(len(reqs))):
+        raise AssertionError(f"{name}: the completions are not every request once: {[c.uid for c in comps]}")
+    for c, (_, g) in zip(comps, reqs):
+        if c.status == "ok" and len(c.tokens) != g or c.status != "ok" and len(c.tokens) >= g:
+            raise AssertionError(f"{name}: uid {c.uid} {c.status} with {len(c.tokens)} of {g} tokens")
+        if any(not 0 <= t < cfg.vocab_size for t in c.tokens):
+            raise AssertionError(f"{name}: a token outside the vocabulary")
+    if ref_ops(dispatch):
+        raise AssertionError(f"{name}: ref ops ran on the main path: {ref_ops(dispatch)}")
+    no_fallback(name, dataclasses.asdict(st))
+    for a, prefix in allocators:
+        if prefix is not None:
+            prefix.evict(a.num_blocks)
+        if a.num_reserved or a.num_free != a.num_blocks - 1 or any(a.refcount(b) for b in range(1, a.num_blocks)):
+            raise AssertionError(f"{name}: the pool leaks: {a.describe()}")
+    if eng._live is not None or not allocators:
+        raise AssertionError(f"{name}: the live batch did not drain")
+    tokens = sum(len(c.tokens) for c in comps)
+    robust = ("preemptions", "preempted_tokens", "prefix_evictions_on_pressure", "cancelled", "deadline_expired")
+    return {
+        "model": cfg.name, "layers": cfg.num_layers, "capacity_factor": cfg.capacity_factor,
+        "kv_pool_blocks": eng.kv_pool_blocks, "kv_overcommit": eng.kv_overcommit, "prefix_cache": eng.prefix_caching,
+        **{k: getattr(st, k) for k in robust}, "recomputed_tokens": recomputed[0],
+        "stash": {str(u): n for u, n in stash.items()}, "tokens_generated": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "decode_steps": st.decode_steps, "prefill_chunks": st.prefill_chunks,
+        "decode_step_ms_mean": st.decode_step_ms_sum / max(st.decode_steps, 1),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
+        "dispatch": dispatch, "shapes": shapes, "tokens": [c.tokens for c in comps],
+        "done": [[c.uid, c.status, c.preemptions] for c in comps], "card": card_line(),
+    }
+
+
+@contextlib.contextmanager
+def _quiet():
+    """Keep the injected failures' logged tracebacks off stderr (the
+    counters and the gates report them)."""
+    import logging
+
+    names = ("repro_torch.serving", "repro_torch.session")
+    levels = [logging.getLogger(n).level for n in names]
+    for n in names:
+        logging.getLogger(n).setLevel(logging.CRITICAL)
+    try:
+        yield
+    finally:
+        for n, lv in zip(names, levels):
+            logging.getLogger(n).setLevel(lv)
+
+
+def _replay_gate(cfg, params, name: str, run: dict, base: dict) -> dict:
+    """A run that preempted, against the worst-case pool's run ``base``: a
+    request never preempted gives exactly its tokens; a preempted one's
+    tokens up to its first preemption too (the stash), and where its
+    resumed tokens first differ (the replay re-prefilled the stash as a
+    chunk, which rounds otherwise than the decode steps that wrote it), the
+    two tokens near-tie in a teacher-forced prefill of the prompt and the
+    base run's tokens: a gap under ``NEAR_TIE`` of the row's max |logit|.
+    A stash at the wrong positions or RoPE offset differs at once, and by
+    far more."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    reqs = cont_requests(cfg)
+    ties = []
+    for uid, (got, want) in enumerate(zip(run["tokens"], base["tokens"])):
+        first = run["stash"].get(str(uid), [None])[0]
+        if first is None or got == want:
+            if got != want:
+                raise AssertionError(f"{name}: uid {uid}, never preempted, differs from the worst-case run")
+            continue
+        p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        if p < first:
+            raise AssertionError(f"{name}: uid {uid}'s stash ({first} tokens) differs from the worst-case run at {p}")
+        toks = torch.tensor([reqs[uid][0] + want[:p]], dtype=torch.long, device=params["embed"].device)
+        with torch.inference_mode():
+            logits = prefill(params, cfg, {"tokens": toks}, toks.shape[1] + 1)[0][0].float()
+        gap = (logits[want[p]] - logits[got[p]]).abs().item() / logits.abs().max().item()
+        ties.append({"uid": uid, "position": p, "stash": run["stash"][str(uid)], "gap": gap})
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"{name}: uid {uid} diverges at token {p} with a logit gap of {gap:.4f} of the "
+                                 "row's max: not a near-tie")
+    return {"near_tie_checks": len(ties), "near_ties": ties}
+
+
+def phase_robustness(cfg, params, shapes) -> dict:
+    """The §4f robustness layer at full width and depth on the continuous
+    traffic at capacity factor E / k: worst-case admission against
+    ``kv_overcommit=0.25`` at the same pool (cache off, eager and captured;
+    cache on at a smaller pool, where growth evicts prefix entries and
+    preempts), one injected ``kv_alloc`` failure, deadlines and cancels
+    (eager and captured), then the resident session's degraded modes (a
+    failed and a stalled restore, failed prefetch rows) and the ILP
+    session's static fallback, each against the same session's run with no
+    fault. Records every run's launches by shape in ``shapes``; returns the
+    overcommitted captured run (the phase's main path) with ``launches`` of
+    each kernel on its path."""
+    from repro_torch.core import HAPSession, latency
+    from repro_torch.kernels import ops
+    from repro_torch.core.hardware import get_chip
+    from repro_torch.serving import FaultInjector, InferenceEngine, Request
+
+    cfg = dataclasses.replace(cfg, capacity_factor=REPL_CAPACITY)
+    pool, worst, expect = robust_pool(cfg)
+
+    def record(run, res):
+        for kernel, by_shape in res["shapes"].items():
+            for key, n in by_shape.items():
+                shapes.setdefault(kernel, {}).setdefault(key, {})[run] = n
+
+    def make(capture, blocks=pool, **kw):
+        return InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, kv_blocks=blocks,
+                               capture_steps=capture, **kw)
+
+    def show(run, res, **extra):
+        emit({"phase": "robustness", "run": run, **{k: v for k, v in res.items() if k not in UNPRINTED}, **extra})
+
+    # the worst case, then kv_overcommit at the same pool (the counting
+    # injector only counts the allocations, for the injected run below)
+    base = _serve_robust(make(True), cfg, "robustness (worst case)")
+    record("worst case", base)
+    show("worst case", base, pool_blocks=pool, worst_blocks=worst[:3], expected_blocks=expect[:3])
+    if base["preemptions"]:
+        raise AssertionError("robustness: the worst-case pool preempted")
+    counted = []
+
+    def make_oc(capture):
+        counted.append(FaultInjector())
+        return make(capture, kv_overcommit=ROBUST_OVERCOMMIT, faults=counted[-1])
+
+    oc = ab_runs("robustness", "overcommit", make_oc, lambda eng: _serve_robust(eng, cfg, "robustness (overcommit)"),
+                 logits=False, same=ROBUST_SAME)
+    record("overcommit, captured", oc)
+    if oc["preemptions"] < 2:
+        raise AssertionError(f"robustness: the overcommitted pool preempted {oc['preemptions']} times, not >= 2")
+    for k in ("paged_attention", "grouped_matmul"):
+        if not oc["launches"].get(k):
+            raise AssertionError(f"robustness (overcommit): {k} was not launched")
+    calls = {f.calls.get("kv_alloc") for f in counted}
+    if len(calls) != 1:
+        raise AssertionError(f"robustness: the overcommitted runs allocated different block counts: {calls}")
+    oc["replays"] = _replay_gate(cfg, params, "robustness (overcommit)", oc, base)
+    emit({"phase": "robustness", "run": "overcommit against the worst case", "replays": oc["replays"],
+          "tokens_per_s": {"overcommit": oc["tokens_per_s"], "worst case": base["tokens_per_s"]},
+          "decode_step_ms_mean": {"overcommit": oc["decode_step_ms_mean"], "worst case": base["decode_step_ms_mean"]},
+          "wall_s": {"overcommit": oc["wall_s"], "worst case": base["wall_s"]}, "card": card_line()})
+
+    # the prefix cache on, at a pool where growth evicts cache-only entries
+    pc = _serve_robust(make(True, ROBUST_CACHE_BLOCKS, kv_overcommit=ROBUST_OVERCOMMIT, prefix_cache=True), cfg,
+                       "robustness (overcommit, prefix cache)")
+    record("overcommit prefix cache", pc)
+    if pc["prefix_evictions_on_pressure"] < 1 or pc["preemptions"] < 1 or not pc["launches"].get(
+            "prefix_paged_attention"):
+        raise AssertionError(f"robustness (prefix cache): no eviction under pressure, or no preemption: {pc['done']}")
+    pc["replays"] = _replay_gate(cfg, params, "robustness (overcommit, prefix cache)", pc, base)
+    show("overcommit prefix cache", pc, replays=pc["replays"])
+
+    # one injected allocation failure, at the last allocation of the counted run
+    fi = FaultInjector().fail("kv_alloc", at=calls.pop() - 1)
+    inj = _serve_robust(make(True, kv_overcommit=ROBUST_OVERCOMMIT, faults=fi), cfg, "robustness (kv_alloc fault)")
+    record("kv_alloc fault", inj)
+    if fi.fired_at("kv_alloc") != 1 or inj["preemptions"] != oc["preemptions"] + 1:
+        raise AssertionError(f"robustness: the kv_alloc fault fired {fi.fired_at('kv_alloc')} times and the run "
+                             f"preempted {inj['preemptions']} times against {oc['preemptions']}")
+    inj["replays"] = _replay_gate(cfg, params, "robustness (kv_alloc fault)", inj, base)
+    show("kv_alloc fault", inj, fired=fi.fired, replays=inj["replays"])
+
+    # deadlines and cancels on the worst-case pool: every token exact
+    def serve_life(eng):
+        res = _serve_robust(eng, cfg, "robustness (lifecycle)", ROBUST_CANCELS, ROBUST_DEADLINES)
+        for (uid, status, _), got, want in zip(res["done"], res["tokens"], base["tokens"]):
+            if got != want[:len(got)]:
+                raise AssertionError(f"robustness (lifecycle): uid {uid} ({status}) is not the worst-case run's prefix")
+        return res
+
+    life = ab_runs("robustness", "lifecycle", make, serve_life, logits=False, same=ROBUST_SAME)
+    status = {uid: (st, len(toks)) for (uid, st, _), toks in zip(life["done"], life["tokens"])}
+    want = {15: ("deadline", 0), 14: ("cancelled", 0)}
+    if ({u: status[u] for u in want} != want or status[1][0] != "deadline" or status[0][0] != "cancelled"
+            or not status[1][1] or not status[0][1] or (life["cancelled"], life["deadline_expired"]) != (2, 2)):
+        raise AssertionError(f"robustness (lifecycle): {status}")
+    record("lifecycle, captured", life)
+
+    # the resident session's degraded modes, each against its run with no fault
+    batch = [Request(prompt=p, max_new_tokens=MAX_NEW) for p in prompts(cfg)[:MAX_BATCH]]
+
+    def resident(prefetch=False, faults=None):
+        return _session(cfg).engine(params, max_batch=MAX_BATCH, resident_int4=True, use_int4_transition=True,
+                                    prefetch=prefetch, prefetch_top_p=PREFETCH_TOP_P, faults=faults)
+
+    def serve_batch(eng, name, clean=False, fi=None):
+        """The first batch through ``run()``; the counters' changes in that
+        run, which must all be 0 where ``clean`` (nothing injected). With
+        ``fi`` the engine is closed first (its worker's queued pulls drained)
+        and ``fired`` is that injector's count."""
+        before = dataclasses.asdict(eng.stats)
+        for r in batch:
+            eng.submit(dataclasses.replace(r))
+        ops.reset_counts()
+        comps = eng.run()
+        launches = dict(ops.LAUNCH_COUNTS)
+        check_variants(f"robustness ({name})", launches)
+        if fi is not None:
+            eng.close()
+        st = dataclasses.asdict(eng.stats)
+        keys = FALLBACK_COUNTERS + ("async_restores", "restore_overlap_ms", "restore_wait_ms", "prefetch_hits")
+        res = {"run": name, "tokens": [c.tokens for c in comps], "launches": launches,
+               **{k: st[k] - before[k] for k in keys}, "card": card_line()}
+        if fi is not None:
+            res["fired"] = dict(fi.fired)
+        if clean:
+            no_fallback(f"robustness ({name})", res)
+        show(name, res)
+        return res
+
+    fi = FaultInjector()
+    eng = resident(faults=fi)
+    degraded = [serve_batch(eng, "resident, no fault", clean=True)]
+    ref = degraded[0]
+    if not ref["launches"].get("int4_dequant") or ref["async_restores"] != 1:
+        raise AssertionError(f"robustness (resident): {ref}")
+    # a failed restore: the first async one (the three sync restores of
+    # the prefill layout come first on a reused plan)
+    fi.fail("restore", at=fi.calls["restore"] + 3)
+    with _quiet():
+        degraded.append(serve_batch(eng, "resident, restore fails"))
+    # a stalled restore past a small watchdog
+    kick_s = ref["restore_overlap_ms"] / 1e3
+    stall_s = STALL_MARGIN * (kick_s + STALL_TIMEOUT_S)
+    ended, gave_up = [], []
+    fire, join = fi.fire, eng._join_async_restore
+    stall_at = fi.calls["restore"] + 3
+
+    def timed_fire(site):
+        idx = fi.calls.get(site, 0)
+        fire(site)
+        if site == "restore" and idx == stall_at:
+            ended.append(time.perf_counter())
+
+    def timed_join(phase):
+        res = join(phase)
+        gave_up.append(time.perf_counter())
+        return res
+
+    fi.fire, eng._join_async_restore, eng.restore_timeout_s = timed_fire, timed_join, STALL_TIMEOUT_S
+    fi.delay("restore", stall_s, at=stall_at)
+    t_run = time.perf_counter()
+    with _quiet():
+        degraded.append(serve_batch(eng, "resident, restore stalls"))
+    run_s = time.perf_counter() - t_run
+    eng.close()  # drains the stalled worker
+    del eng
+    _free()
+    stall_end = ended[0]
+    stall = dict(stall_s=stall_s, kick_to_barrier_s=kick_s, barrier_before_stall_end_s=stall_end - gave_up[0],
+                 watchdog_s=STALL_TIMEOUT_S, run_s=run_s)
+    degraded[-1].update(stall)
+    emit({"phase": "robustness", "run": "resident, restore stalls: the watchdog", **stall})
+    if gave_up[0] >= stall_end:
+        raise AssertionError(f"robustness: the barrier gave up after the stall ended: {degraded[-1]}")
+    # failed prefetch rows, seeded
+    fi_pf = FaultInjector(seed=SEED).fail("prefetch", p=0.5)
+    eng = resident(prefetch=True, faults=fi_pf)
+    with _quiet():
+        degraded.append(serve_batch(eng, "resident prefetch, rows fail", fi=fi_pf))
+    del eng
+    _free()
+    for res, want in zip(degraded[1:], ({"restore_errors": 1}, {"restore_errors": 1},
+                                        {"prefetch_errors": degraded[3]["fired"].get("prefetch", 0)})):
+        if res["tokens"] != ref["tokens"]:
+            raise AssertionError(f"robustness ({res['run']}): the tokens differ from the run with no fault")
+        got = {k: res[k] for k in want}
+        if got != want or not max(want.values()) or res["background_errors"] != max(want.values()):
+            raise AssertionError(f"robustness ({res['run']}): counters {res}, expected {want}")
+    # the ILP session's static fallback (one card: the TP plan computes the same function)
+    model = latency.LatencyModel(get_chip("h100"), n_samples=12)  # one card: every source gives the one plan
+    for faults in (None, FaultInjector().fail("ilp", times=1)):
+        sess = HAPSession(cfg, "h100", 1, source="ilp", model=model, prompt_bucket=64)
+        eng = sess.engine(params, max_batch=MAX_BATCH, faults=faults)
+        with _quiet():
+            degraded.append(serve_batch(eng, "ilp " + ("fails" if faults else "no fault"), clean=faults is None))
+        degraded[-1]["plan"] = eng.hap_plan.describe()
+        eng.close()
+        del eng
+    if degraded[-1]["tokens"] != degraded[-2]["tokens"] or degraded[-1]["planner_fallbacks"] != 1:
+        raise AssertionError(f"robustness (ilp): {degraded[-2:]}")
+    # each kernel's launches in the run of this phase whose path holds it
+    oc["launches_by_run"] = {"overcommit": oc["launches"], "overcommit prefix cache": pc["launches"],
+                             "resident, no fault": ref["launches"]}
+    return oc
+
+
+def robustness_kernel_rows(cfg, rows, shapes) -> None:
+    """The paged kernel and the grouped matmul against their plain versions
+    at the shapes the robustness phase's runs sent them that no other row
+    holds: a replay's tail chunk (the stash re-prefilled after its prompt's
+    64-token chunks: B=1 and 1 < C < 64, at the first and the longest such
+    C), and the grouped matmul at capacity C = T under capacity factor E / k
+    where C is new; each with its launches in each run that sent it
+    (``launches_robustness``: run -> launches)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 6)
+    by_name = {r["name"]: r for r in rows}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    model = f"{cfg.name} robustness"
+    added = []
+    tails = sorted(key for key in shapes.get("paged_attention", {}) if key[0] == 1 and 1 < key[1] < 64)
+    for key in sorted({tails[0], tails[-1]}) if tails else ():
+        B, C = key[:2]
+        # the stash lands after the 256-token prompt: positions 256.. through the phase's table width
+        row = pool_decode_row(rng, dev, model, B, C, attn_of(cfg), CONT_BLOCK, _cont_table_width(),
+                              [CONT_SYSTEM + CONT_OWN], 0)
+        row["launches_robustness"] = shapes["paged_attention"][key]
+        by_name["paged_attention"]["also"].append(row)
+        added.append(row)
+    for key, per_run in sorted(shapes.get("grouped_matmul", {}).items()):
+        E, C, K, N = key
+        if C in (8, 16, 64, 512):
+            continue  # the kernels and replication phases' rows
+        row = gmm_case(randn, model, E, C, K, N, "wi" if K == cfg.d_model else "wo")
+        row["launches_robustness"] = per_run
+        by_name["grouped_matmul"]["also"].append(row)
+        added.append(row)
+        torch.cuda.empty_cache()
+    emit({"phase": "robustness_kernels", "paged_tail_chunks": [list(k) for k in tails], "rows": added})
 
 
 def phase_families() -> dict:
@@ -1945,8 +2410,7 @@ def _serve_rank(eng, reqs, continuous: bool) -> dict:
     refs = ref_ops(dispatch)
     if refs:
         raise AssertionError(f"sharded: ref ops ran on the path: {refs}")
-    if st.restore_errors or st.background_errors:
-        raise AssertionError(f"sharded: a background restore failed: {dataclasses.asdict(st)}")
+    no_fallback("sharded", dataclasses.asdict(st))
     res = {"wall_s": wall, "tokens_per_s": sum(len(c.tokens) for c in comps) / wall,
            "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
            "dispatch": dispatch, "shapes": shapes, "tokens": [c.tokens for c in comps],
@@ -2302,14 +2766,17 @@ def main() -> int:
     # the resident phase overwrites the expert leaves with their INT4 round trip
     resident = timed("resident", phase_resident, cfg, params)
     trans = timed("transitions", phase_transitions, cfg, params)
-    # the replication phase doctors the router of these weights in place
+    # the replication phase doctors the router of these weights in place, and puts it back
     repl_shapes = {}
     repl = timed("replication", phase_replication, cfg, params, trans, repl_shapes)
+    robust_shapes = {}
+    robust = timed("robustness", phase_robustness, cfg, params, robust_shapes)
     del params  # DeepSeek's weights, before the families' own
     families = timed("families", phase_families)
     sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl)
     timed("sharded_kernels", sharded_kernel_rows, cfg, rows, sharded["shapes"])
     timed("replication_kernels", replication_kernel_rows, cfg, rows, repl_shapes)
+    timed("robustness_kernels", robustness_kernel_rows, cfg, rows, robust_shapes)
     emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for
@@ -2320,6 +2787,9 @@ def main() -> int:
         r["launches_continuous"] = cont["launches"].get(r["name"], 0)
         r["launches_resident"] = resident["launches"].get(r["name"], 0)
         r["launches_transitions"] = trans["launches"].get(r["name"], 0)
+        # the robustness phase: its overcommitted captured run, the prefix
+        # cache's run, the resident session's run with no fault
+        r["launches_robustness"] = {run: n.get(r["name"], 0) for run, n in robust["launches_by_run"].items()}
         if r["name"] == "prefix_paged_attention":
             r["launches"] = r["launches_continuous"]
         if r["name"] == "int4_dequant":

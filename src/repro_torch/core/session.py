@@ -146,6 +146,7 @@ class HAPSession:
         self.hits = 0
         self.misses = 0
         self.fallbacks = 0   # solves degraded to the static fallback plan
+        self.faults = None   # optional FaultInjector (site "ilp")
 
     # -- lazy planner / source -------------------------------------------
     @property
@@ -205,6 +206,8 @@ class HAPSession:
         source = self.source   # resolve OUTSIDE the try: a malformed
         # source spec must raise, not masquerade as ILP infeasibility
         try:
+            if self.faults is not None:
+                self.faults.fire("ilp")   # injectable solve failure (§4f)
             plan = source.plan_for(b.workload(w.dtype_bytes))
         except Exception as e:   # infeasible OR solver crash: both degrade
             if not self.fallback:

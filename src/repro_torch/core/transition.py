@@ -226,6 +226,12 @@ class TransitionExecutor:
         self._backups: Dict[str, q.QuantizedTensor] = {}
         self._pool = None
         self._stream = None
+        # optional FaultInjector (site "restore", DESIGN.md §4f)
+        self.faults = None
+
+    def _fire(self, site: str) -> None:
+        if self.faults is not None:
+            self.faults.fire(site)
 
     def _executor(self):
         if self._pool is None:
@@ -302,6 +308,7 @@ class TransitionExecutor:
         ``shard=(spec, rank, sizes)`` restores only ``rank``'s shard of the
         leaf under ``spec``: the groups that cover it are uploaded and
         dequantized, and cut to the shard where a group straddles it."""
+        self._fire("restore")
         qt = self._backups[name]
         return self._dequant(qt, (qt.packed, qt.scales, qt.zeros), dtype, shard, upload=True)
 
@@ -343,6 +350,7 @@ class TransitionExecutor:
         the whole leaf where its group axis does not divide."""
         from repro_torch.kernels.ops import QuantizedExpert
 
+        self._fire("restore")
         qt = self._backups[name]
         if qt.packed.ndim < 3:
             raise ValueError(
@@ -388,7 +396,8 @@ class TransitionExecutor:
         device, on the caller's thread and stream: the unit of work the
         engine's prefetch hides behind decode compute (the background
         pull). The barrier's missed rows take another path, so a failing
-        pull only ever costs a miss."""
+        pull only ever costs a miss (the "prefetch" fault site fires in the
+        engine's pull, ``InferenceEngine._fire_prefetch``)."""
         return self._restore_row(name, row)
 
     def prefetch_rows(self, name: str, rows: Sequence[int]) -> Dict[int, StagedRow]:
@@ -463,6 +472,7 @@ class TransitionExecutor:
         uploaded."""
         if self.prefetch_rows_of(name) is None:
             return self.restore(name, dtype, shard)
+        self._fire("restore")
         qt = self._backups[name]
         need = self._rows_needed(qt, shard[0], shard) if shard is not None else None
         return self._dequant(qt, self._assemble(name, staged, need), dtype, shard, upload=False)
@@ -473,6 +483,7 @@ class TransitionExecutor:
         backup at once."""
         from repro_torch.kernels.ops import QuantizedExpert
 
+        self._fire("restore")
         qt = self._backups[name]
         if qt.packed.ndim < 3:
             raise ValueError(

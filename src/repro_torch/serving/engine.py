@@ -72,8 +72,22 @@ predicted experts' (layer, expert) rows of the INT4 backups are staged on
 the device by the executor's worker while decode runs, and a restore
 barrier uploads only the rows that missed (DESIGN.md §5b/§5c).
 
-The robustness layer and the contiguous continuous fallback come in later
-slices; their knobs raise ``NotImplementedError`` naming the ROADMAP item.
+Robustness (DESIGN.md §4f): with ``kv_overcommit`` admission charges a
+request's expected KV need, not its worst case, and when growth then runs
+the pool dry the engine evicts a cache-only prefix entry or preempts a
+victim row, whose generated tokens are stashed and replayed as extra
+prompt when it is admitted again (preemption-by-recompute). A request's
+``deadline_ms`` and ``cancel(uid)`` retire it at the next step boundary
+with its partial output. ``faults`` threads a ``FaultInjector`` through
+the allocator, the transition executor and the session, so each
+degraded path (preemption, the sync restore failover, the restore
+watchdog, a failed prefetch row, the static-plan fallback) can be forced
+and is counted. On a mesh rank 0 decides which requests expire or are
+cancelled and whether the restore watchdog tripped, and every rank
+follows it, so the ranks never part ways at a collective.
+
+The contiguous continuous fallback comes in a later slice; its knob raises
+``NotImplementedError`` naming the ROADMAP item.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 CUDA device and no ``device`` it raises rather than fall back. The kernel
@@ -104,7 +118,8 @@ from repro_torch.models.moe import serving_replication
 from repro_torch.models.params import param_pspecs, param_shapes
 from repro_torch.sharding.specs import NULL_PLAN, ExpertReplication, sharded_dim, unported_layout
 
-from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, blocks_for
+from .faults import FaultInjector
+from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, OutOfBlocks, blocks_for
 from .prefix_cache import PrefixCache
 from .replication import NextLayerPredictor, RoutingTracker, plan_replication, replication_summary
 from .sampling import SamplingParams, sample
@@ -120,7 +135,10 @@ _EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
 class Request:
     prompt: Sequence[int]
     max_new_tokens: int = 32
-    deadline_ms: Optional[float] = None  # not ported yet (ROADMAP A.5)
+    # wall-clock budget (ms from submission) for the continuous loop: an
+    # expired request retires with status "deadline" at the next step
+    # boundary. None = no deadline.
+    deadline_ms: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -132,6 +150,11 @@ class Completion:
     prefill_ms: float
     decode_ms: float
     transition_ms: float  # Eq.-6 expert moves booked to this request's batch or admission
+    # terminal status: "ok" (EOS / budget), "cancelled" (engine.cancel),
+    # "deadline" (deadline_ms expired); a non-ok completion carries the
+    # tokens generated before the request was retired
+    status: str = "ok"
+    preemptions: int = 0  # times this request was preempted and recomputed
 
 
 @dataclasses.dataclass
@@ -167,6 +190,12 @@ class EngineStats:
     prefetch_bytes: int = 0  # host bytes pulled by background tasks
     prefetch_hidden_ms: float = 0.0  # pull time spent off the critical path
     prefetch_exposed_ms: float = 0.0  # consume-side restore time still paid
+    # request lifecycle + robustness (DESIGN.md §4f; zeros when idle):
+    preemptions: int = 0  # victims preempted to reclaim KV blocks
+    preempted_tokens: int = 0  # generated tokens stashed for replay
+    prefix_evictions_on_pressure: int = 0  # cache blocks evicted mid-stream
+    cancelled: int = 0  # requests retired via cancel()
+    deadline_expired: int = 0  # requests retired past deadline_ms
     planner_fallbacks: int = 0  # solves degraded to the static plan
     background_errors: int = 0  # background failures, all sites
     prefetch_errors: int = 0  # _prefetch_pull rows that failed
@@ -254,7 +283,8 @@ class InferenceEngine:
         restore_timeout_s: float = 30.0,
         device=None,
         kv_overcommit: Optional[float] = None,
-        faults=None,
+        max_preemptions: int = 3,
+        faults: Optional[FaultInjector] = None,
         replicate_experts: int = 0,
         rebalance_interval: int = 32,
         routing_ema: float = 0.9,
@@ -271,8 +301,6 @@ class InferenceEngine:
                 raise _not_ported(f"a mesh with data-parallel axes {big} of size > 1", "A.9")
             if not hasattr(self.mesh, "rank"):
                 raise TypeError(f"the port serves on a repro_torch.sharding.RankMesh, got {type(self.mesh).__name__}")
-        if kv_overcommit is not None or faults is not None:
-            raise _not_ported("kv_overcommit, preemption and fault injection (DESIGN.md §4f)", "A.5")
         self.device = resolve_device(device)
         # step capture: None means on for the card, off for the CPU; False on
         # the card is the eager A/B (the same bodies and buffers, op by op)
@@ -326,6 +354,26 @@ class InferenceEngine:
         self._plan_ran = False
         self.use_int4_transition = use_int4_transition
         self._tx = TransitionExecutor(self.device)
+        # optimistic admission: the fraction of the output budget charged at
+        # admission (None = the worst case); preemption-by-recompute covers
+        # the overflow, so it needs the paged path (DESIGN.md §4f)
+        if kv_overcommit is not None and not 0.0 < kv_overcommit <= 1.0:
+            raise ValueError("kv_overcommit must be in (0, 1] or None")
+        if kv_overcommit is not None and not (cfg.has_attention and not cfg.has_mamba):
+            raise ValueError("kv_overcommit requires the paged KV path")
+        self.kv_overcommit = kv_overcommit
+        self.max_preemptions = max(int(max_preemptions), 1)
+        # deterministic fault injection through every degradation surface
+        # (allocator, restore worker, prefetch pull, planner)
+        self.faults = faults
+        self._tx.faults = faults
+        if session is not None and faults is not None:
+            session.faults = faults
+        # injectable monotonic clock (tests drive deadlines synthetically)
+        self.clock = time.monotonic
+        # terminal completions (cancelled, expired, or preempted with no
+        # budget left) buffered between lifecycle sweeps; retire() drains them
+        self._finished: List[Completion] = []
         # async INT4 restore: kicked onto the executor's worker (and its own
         # CUDA stream) when the plan is decided, so it overlaps the batch's
         # prefill; transition_expert_layout() is the barrier
@@ -668,11 +716,23 @@ class InferenceEngine:
         self._pending_restore = None
         p_phase, p_target, futures, t_kick = pending
         t0 = time.perf_counter()
+        status, results = 0, None  # 0: landed, 1: timed out, 2: failed
         try:
             deadline = t0 + self.restore_timeout_s
             results = {n: f.result(timeout=max(deadline - time.perf_counter(), 0.0)) for n, f in futures.items()}
+        except TimeoutError:
+            log.exception("async restore timed out at the barrier")
+            status = 1
         except Exception:
-            log.exception("async restore failed/timed out at the barrier; falling back to the sync relayout")
+            log.exception("async restore failed at the barrier")
+            status = 2
+        # the watchdog is rank 0's; a failure on any rank fails them all
+        seen = [v[0] for v in self._all_ranks([status])]
+        failed = seen[0] != 0 or 2 in seen
+        if not failed and status == 1:  # rank 0's restore landed in time: wait for ours
+            results = {n: f.result() for n, f in futures.items()}
+        if failed:
+            log.warning("async restore failed/timed out; falling back to the sync relayout")
             self.stats.restore_errors += 1
             self.stats.background_errors += 1
             return None
@@ -788,6 +848,8 @@ class InferenceEngine:
         on the worker, off the serving thread (the uploads still share the
         card with the decode steps they overlap)."""
         t0 = time.perf_counter()
+        if self.faults is not None:
+            rows = self._fire_prefetch(rows)
         try:
             leaves = {name: self._tx.prefetch_rows(f"moe/{name}", rows) for name in _EXPERT_LEAVES}
             staged = {row: {name: leaves[name][row] for name in _EXPERT_LEAVES} for row in rows}
@@ -809,6 +871,27 @@ class InferenceEngine:
                     self._prefetch_stage[row] = v
                     self.stats.prefetch_bytes += int(sum(st.nbytes for st in v.values()))
             self.stats.prefetch_hidden_ms += ms
+
+    def _fire_prefetch(self, rows) -> Tuple[int, ...]:
+        """The "prefetch" fault site, fired as the reference's per-row pull
+        fires it: once per (row, leaf), row by row, a row's remaining leaves
+        skipped once one fails. A failed row costs one prefetch error and
+        stays unstaged (its barrier uploads it); the rows that pass are
+        returned for the batched upload."""
+        ok = []
+        for row in rows:
+            try:
+                for name in _EXPERT_LEAVES:
+                    self.faults.fire("prefetch")
+            except Exception:
+                log.exception("prefetch pull failed for row %d", row)
+                self.stats.prefetch_errors += 1
+                self.stats.background_errors += 1
+                with self._prefetch_lock:
+                    self._prefetch_live.discard(row)
+                continue
+            ok.append(row)
+        return tuple(ok)
 
     def _prefetch_snapshot(self, name: str, n_rows: int) -> Dict[int, Any]:
         """Staged rows of one leaf, and the hit/miss accounting of a
@@ -945,12 +1028,33 @@ class InferenceEngine:
             self._prefetch_live.clear()
 
     def submit(self, req: Request) -> int:
-        if req.deadline_ms is not None:
-            raise _not_ported("request deadlines (DESIGN.md §4f)", "A.5")
-        return self.scheduler.submit(req.prompt, req.max_new_tokens)
+        deadline = None if req.deadline_ms is None else self.clock() + req.deadline_ms / 1e3
+        return self.scheduler.submit(req.prompt, req.max_new_tokens, deadline=deadline)
 
     def cancel(self, uid: int) -> bool:
-        raise _not_ported("request cancellation (DESIGN.md §4f)", "A.5")
+        """Cancel a request by uid, queued or live: it retires with status
+        "cancelled" (and the tokens generated so far) at the next lifecycle
+        sweep. False when the uid is unknown or finished. On a mesh rank
+        0's cancels decide."""
+        if self.scheduler.cancel(uid):
+            return True
+        if self._live is not None:
+            for s in self._live.slots:
+                if s is not None and s.req.uid == uid:
+                    s.req.cancelled = True
+                    return True
+        return False
+
+    def _all_ranks(self, values: List[int]) -> List[List[int]]:
+        """Every rank's ``values`` in rank order (``[values]`` on one
+        device). The decisions a rank's own clock or thread could make
+        differently (a deadline, a cancel, the restore watchdog) are taken
+        from rank 0's, so every rank follows the same schedule. ``values``
+        has the same length on every rank."""
+        if self.mesh is None or self.mesh.size == 1 or not values:
+            return [values]
+        mine = torch.tensor(values, dtype=torch.int64, device=self.device).reshape(1, -1)
+        return self.mesh.all_gather(mine, dim=0).tolist()
 
     def _sync(self) -> None:
         """Wait for the serving stream (the timers' end point). Not the whole
@@ -1121,16 +1225,18 @@ class InferenceEngine:
     def serve_continuous(self, sampling: Optional[SamplingParams] = None) -> List[Completion]:
         """Drain the queue with continuous batching; uid-ordered completions.
 
-        Each iteration admits whatever fits the pool, runs one step and
-        retires finished rows. Greedy outputs equal the JAX engine's: every
-        request is prefilled at its own prompt bucket and chunk boundaries
-        only re-tile the same causal attention.
+        Each iteration first retires cancelled and expired requests, then
+        admits whatever fits the pool, runs one step and retires finished
+        rows. Greedy outputs equal the JAX engine's: every request is
+        prefilled at its own prompt bucket and chunk boundaries only re-tile
+        the same causal attention.
         """
         sampling = sampling if sampling is not None else SamplingParams()
         gen = self._generator(sampling)
         out: List[Completion] = []
         with torch.inference_mode():
             while len(self.scheduler) or self._live is not None:
+                self._reap_lifecycle()
                 out.extend(self.retire())
                 if self._live is None:
                     if not len(self.scheduler):
@@ -1144,6 +1250,7 @@ class InferenceEngine:
                     self._end_live_batch()
                     continue
                 out.extend(self.retire())
+        out.extend(self.retire())  # any last terminal completions
         return sorted(out, key=lambda c: c.uid)
 
     def _begin_live_batch(self) -> None:
@@ -1159,7 +1266,7 @@ class InferenceEngine:
         needs = [blocks_for(sch.kv_need(r), bs) for r in queued]
         pool = self.kv_blocks if self.kv_blocks is not None else min(sum(needs), nslots * max_blocks)
         pool = max(pool, max(needs))  # the head must stay admittable
-        allocator = BlockAllocator(pool + 1, bs)
+        allocator = BlockAllocator(pool + 1, bs, faults=self.faults)
         self.kv_pool_blocks = pool
         self._end_live_batch()
         self._live = _LiveBatch(
@@ -1186,7 +1293,7 @@ class InferenceEngine:
 
     def admit(self) -> List[int]:
         """Admit queue-head requests into free slots (strict FIFO) while the
-        pool can reserve their blocks; their prompts queue as chunks.
+        pool can reserve their charge; their prompts queue as chunks.
         Returns the joined slot indices."""
         live = self._live
         joined: List[int] = []
@@ -1194,7 +1301,8 @@ class InferenceEngine:
             free = [i for i, s in enumerate(live.slots) if s is None]
             if not free:
                 break
-            r = self.scheduler.next_fit_blocks(live.allocator, live.kv_capacity, prefix_cache=live.prefix)
+            r = self.scheduler.next_fit_blocks(live.allocator, live.kv_capacity, prefix_cache=live.prefix,
+                                               overcommit=self.kv_overcommit)
             if r is None:
                 break
             self._admit_one(free[0], r)
@@ -1203,7 +1311,11 @@ class InferenceEngine:
 
     def _admit_one(self, i: int, r: QueuedRequest) -> None:
         live = self._live
-        charge = self.scheduler.kv_need(r)  # worst case: OutOfBlocks cannot follow
+        # the worst case (growth cannot run the pool dry), or under
+        # kv_overcommit the expected need: growth past it takes spare blocks,
+        # and an OutOfBlocks there preempts a row (DESIGN.md §4f)
+        charge = (self.scheduler.expected_kv_need(r, self.kv_overcommit) if self.kv_overcommit
+                  else self.scheduler.kv_need(r))
         toks, _ = self.scheduler.pad_batch([r])
         skip = 0
         if live.prefix is not None:
@@ -1302,6 +1414,64 @@ class InferenceEngine:
             live.tables[i] = s.table.padded(live.max_blocks)
             s.mirrored = True
 
+    # -- preemption-by-recompute (DESIGN.md §4f) --------------------------
+    def _grow_blocks(self, i: int, n_tokens: int, write_from: Optional[int] = None) -> bool:
+        """``_ensure_blocks`` under the overcommit contract: an
+        ``OutOfBlocks`` mid-growth reclaims pool space (a prefix-cache
+        eviction, else a preemption) and retries. Returns False when row
+        ``i`` itself was preempted (the caller skips its step); raises the
+        "wedged" ``OutOfBlocks`` when nothing can be reclaimed. All of it
+        runs on the host, between steps."""
+        while True:
+            try:
+                self._ensure_blocks(i, n_tokens, write_from)
+                return True
+            except OutOfBlocks as e:
+                self._reclaim_blocks(i, e)
+                if self._live.slots[i] is None:
+                    return False
+
+    def _reclaim_blocks(self, i: int, err: OutOfBlocks) -> None:
+        """Free at least one pool block for row ``i``'s growth: evict one
+        cache-only prefix entry when there is one, else preempt a victim
+        (any row before ``i`` itself, then the fewest generated tokens, then
+        the newest uid; rows at ``max_preemptions`` are not eligible)."""
+        live = self._live
+        if live.prefix is not None and live.prefix.evict(1) > 0:
+            self.stats.prefix_evictions_on_pressure += 1
+            return
+        victims = [(j, s) for j, s in enumerate(live.slots)
+                   if s is not None and not s.done and s.req.preemptions < self.max_preemptions]
+        if not victims:
+            raise OutOfBlocks(
+                f"wedged: no preemptable victim (every live request is at the retry cap of "
+                f"{self.max_preemptions}); {live.allocator.describe()}"
+            ) from err
+        j, _ = min(victims, key=lambda t: (t[0] == i, len(t[1].tokens), -t[1].req.uid))
+        self._preempt(j)
+
+    def _preempt(self, j: int) -> None:
+        """Preempt row ``j``: free its blocks (its mirror row to the trash
+        block), stash its generated tokens and requeue prompt + stash at
+        the queue head as a fresh prefill. A victim with no budget left
+        completes instead."""
+        s = self._free_slot(j)
+        r = s.req
+        r.preemptions += 1
+        self.stats.preemptions += 1
+        self.stats.preempted_tokens += len(s.tokens)
+        remaining = r.max_new_tokens - len(s.tokens)
+        if s.done or remaining <= 0:
+            toks = list(r.stashed) + [t for t in s.tokens if t != self.eos_id or self.eos_id < 0]
+            self._finished.append(Completion(r.uid, toks, s.prefill_ms, s.decode_ms, s.transition_ms,
+                                             preemptions=r.preemptions))
+            return
+        r.stashed = list(r.stashed) + list(s.tokens)
+        r.max_new_tokens = remaining
+        self.scheduler.requeue(r)
+        log.info("preempt uid=%d slot=%d (%d tokens stashed, %d budget left, preemption %d/%d)",
+                 r.uid, j, len(r.stashed), remaining, r.preemptions, self.max_preemptions)
+
     def _prefix_group_arrays(self) -> np.ndarray:
         """The (2, nslots) prefix-group operand of the decode kernel: row 0
         maps every slot to its group representative (itself when unshared),
@@ -1394,17 +1564,25 @@ class InferenceEngine:
     def _prefill_chunk_step(self, i: int, active: List[int], sampling: SamplingParams, gen) -> None:
         """Process joiner ``i``'s next prompt chunk; fuse it with a decode
         step over the live rows when there are any and the chunk is not the
-        last (the last chunk's logits feed the joiner's first token)."""
+        last (the last chunk's logits feed the joiner's first token). Block
+        growth goes through ``_grow_blocks``, which may preempt rows."""
         live = self._live
         s = live.slots[i]
         chunk = s.pending[0]
         C = len(chunk)
         final = len(s.pending) == 1
-        fused = bool(active) and not final
-        self._ensure_blocks(i, s.filled + C, write_from=s.filled)
-        if fused:
+        # growth may preempt any row, the joiner too: what is still live is
+        # checked again before the step
+        if not self._grow_blocks(i, s.filled + C, write_from=s.filled):
+            return  # the joiner itself was preempted to cover the pool
+        if active and not final:
             for j in active:
-                self._ensure_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
+                if live.slots[j] is not None:
+                    self._grow_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
+            active = [j for j in active if live.slots[j] is not None]
+        if live.slots[i] is None:
+            return  # growing the decode rows preempted the joiner
+        fused = bool(active) and not final
         s.pending.pop(0)
         self.stats.prefill_chunks += 1
         g = self._live_step("fused" if fused else "chunk", C)
@@ -1472,7 +1650,11 @@ class InferenceEngine:
         live = self._live
         active = live.active()
         for j in active:
-            self._ensure_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
+            if live.slots[j] is not None:
+                self._grow_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
+        active = [j for j in active if live.slots[j] is not None]
+        if not active:
+            return  # every decode row was preempted to cover the pool
         g = self._live_step("paged_decode")
         g.feed("tokens", live.next_tok[:, None])
         g.feed("pos", live.pos)
@@ -1502,17 +1684,63 @@ class InferenceEngine:
         live.next_tok[i] = 0
         return s
 
+    # -- request lifecycle (DESIGN.md §4f) --------------------------------
+    def _expired(self, r: QueuedRequest) -> bool:
+        return r.deadline is not None and self.clock() >= r.deadline
+
+    def _terminal(self, r: QueuedRequest) -> int:
+        """0: keep serving ``r``; 1: cancelled; 2: past its deadline."""
+        return 1 if r.cancelled else 2 if self._expired(r) else 0
+
+    def _reap_lifecycle(self) -> None:
+        """Retire cancelled and expired requests, queued or live, with a
+        terminal status and their partial output (stash + generated so
+        far); the completions wait in ``_finished`` for ``retire``. Runs at
+        every step boundary; on a mesh rank 0's verdicts decide."""
+        queued = self.scheduler.queued()
+        live = [(i, s) for i, s in enumerate(self._live.slots) if s is not None] if self._live is not None else []
+        verdicts = self._all_ranks([self._terminal(r) for r in queued] + [self._terminal(s.req) for _, s in live])[0]
+        for r, v in zip(queued, verdicts):
+            if not v:
+                continue
+            self.scheduler.remove(r)
+            status = "cancelled" if v == 1 else "deadline"
+            self._count_terminal(status)
+            self._finished.append(Completion(r.uid, list(r.stashed), 0.0, 0.0, 0.0, status=status,
+                                             preemptions=r.preemptions))
+            log.info("reap queued uid=%d (%s)", r.uid, status)
+        for (i, s), v in zip(live, verdicts[len(queued):]):
+            if not v:
+                continue
+            status = "cancelled" if v == 1 else "deadline"
+            self._count_terminal(status)
+            self._free_slot(i)
+            toks = list(s.req.stashed) + [t for t in s.tokens if t != self.eos_id or self.eos_id < 0]
+            self._finished.append(Completion(s.req.uid, toks, s.prefill_ms, s.decode_ms, s.transition_ms,
+                                             status=status, preemptions=s.req.preemptions))
+            log.info("reap live uid=%d slot=%d (%s, %d tokens)", s.req.uid, i, status, len(toks))
+
+    def _count_terminal(self, status: str) -> None:
+        if status == "cancelled":
+            self.stats.cancelled += 1
+        elif status == "deadline":
+            self.stats.deadline_expired += 1
+
     def retire(self) -> List[Completion]:
         """Free slots whose request hit EOS or its output budget; returns
-        their completions. Their blocks go back to the pool."""
+        their completions, after the buffered terminal ones (cancelled,
+        expired, preempted with no budget left). Their blocks go back to
+        the pool."""
+        comps: List[Completion] = list(self._finished)
+        self._finished.clear()
         live = self._live
         if live is None:
-            return []
-        comps = []
+            return comps
         for i, s in enumerate(live.slots):
             if s is None or not (s.done or len(s.tokens) >= s.req.max_new_tokens):
                 continue
-            toks = [t for t in s.tokens if t != self.eos_id or self.eos_id < 0]
-            comps.append(Completion(s.req.uid, toks, s.prefill_ms, s.decode_ms, s.transition_ms))
+            toks = list(s.req.stashed) + [t for t in s.tokens if t != self.eos_id or self.eos_id < 0]
+            comps.append(Completion(s.req.uid, toks, s.prefill_ms, s.decode_ms, s.transition_ms,
+                                    preemptions=s.req.preemptions))
             self._free_slot(i)
         return comps

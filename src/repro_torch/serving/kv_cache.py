@@ -1,6 +1,5 @@
 """Paged KV-cache bookkeeping: block allocator + per-request block tables
-(a copy of ``repro.serving.kv_cache``; the fault-injection hook of the
-robustness layer, DESIGN.md §4f, is not copied yet).
+(a copy of ``repro.serving.kv_cache``).
 
 The continuous serving loop (DESIGN.md §4b) used to reserve worst-case
 contiguous KV capacity per live-batch slot — ``max_batch`` rows, each as
@@ -83,7 +82,7 @@ class BlockAllocator:
     silently double-inserts.
     """
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int, faults=None):
         if num_blocks < 2:
             raise ValueError("need at least one allocatable block + trash")
         if block_size < 1:
@@ -94,6 +93,9 @@ class BlockAllocator:
         self._free: List[int] = list(range(num_blocks - 1, TRASH_BLOCK, -1))
         self._reserved = 0
         self._ref: List[int] = [0] * num_blocks
+        # optional FaultInjector (site "kv_alloc"): lets tests force
+        # OutOfBlocks at an exact allocation index (DESIGN.md §4f)
+        self.faults = faults
         # live tables, insertion-ordered, for per-holder occupancy in
         # OutOfBlocks diagnostics (registered at construction, dropped
         # at free())
@@ -177,7 +179,10 @@ class BlockAllocator:
         return False
 
     # -- alloc / free (BlockTable-facing) ---------------------------------
-    _HINT = "raise the pool (InferenceEngine(kv_blocks=...))"
+    _HINT = (
+        "raise the pool (--kv-blocks / InferenceEngine(kv_blocks=...)) or "
+        "let preemption reclaim it (kv_overcommit)"
+    )
 
     def _reserve(self, n_blocks: int) -> None:
         if not self.can_admit(n_blocks):
@@ -195,6 +200,8 @@ class BlockAllocator:
     def _alloc_reserved(self) -> int:
         """Materialize one reserved block (reservation -> allocation)."""
         assert self._reserved > 0
+        if self.faults is not None:
+            self.faults.fire("kv_alloc")
         self._reserved -= 1
         b = self._free.pop()
         self._ref[b] = 1
@@ -203,6 +210,8 @@ class BlockAllocator:
     def _alloc_extra(self) -> int:
         """Allocate past a table's reservation — only from truly spare
         blocks, never from another request's reservation."""
+        if self.faults is not None:
+            self.faults.fire("kv_alloc")
         if self.num_available < 1:
             raise OutOfBlocks(
                 f"pool exhausted ({self.num_free} free, "

@@ -9,7 +9,8 @@ engine's greedy tokens and the same ``EngineStats`` counters in the
 scenarios of ``tests/test_continuous.py``, ``tests/test_kv_cache.py`` and
 ``tests/test_prefix_cache.py`` (both engines without a session, with the
 same 16-token prompt bucket). The paths not ported yet raise
-``NotImplementedError``.
+``NotImplementedError``; the robustness knobs raise the reference's
+``ValueError``s on bad values, and deadlines and cancels are served.
 """
 
 import dataclasses
@@ -33,7 +34,7 @@ from repro.serving import Request as JaxRequest  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import decode_step, init_paged_cache, params_from_numpy, prefill  # noqa: E402
-from repro_torch.serving import EngineStats, InferenceEngine, Request, SamplingParams  # noqa: E402
+from repro_torch.serving import EngineStats, FaultInjector, InferenceEngine, Request, SamplingParams  # noqa: E402
 from repro_torch.serving.kv_cache import BlockAllocator, BlockTable  # noqa: E402
 
 TOL = 1e-4
@@ -236,8 +237,8 @@ def test_engine_mirrors_and_groups(moe_setup):
     [
         (dict(paged=False), NotImplementedError),
         (dict(paged=False, prefix_cache=True), ValueError),
-        (dict(kv_overcommit=0.5), NotImplementedError),
-        (dict(faults=object()), NotImplementedError),
+        (dict(kv_overcommit=1.5), ValueError),
+        (dict(faults=lambda: FaultInjector().fail("nope")), ValueError),
         (dict(session=types.SimpleNamespace(mesh=types.SimpleNamespace(
             axis_names=("data", "model"), shape={"data": 2, "model": 2}))), NotImplementedError),  # A.9
         (dict(replicate_experts=-1), ValueError),
@@ -247,14 +248,31 @@ def test_engine_mirrors_and_groups(moe_setup):
 )
 def test_unported_and_invalid_options_raise(moe_setup, kw, err):
     _, cfg_t, _, tparams = moe_setup
-    with pytest.raises(err, match="ROADMAP|paged|positive|>= 0|top_p"):
+    with pytest.raises(err, match="ROADMAP|paged|positive|>= 0|top_p|kv_overcommit|unknown fault site"):
+        kw = {k: v() if callable(v) else v for k, v in kw.items()}
         InferenceEngine(cfg_t, tparams, device="cpu", **kw)
 
 
 def test_deadlines_and_cancel_raise(moe_setup):
+    """Deadlines and cancels are accepted and reaped (they raised before
+    the robustness layer was ported): a request past its deadline, one
+    cancelled while queued, and one still within its deadline, served
+    against the JAX engine's tokens and counters. Unknown uids are not
+    cancelled."""
     _, cfg_t, _, tparams = moe_setup
-    eng = InferenceEngine(cfg_t, tparams, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        eng.submit(Request(prompt=[1, 2], deadline_ms=5.0))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        eng.cancel(0)
+    eng = InferenceEngine(cfg_t, tparams, device="cpu", max_batch=2)
+    jeng = JaxEngine(moe_setup[0], moe_setup[2], max_batch=2)
+    for e, R in ((eng, Request), (jeng, JaxRequest)):
+        e.scheduler.bucket = 16
+        t = [0.0]
+        e.clock = lambda t=t: t[0]
+        e.submit(R(prompt=[1, 2], max_new_tokens=3, deadline_ms=5.0))
+        e.submit(R(prompt=[3, 4, 5], max_new_tokens=3))
+        e.submit(R(prompt=[6], max_new_tokens=3, deadline_ms=5e3))
+        assert e.cancel(1) and not e.cancel(7)
+        t[0] = 1.0
+    got = [(c.uid, c.tokens, c.status) for c in eng.serve_continuous()]
+    assert got == [(c.uid, c.tokens, c.status) for c in jeng.serve_continuous()]
+    assert [c[2] for c in got] == ["deadline", "cancelled", "ok"] and len(got[2][1]) == 3
+    assert (eng.stats.deadline_expired, eng.stats.cancelled) == (jeng.stats.deadline_expired, jeng.stats.cancelled)
+    assert (eng.stats.deadline_expired, eng.stats.cancelled) == (1, 1)

@@ -1016,3 +1016,122 @@ def test_replicated_engine_on_the_card():
         assert eng.params["layers"]["moe"]["wi_gate"].shape[1] == rep.total_slots
         assert seen.get(rep.total_slots, 0) > 0
         assert (eng.steps.stats.captures > 0) == capture
+
+
+def _robust_reqs():
+    rng = np.random.default_rng(4)
+    return [(rng.integers(1, 512, int(rng.integers(5, 30))).tolist(), int(rng.integers(4, 13))) for _ in range(8)]
+
+
+def _serve_robust(cfg, params, reqs, cancel=None, **kw):
+    """The continuous engine on ``reqs``; ``cancel=(uid, steps)`` cancels
+    ``uid`` after that many steps. Returns (completions by uid, the
+    preempted uids' stash lengths, the engine, its allocators)."""
+    from repro_torch.serving import InferenceEngine, Request
+
+    eng = InferenceEngine(cfg, params, max_batch=4, kv_block_size=8, prefill_chunk=16, **kw)
+    eng.scheduler.bucket = 16
+    stash, allocators = {}, []
+    preempt, begin, step = eng._preempt, eng._begin_live_batch, eng.step
+
+    def spy_preempt(j):
+        r = eng._live.slots[j].req
+        preempt(j)
+        stash.setdefault(r.uid, []).append(len(r.stashed))
+
+    def spy_begin():
+        begin()
+        allocators.append(eng._live.allocator)
+
+    steps = [0]
+
+    def spy_step(*a):
+        steps[0] += 1
+        if cancel is not None and steps[0] == cancel[1]:
+            assert eng.cancel(cancel[0])
+        return step(*a)
+
+    eng._preempt, eng._begin_live_batch, eng.step = spy_preempt, spy_begin, spy_step
+    for p, g in reqs:
+        eng.submit(Request(prompt=p, max_new_tokens=g))
+    comps = {c.uid: c for c in eng.serve_continuous()}
+    eng.close()
+    return comps, stash, eng, allocators
+
+
+def test_overcommit_preemption_on_the_card():
+    """Reduced DeepSeekMoE-16B in bf16 on the hopper backend, captured
+    steps: an overcommitted pool preempts rows; every request never
+    preempted gives the worst-case pool's tokens exactly, a preempted one's
+    stash is that run's prefix, and every allocator ends with all blocks
+    free and no reservation."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    reqs = _robust_reqs()
+    want, _, base, _ = _serve_robust(cfg, params, reqs, kv_blocks=8)
+    got, stash, eng, allocators = _serve_robust(cfg, params, reqs, kv_blocks=8, kv_overcommit=0.25)
+    assert base.stats.preemptions == 0 and eng.stats.preemptions >= 1 and stash
+    assert all(got[u].status == "ok" and len(got[u].tokens) == g for u, (_, g) in enumerate(reqs))
+    for uid in got:
+        if uid not in stash:
+            assert got[uid].tokens == want[uid].tokens, uid
+        else:
+            assert got[uid].preemptions == len(stash[uid])
+            n = stash[uid][-1]
+            assert got[uid].tokens[:n] == want[uid].tokens[:n], uid
+    for a in allocators:
+        assert a.num_reserved == 0 and a.num_free == a.num_blocks - 1
+    assert eng.steps.stats.captures > 0
+
+
+def test_live_cancel_returns_partial_output_on_the_card():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    reqs = _robust_reqs()
+    want, _, _, _ = _serve_robust(cfg, params, reqs)
+    got, _, eng, allocators = _serve_robust(cfg, params, reqs, cancel=(0, 4))
+    assert got[0].status == "cancelled" and 0 < len(got[0].tokens) < len(want[0].tokens)
+    assert got[0].tokens == want[0].tokens[:len(got[0].tokens)]
+    assert all(got[u].tokens == want[u].tokens and got[u].status == "ok" for u in got if u != 0)
+    assert eng.stats.cancelled == 1
+    assert all(a.num_reserved == 0 and a.num_free == a.num_blocks - 1 for a in allocators)
+
+
+def test_restore_failover_on_the_card():
+    """The resident session's first background restore fails: the barrier
+    relayouts in sync and the tokens are the run's with no fault."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HAPSession, fixed_plan
+    from repro_torch.models import init_params
+    from repro_torch.serving import FaultInjector, Request
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+    def serve(fi):
+        session = HAPSession(cfg, "h100", 1, source=fixed_plan("TP1", "TP2", "EP2", mechanism="int4_upload"),
+                             prompt_bucket=16)
+        eng = session.engine(params, max_batch=2, resident_int4=True, use_int4_transition=True, faults=fi)
+        if fi is not None:
+            fi.fail("restore", at=fi.calls["restore"])  # the first restore after the resident upload
+        for p in ([1, 2, 3, 4], [5, 6, 7, 8, 9, 10]):
+            eng.submit(Request(prompt=p, max_new_tokens=8))
+        toks = [c.tokens for c in eng.run()]
+        eng.close()
+        return toks, eng
+
+    want, base = serve(None)
+    fi = FaultInjector()
+    got, eng = serve(fi)
+    assert got == want and fi.fired_at("restore") == 1
+    assert eng.stats.restore_errors == eng.stats.background_errors == 1 and base.stats.restore_errors == 0
+    assert eng.stats.async_restores == base.stats.async_restores >= 1

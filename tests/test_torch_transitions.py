@@ -391,9 +391,36 @@ def test_stalled_restore_trips_watchdog_falls_back(moe_setup):
 
 
 def test_not_ported_knobs_raise(moe_setup):
-    for kw, item in ((dict(faults=object()), "A.5"), (dict(kv_overcommit=0.5), "A.5")):
-        with pytest.raises(NotImplementedError, match=item):
-            _port_engine(moe_setup, **kw)
+    """The robustness knobs (they raised before the robustness layer was
+    ported) on the resident session, served continuously: an overcommitted
+    pool that preempts, and an injector that fails one block allocation
+    (one more preemption) and counts the restores. Tokens, preemptions,
+    counters and the fault counts equal the JAX session engine's."""
+    from repro.serving import FaultInjector as JaxInjector
+    from repro_torch.serving import FaultInjector
+
+    cfg_j, cfg_t, jparams, tparams = moe_setup
+    kw = dict(max_batch=2, use_int4_transition=True, resident_int4=True, kv_block_size=4, prefill_chunk=8,
+              kv_blocks=11, kv_overcommit=0.25)
+    js = JaxSession(cfg_j, "a6000", 1, source=jfixed_plan(*PLAN, mechanism="int4_upload"), prompt_bucket=16,
+                    gen_bucket=8)
+    ts = HAPSession(cfg_t, "a6000", 1, source=fixed_plan(*PLAN, mechanism="int4_upload"), prompt_bucket=16,
+                    gen_bucket=8)
+    jfi, tfi = JaxInjector().fail("kv_alloc", at=5), FaultInjector().fail("kv_alloc", at=5)
+    je, te = js.engine(jparams, faults=jfi, **kw), ts.engine(tparams, device="cpu", faults=tfi, **kw)
+    assert tfi.calls == jfi.calls == {"restore": 3}  # the resident upload of the three expert leaves
+    for e, R in ((je, JaxRequest), (te, Request)):
+        for p in PROMPTS:
+            e.submit(R(prompt=p, max_new_tokens=6))
+    want = [(c.uid, c.tokens, c.status, c.preemptions) for c in je.serve_continuous()]
+    got = [(c.uid, c.tokens, c.status, c.preemptions) for c in te.serve_continuous()]
+    te.close()
+    assert got == want
+    robust = ("preemptions", "preempted_tokens", "joins", "restore_errors", "background_errors")
+    assert _counters(te.stats) == _counters(je.stats)
+    assert {k: getattr(te.stats, k) for k in robust} == {k: getattr(je.stats, k) for k in robust}
+    assert te.stats.preemptions >= 2 and te.stats.restore_errors == 0
+    assert (tfi.calls, tfi.fired) == (jfi.calls, jfi.fired) and tfi.fired == {"kv_alloc": 1}
     dense = dataclasses.replace(moe_setup[1], ffn_type="dense")
     with pytest.raises(ValueError, match="MoE"):
         InferenceEngine(dense, moe_setup[3], resident_int4=True, device="cpu")
