@@ -16,7 +16,11 @@ printing one JSON line:
              families' shapes (``also``, each naming its ``model``): flash,
              paged and prefix at head dim 256 (Gemma-2-9B), paged at
              Qwen3-30B-A3B's 8-query GQA group, the grouped matmul at
-             Qwen3's 128 experts and Mixtral's 8
+             Qwen3's 128 experts and Mixtral's 8; flash and paged at
+             Hymba-1.5B's head dim 64 and GQA group of 5, and paged at the
+             contiguous continuous decode step (8 rows, each at its own
+             depth, on an (8, 320) cache through the identity table) of
+             DeepSeek and Hymba
 3. serve   - DeepSeekMoE-16B at full width and depth (28 layers, bf16,
              seeded random weights): 8 requests through
              ``InferenceEngine.run()``, with the launch counts of that run
@@ -27,6 +31,14 @@ printing one JSON line:
              16 requests whose 256-token prompts share a 192-token system
              prompt, served with the prefix cache off, then on; the tokens
              must be equal and the launch counts exact
+   contiguous - the same traffic through the contiguous fallback,
+             ``InferenceEngine(..., paged=False).serve_continuous()``
+             (each request prefilled whole at admission, B=1, its rows
+             merged into its slot), eager and captured with exact launch
+             counts; then against the paged path at capacity factor E / k
+             (no drops): in float32 at full width (4 layers) each request's
+             tokens equal or first parting at a near-tie (the gate), in
+             bf16 at full depth reported
 6. resident - the same model from resident INT4 experts through
              ``HAPSession(cfg, "h100", 1, source=fixed_plan("TP1", "TP2",
              "EP2", mechanism="int4_upload")).engine(params, max_batch=4,
@@ -84,7 +96,7 @@ printing one JSON line:
              tail chunk and gmm rows at new capacities
 10. families - DeepSeek's weights freed, then three more families, each at
              full width on seeded random weights, freed before the next:
-             Qwen3-30B-A3B (48 layers, 128 experts top-8, GQA 32/4): the
+             Qwen3-30B-A3B (12 of 48 layers, 128 experts top-8, GQA 32/4): the
              serve phase's ``run()`` eager and captured, the agree check,
              and the continuous traffic with the prefix cache off and on
              (equal tokens); Gemma-2-9B (42 layers, head dim 256, softcaps,
@@ -93,6 +105,17 @@ printing one JSON line:
              its first 8 of 32 layers (93.4 GB in bf16 does not fit the
              80 GB card, and 8 layers keep the whole run inside its time
              limit): ``run()`` and agree. Each prints its peak memory
+    ssm     - the families with mamba layers at full width and depth, each
+             freed before the next: Falcon-Mamba-7B (64 mamba1 layers, no
+             attention, no FFN) and Hymba-1.5B (32 layers of parallel
+             attention and mamba heads, hd 64, GQA 25/5, window 1024 on 29
+             layers, dense SwiGLU): ``run()`` and the continuous traffic
+             through ``serve_continuous()`` (the contiguous fallback, their
+             default), one eager and one captured run each; prefill against
+             decode (gated in float32, bf16 reported beside the same path's
+             rounding noise), Hymba's agree check (float32 gate, bf16
+             bound), exact launch counts (Falcon-Mamba launches none), and
+             the plain mamba mixer's and scan's device times
 11. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
              gloo group, both on the one card (NCCL refuses two ranks on one
              device), spawned by ``repro_torch.sharding.launch``; each rank
@@ -204,17 +227,19 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # families phase: (name, layers kept or None for all, continuous runs as
 # prefix-cache settings, agree bounds as AGREE_TOL). Mixtral-8x7B is
 # 93.4 GB in bf16: its first 16 of 32 layers (47.0 GB) fit the 80 GB card.
-# The first 8 of Mixtral, 24 of Qwen3-30B-A3B's 48 and 21 of Gemma-2-9B's
-# 42 keep the whole script well inside its time limit (the replication
-# phase and the replicated two-rank run added ~2.5 min; one full run took
-# 1068 s of the 1200 allowed).
+# The first 8 of Mixtral, 12 of Qwen3-30B-A3B's 48 and 21 of Gemma-2-9B's
+# 42 keep the whole script inside its time limit (the replication phase
+# and the replicated two-rank run added ~2.5 min; one full run took 1068 s
+# of the 1200 allowed). The contiguous and ssm phases added ~95 s and a
+# run read ~990 s, so Qwen3 went from 24 layers to 12, not the mamba
+# families, which serve at full depth.
 # The agree bounds with each path routing on its own sit 2-4x above what
 # the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
 # 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
 # flips an expert where the two paths' router scores near-tie, which moves
 # its logits most (its steps without a flip read 0.018-0.019).
 FAMILIES = (
-    ("qwen3-moe-30b-a3b", 24, (False, True), (0.15, 0.2)),
+    ("qwen3-moe-30b-a3b", 12, (False, True), (0.15, 0.2)),
     ("gemma2-9b", 21, (True,), (0.1, 0.1)),
     ("mixtral-8x7b", 8, (), (0.35, 0.6)),
 )
@@ -415,6 +440,9 @@ def phase_kernels(cfg) -> list:
     # scale 224^-0.5), also at an 8192-token prompt where its 4096-token
     # window bites, and Qwen3-30B-A3B's and Mixtral-8x7B's groups of 8 and 4
     g2, q3, mx = (get_config(n) for n in ("gemma2-9b", "qwen3-moe-30b-a3b", "mixtral-8x7b"))
+    # and Hymba-1.5B's (ssm phase): head dim 64, 25 q heads over 5 KV heads,
+    # on its global and its windowed (1024) layers
+    hy = get_config("hymba-1.5b")
     flash_rows = [flash_case(dev, randn, model, fb, fs, attn, win) for model, fb, fs, attn, win in (
         (cfg.name, B, S, attn_of(cfg), 0),
         (cfg.name, 1, 2048, attn_of(cfg), 0),
@@ -422,6 +450,8 @@ def phase_kernels(cfg) -> list:
         (g2.name, 1, 8192, attn_of(g2), g2.sliding_window),
         (q3.name, B, S, attn_of(q3), 0),
         (mx.name, B, S, attn_of(mx), 0),
+        (hy.name, B, S, attn_of(hy), 0),
+        (hy.name, B, S, attn_of(hy), hy.sliding_window),
     )]
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -450,6 +480,13 @@ def phase_kernels(cfg) -> list:
             # the static decode step and at a continuous chunk
             static_decode_case(rng, dev, SHARDED_RANK, rank_attn(cfg), 0),
             paged_chunk_row(rng, dev, SHARDED_RANK, rank_attn(cfg)),
+            # Hymba-1.5B's static decode (hd 64, G=5), and the contiguous
+            # continuous decode step of DeepSeek and of Hymba: 8 rows, each
+            # at its own depth, on the (8, 320) cache through the identity
+            # table
+            static_decode_case(rng, dev, hy.name, attn_of(hy), 0),
+            static_decode_case(rng, dev, cfg.name, attn_of(cfg), 0, CONTIG_POS, _contig_capacity()),
+            static_decode_case(rng, dev, hy.name, attn_of(hy), 0, CONTIG_POS, _contig_capacity()),
         ],
     })
     rows.append(prefix_row(cfg, rng, dev))
@@ -520,7 +557,7 @@ def flash_case(dev, randn, model, fb, fs, attn, win) -> dict:
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < win)
     reps = 200 if fs <= 128 else 20 if fs <= 2048 else 5
     return {
-        "model": model,
+        "model": model, "key": [fb, fs, Hq, Hkv, fhd, int(win), float(cap)],
         "shape": (f"B={fb} S={fs} H={Hq} hd={fhd} bf16 causal" if Hq == Hkv and not (win or cap) else
                   f"B={fb} S={fs} Hq={Hq} Hkv={Hkv} hd={fhd} window={win} softcap={cap} bf16 causal"),
         "variant": variant, **acc, "bit_equal_calls": True,
@@ -558,7 +595,7 @@ def gmm_case(make, model, E, C, k_in, n_out, which, plain_reps: int = 2, host_co
         raise AssertionError(f"grouped_matmul ({model}) C={C} {which}: two calls differ")
     b_ms, b_by = bound(2 * (E * C * k_in + E * k_in * n_out + E * C * n_out), 2 * E * C * k_in * n_out)
     row = {
-        "model": model,
+        "model": model, "key": [E, C, k_in, n_out],
         "shape": f"E={E} C={C} {k_in}x{n_out} ({which}) bf16", "variant": variant, **acc, "bit_equal_calls": True,
         **timed_row(lambda: gm.grouped_matmul(lhs, rhs), lambda: torch.bmm(lhs, rhs), 20),
         "plain_ms": cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs), plain_reps),
@@ -640,6 +677,18 @@ def _cont_table_width():
     return blocks_for(round_up(CONT_SYSTEM + CONT_OWN + max(CONT_MAX_NEW) + 1, 64), CONT_BLOCK)
 
 
+# the contiguous continuous decode row's depths: 8 rows between 40 and 300
+CONTIG_POS = (40, 300, 77, 256, 129, 288, 191, 263)
+
+
+def _contig_capacity():
+    """A contiguous live batch's per-slot capacity for the continuous
+    traffic: its largest KV need, rounded up to the 64-token bucket."""
+    from repro_torch.serving.scheduler import round_up
+
+    return round_up(CONT_SYSTEM + CONT_OWN + max(CONT_MAX_NEW) + 1, 64)
+
+
 def attn_of(cfg) -> tuple:
     """A model's attention as the kernel rows take it: (q heads, KV heads,
     head dim, softcap, scale or None for head_dim^-0.5)."""
@@ -662,11 +711,13 @@ def paged_chunk_row(rng, dev, model, attn, window: int = 0) -> dict:
     return pool_decode_row(rng, dev, model, 1, 64, attn, CONT_BLOCK, _cont_table_width(), [CONT_SYSTEM], window)
 
 
-def static_decode_case(rng, dev, model, attn, window) -> dict:
+def static_decode_case(rng, dev, model, attn, window, pos=None, Smax=MAX_NEW + 129) -> dict:
     """The paged kernel at the serve phase's decode step of ``model``: B=4
     rows at position 135 through an identity table over the contiguous
     (B, 145) cache, as ``run()`` launches it; ``attn`` as ``attn_of`` gives
-    it, ``window`` > 0 a local layer's."""
+    it, ``window`` > 0 a local layer's. ``pos`` (one position per row) and
+    ``Smax`` give another contiguous shape: the contiguous continuous
+    batch's rows, each at its own depth."""
     import numpy as np
     import torch
 
@@ -676,8 +727,8 @@ def static_decode_case(rng, dev, model, attn, window) -> dict:
     Hq, Hkv, hd, cap, scale = attn
     kw = dict(softcap=cap, scale=scale, window=window)
     is_global = window == 0
-    B, S = MAX_BATCH, 128
-    Smax, pos0 = S + MAX_NEW + 1, S + MAX_NEW // 2 - 1
+    pos = [128 + MAX_NEW // 2 - 1] * MAX_BATCH if pos is None else pos
+    B = len(pos)
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
@@ -685,7 +736,7 @@ def static_decode_case(rng, dev, model, attn, window) -> dict:
     qd, kn, vn = randn(B, 1, Hq, hd), randn(B, 1, Hkv, hd), randn(B, 1, Hkv, hd)
     kc, vc = randn(B, Smax, Hkv, hd), randn(B, Smax, Hkv, hd)
     tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-    posv = torch.full((B,), pos0, dtype=torch.int32, device=dev)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
     kc2, vc2 = kc.clone(), vc.clone()
     _build.VARIANT_COUNTS.clear()
     out, _, _ = pa.paged_attention(qd, kc, vc, tables, kn, vn, posv, is_global, **kw)
@@ -697,16 +748,17 @@ def static_decode_case(rng, dev, model, attn, window) -> dict:
         raise AssertionError(f"paged_attention ({model}): appended pages differ from the plain version's")
     if not torch.equal(out, pa.paged_attention(qd, kc, vc, tables, kn, vn, posv, is_global, **kw)[0]):
         raise AssertionError(f"paged_attention ({model}): two calls differ")
-    # q, k_new, v_new and out once; the cached K/V below pos0 (inside the
-    # window) read once; the appended slot written once; 4 flops per
-    # (query, valid key, dim)
-    cached = min(pos0, window - 1) if window else pos0
-    nbytes = 2 * (2 * B * Hq * hd + 2 * B * Hkv * hd + 2 * B * cached * Hkv * hd + 2 * B * Hkv * hd)
-    b_ms, b_by = bound(nbytes, 4 * hd * B * Hq * (cached + 1))
+    # q, k_new, v_new and out once; each row's cached K/V below its
+    # position (inside the window) read once; the appended slots written
+    # once; 4 flops per (query, valid key, dim)
+    cached = sum(min(p, window - 1) if window else p for p in pos)
+    nbytes = 2 * (2 * B * Hq * hd + 2 * B * Hkv * hd + 2 * cached * Hkv * hd + 2 * B * Hkv * hd)
+    b_ms, b_by = bound(nbytes, 4 * hd * Hq * (cached + B))
     heads = f"H={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
+    at = f"pos={pos[0]}" if len(set(pos)) == 1 else f"per-row pos {min(pos)}-{max(pos)}"
     return {
-        "model": model,
-        "shape": f"B={B} C=1 {heads} hd={hd} Smax={Smax} pos={pos0} identity table"
+        "model": model, "key": [B, 1, Hq, Hkv, hd],
+        "shape": f"B={B} C=1 {heads} hd={hd} Smax={Smax} {at} identity table"
                  f"{f' window={window}' if window else ''}{f' softcap={cap}' if cap else ''} bf16",
         "variant": variant, **acc, "bit_equal_calls": True,
         **kernel_times(lambda: pa.paged_attention(qd, kc, vc, tables, kn, vn, posv, is_global, **kw), 200),
@@ -953,13 +1005,15 @@ def logits_ab(phase: str, name: str, make, serve, tokens) -> dict:
     return res
 
 
-def phase_serve(cfg, params, phase: str = "serve") -> dict:
-    """``run()`` of the 8 requests on a plain engine, eager and captured."""
+def phase_serve(cfg, params, phase: str = "serve", order=AB_ORDER) -> dict:
+    """``run()`` of the 8 requests on a plain engine, eager and captured
+    (in ``order``)."""
     from repro_torch.serving import InferenceEngine
 
     batches = math.ceil(N_REQUESTS / MAX_BATCH)
     L, steps = cfg.num_layers, MAX_NEW - 1
-    expect = {"flash_attention": batches * L, "paged_attention": batches * steps * L}
+    # a model without attention (Falcon-Mamba) launches no kernel
+    expect = {"flash_attention": batches * L, "paged_attention": batches * steps * L} if cfg.has_attention else {}
     if cfg.is_moe:  # a dense family's FFN is one plain matmul per projection
         expect["grouped_matmul"] = batches * (1 + steps) * 3 * L
 
@@ -970,18 +1024,19 @@ def phase_serve(cfg, params, phase: str = "serve") -> dict:
         return res
 
     res = ab_runs(phase, f"{cfg.name} static",
-                  lambda cap: InferenceEngine(cfg, params, max_batch=MAX_BATCH, capture_steps=cap), serve)
+                  lambda cap: InferenceEngine(cfg, params, max_batch=MAX_BATCH, capture_steps=cap), serve, order)
     res["first_batch_tokens"] = res["tokens"][:MAX_BATCH]
     return res
 
 
-def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=None) -> dict:
+def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=None,
+                same_tol: float = AGREE_SAME_EXPERTS_TOL) -> dict:
     """Hopper against ref logits, teacher-forced on the hopper path's greedy
     tokens, twice: each path routing on its own, then the ref path taking
     the hopper path's expert choices (its gates still its own). Where the
     routers near-tie, the two paths pick other experts for a token; the
     second reading leaves that out and is held to
-    ``AGREE_SAME_EXPERTS_TOL``. ``keep`` (a dict) receives, on the host, for
+    ``same_tol`` (a dense family's one reading too). ``keep`` (a dict) receives, on the host, for
     the sharded phase: the padded tokens, the hopper path's logits, expert
     choices and dropped token slots, and the same of one rank routing each
     half of the tokens with its own capacity (the function an EP2 plan
@@ -1049,19 +1104,24 @@ def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=No
         del hop, ref, hop_experts, ref_experts
     res = {"phase": phase, "model": cfg.name, "steps": MAX_NEW,
            **{k + suffix: v for suffix, r in readings.items() for k, v in r.items()},
-           "rel_l2_tol": tol[0], "max_rel_tol": tol[1], "same_experts_rel_l2_tol": AGREE_SAME_EXPERTS_TOL}
+           "rel_l2_tol": tol[0], "max_rel_tol": tol[1], "same_experts_rel_l2_tol": same_tol}
     emit(res)
     same = readings.get("_same_experts", readings[""])
     if (max(res["rel_l2_err_per_step"]) > tol[0] or max(res["max_rel_err_per_step"]) > tol[1]
-            or max(same["rel_l2_err_per_step"]) > AGREE_SAME_EXPERTS_TOL):
+            or max(same["rel_l2_err_per_step"]) > same_tol):
         raise AssertionError(f"{phase} ({cfg.name}): hopper and ref logits differ beyond the bf16 tolerance: {res}")
     return res
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
 
 
 def _errors(hop, ref) -> dict:
     """Per step: relative L2 error over the (B, V) logits, largest error
     relative to the largest ref logit; and the share of equal argmaxes."""
-    l2 = [((h - r).norm() / r.norm()).item() for h, r in zip(hop, ref)]
+    l2 = [_rel_l2(h, r) for h, r in zip(hop, ref)]
     mx = [((h - r).abs().max() / r.abs().max()).item() for h, r in zip(hop, ref)]
     same = sum(int((h.argmax(-1) == r.argmax(-1)).sum()) for h, r in zip(hop, ref))
     return {"rel_l2_err_per_step": l2, "max_rel_err_per_step": mx, "argmax_agreement": same / (len(hop) * MAX_BATCH)}
@@ -1190,7 +1250,153 @@ def phase_continuous(cfg, params, phase: str = "continuous", caches=(False, True
         diff = [i for i, (a, b) in enumerate(zip(runs[True]["tokens"], runs[False]["tokens"])) if a != b]
         raise AssertionError(f"{phase} ({cfg.name}): prefix-cache tokens differ from the plain run's for requests "
                              f"{diff}")
-    return runs[True]
+    return dict(runs[caches[-1]], plain_tokens=runs[False]["tokens"] if False in runs else None)
+
+
+def contiguous_expect(cfg, st) -> dict:
+    """The launches of a contiguous ``serve_continuous`` run: each join's
+    prefill (B=1) runs flash and the expert matmuls once per layer, each
+    decode step the paged kernel (identity table) and the expert matmuls;
+    none for a model without attention and experts."""
+    L = cfg.num_layers
+    expect = {"flash_attention": st["joins"] * L, "paged_attention": st["decode_steps"] * L} if cfg.has_attention \
+        else {}
+    if cfg.is_moe:
+        expect["grouped_matmul"] = (st["joins"] + st["decode_steps"]) * 3 * L
+    return expect
+
+
+def serve_contiguous(cfg, params, phase: str, name: str, order=AB_ORDER) -> dict:
+    """The continuous traffic through the contiguous fallback
+    (``paged=False``), eager and captured (in ``order``), with exact launch
+    counts and no paged-path step; returns the first captured run."""
+    from repro_torch.serving import InferenceEngine
+
+    def serve(eng):
+        res, toks = _serve_continuous(eng, cfg, f"{phase} ({name})")
+        st = res["stats"]
+        if res["launches"] != contiguous_expect(cfg, st):
+            raise AssertionError(f"{phase} ({name}): launches {res['launches']}, expected {contiguous_expect(cfg, st)}")
+        if st["prefill_chunks"] or st["fused_steps"] or st["joins"] != CONT_REQUESTS or eng.paged:
+            raise AssertionError(f"{phase} ({name}): not the contiguous path: {st}")
+        return dict(res, tokens=toks)
+
+    return ab_runs(phase, name, lambda cap: InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, paged=False,
+                                                            capture_steps=cap), serve, order)
+
+
+def _logit_gap(cfg, params, prompt, want, got, bucket: int = 1, noise: bool = False) -> dict:
+    """Where ``got`` first differs from ``want``: the two tokens' logit gap
+    in a teacher-forced prefill of ``prompt`` (left-padded to a multiple of
+    ``bucket`` as the engine pads it) and ``want`` up to there, as a share
+    of the row's max |logit|. With ``noise``, also ``ref_noise``: the same
+    prefill on the ref backend, its largest logit error against the hopper
+    one there, on the same share. Where each logit of one computation lies
+    within that of the other's, the two rank a pair of tokens otherwise
+    only where the pair's gap is under twice it."""
+    import torch
+
+    from repro_torch.models import prefill
+    from repro_torch.serving.scheduler import round_up
+
+    p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    pad = [0] * (round_up(len(prompt), bucket) - len(prompt))
+    toks = torch.tensor([pad + list(prompt) + want[:p]], dtype=torch.long, device=params["embed"].device)
+    with torch.inference_mode():
+        hop = prefill(params, cfg, {"tokens": toks}, toks.shape[1] + 1)[0][0].float()
+        top = hop.abs().max().item()
+        res = {"position": p, "gap": (hop[want[p]] - hop[got[p]]).abs().item() / top}
+        if noise:
+            ref = prefill(params, cfg, {"tokens": toks}, toks.shape[1] + 1, backend="ref")[0][0].float()
+            res["ref_noise"] = (hop - ref).abs().max().item() / top
+    return res
+
+
+# contiguous phase: the float32 gate's depth (full width); its weights sit
+# beside DeepSeek's bf16 ones (~9.5 GB more)
+CONTIG_F32_LAYERS = 4
+
+
+def _served_tokens(eng, cfg) -> list:
+    """The continuous traffic's tokens from ``eng`` (any dtype, no variant
+    or launch checks), the engine closed after."""
+    from repro_torch.serving import Request
+
+    for p, g in cont_requests(cfg):
+        eng.submit(Request(prompt=p, max_new_tokens=g))
+    toks = [c.tokens for c in eng.serve_continuous()]
+    eng.close()
+    return toks
+
+
+def _paged_against_contiguous(cfg, params, noise: bool = False) -> list:
+    """The continuous traffic through the paged (cache off) and the
+    contiguous path on fresh engines; each request whose tokens differ,
+    with ``_logit_gap`` (its ``noise`` too)."""
+    from repro_torch.serving import InferenceEngine
+
+    reqs = cont_requests(cfg)
+    toks = {paged: _served_tokens(InferenceEngine(cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK,
+                                                  paged=paged), cfg) for paged in (True, False)}
+    _free()
+    return [dict(uid=uid, **_logit_gap(cfg, params, reqs[uid][0], want, got, 64, noise))
+            for uid, (got, want) in enumerate(zip(toks[False], toks[True])) if got != want]
+
+
+def phase_contiguous(cfg, params, paged_tokens) -> dict:
+    """DeepSeekMoE-16B's continuous traffic through the contiguous fallback,
+    eager and captured (equal tokens and counts, launches exact), then the
+    contiguous path against the paged one, where the first prefills each
+    request whole through flash and the second in 64-token chunks through
+    the paged kernel:
+
+    - the gate, in float32 at full width (the first ``CONTIG_F32_LAYERS``
+      layers, capacity factor E / k so no token drops): each request's
+      tokens equal, or their first difference a near-tie (a gap under
+      ``NEAR_TIE`` of the row's max |logit| in a teacher-forced prefill). A
+      wrong merge, position or state hand-off diverges at once, by far more;
+    - in bf16 at full depth, the same comparison at capacity factor E / k.
+      There the two prefills round differently, a router near-tie picks
+      another expert for a token, and a request's tokens part at gaps
+      beyond a fixed near-tie (the H100 read up to 0.088 of the max
+      |logit|). So each first difference is held to the noise measured at
+      its own position in the same run: its gap under twice the ref
+      backend's largest logit error against the hopper one there
+      (``_logit_gap``'s ``ref_noise``), the gap that two computations of
+      the same function part at. A wrong merge or position reads a gap of
+      order the row's max |logit|;
+    - reported: the share of equal requests at the model's own capacity
+      factor (against ``paged_tokens``, the continuous phase's cache-off
+      run), where the two paths' MoE capacities differ by design (a whole
+      256-token prefill against 64-token chunks) and drop other tokens."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    main = serve_contiguous(cfg, params, "contiguous", f"{cfg.name} contiguous")
+    same = sum(a == b for a, b in zip(main["tokens"], paged_tokens))
+    nd = dataclasses.replace(cfg, capacity_factor=REPL_CAPACITY)
+    bf16 = _paged_against_contiguous(nd, params, noise=True)
+    f32 = dataclasses.replace(nd, dtype="float32", num_layers=CONTIG_F32_LAYERS)
+    p32 = init_params(f32, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    ties = _paged_against_contiguous(f32, p32)
+    del p32
+    _free()
+    res = {"phase": "contiguous", "run": f"{cfg.name} contiguous against paged", "requests": CONT_REQUESTS,
+           "bf16_equal_at_own_capacity": same, "no_drop_capacity_factor": REPL_CAPACITY,
+           "bf16_equal_no_drops": CONT_REQUESTS - len(bf16), "bf16_first_differences": bf16,
+           "f32_layers": CONTIG_F32_LAYERS, "f32_equal_no_drops": CONT_REQUESTS - len(ties),
+           "f32_first_differences": ties, "near_tie_bound": NEAR_TIE, "bf16_gap_bound": "2 x ref_noise"}
+    emit(res)
+    bad = [t for t in ties if t["gap"] >= NEAR_TIE]
+    if bad:
+        raise AssertionError(f"contiguous ({cfg.name}): float32 tokens differ from the paged run's beyond a near-tie: "
+                             f"{bad}")
+    bad = [t for t in bf16 if t["gap"] >= 2 * t["ref_noise"]]
+    if bad:
+        raise AssertionError(f"contiguous ({cfg.name}): bf16 tokens differ from the paged run's beyond twice the "
+                             f"noise at that position: {bad}")
+    return dict(main, comparison=res)
 
 
 RESIDENT_PLAN = ("TP1", "TP2", "EP2")  # switching; both layouts are the identity on one card
@@ -1357,6 +1563,7 @@ def _serve_continuous(eng, cfg, name: str):
     comps = eng.serve_continuous()
     wall = time.perf_counter() - t0
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    shapes = launch_shapes()
     variants = check_variants(name, launches)
     if [len(c.tokens) for c in comps] != [g for _, g in reqs]:
         raise AssertionError(f"{name}: a request did not get its budget")
@@ -1375,7 +1582,7 @@ def _serve_continuous(eng, cfg, name: str):
         "prefill_chunks": st.prefill_chunks, "prefill_ms": [c.prefill_ms for c in comps],
         "transition_ms_total": st.transition_ms_total, "resident_bytes_saved": st.resident_bytes_saved,
         "max_memory_allocated": torch.cuda.max_memory_allocated(), "stats": dataclasses.asdict(st),
-        "launches": launches, "variants": variants, "dispatch": dispatch,
+        "launches": launches, "variants": variants, "dispatch": dispatch, "shapes": shapes,
     }, [c.tokens for c in comps]
 
 
@@ -1928,10 +2135,6 @@ def _replay_gate(cfg, params, name: str, run: dict, base: dict) -> dict:
     base run's tokens: a gap under ``NEAR_TIE`` of the row's max |logit|.
     A stash at the wrong positions or RoPE offset differs at once, and by
     far more."""
-    import torch
-
-    from repro_torch.models import prefill
-
     reqs = cont_requests(cfg)
     ties = []
     for uid, (got, want) in enumerate(zip(run["tokens"], base["tokens"])):
@@ -1943,10 +2146,7 @@ def _replay_gate(cfg, params, name: str, run: dict, base: dict) -> dict:
         p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
         if p < first:
             raise AssertionError(f"{name}: uid {uid}'s stash ({first} tokens) differs from the worst-case run at {p}")
-        toks = torch.tensor([reqs[uid][0] + want[:p]], dtype=torch.long, device=params["embed"].device)
-        with torch.inference_mode():
-            logits = prefill(params, cfg, {"tokens": toks}, toks.shape[1] + 1)[0][0].float()
-        gap = (logits[want[p]] - logits[got[p]]).abs().item() / logits.abs().max().item()
+        gap = _logit_gap(cfg, params, reqs[uid][0], want, got)["gap"]
         ties.append({"uid": uid, "position": p, "stash": run["stash"][str(uid)], "gap": gap})
         if gap >= NEAR_TIE:
             raise AssertionError(f"{name}: uid {uid} diverges at token {p} with a logit gap of {gap:.4f} of the "
@@ -2203,6 +2403,48 @@ def robustness_kernel_rows(cfg, rows, shapes) -> None:
     emit({"phase": "robustness_kernels", "paged_tail_chunks": [list(k) for k in tails], "rows": added})
 
 
+def path_kernel_rows(rows, runs) -> None:
+    """Each launch of ``runs`` (field, run, model, ``launch_shapes()`` of
+    that run) at the row of its kernel, model and shape (a row's ``key``):
+    the row gets ``row[field][run]`` = launches. Where no flash or grouped
+    matmul row holds that model and shape, a new one, held against its
+    plain version, two calls bit-equal, with its bound and library time.
+    The paged kernel's rows depend on the positions too, so each paged
+    launch must find its row in the kernels phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda")
+    by_name = {r["name"]: r for r in rows}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    added = []
+    for field, run, model, shapes in runs:
+        for kernel, per_shape in sorted(shapes.items()):
+            for key, n in sorted(per_shape.items()):
+                row = next((r for r in [by_name[kernel]] + by_name[kernel]["also"]
+                            if r.get("model") == model and tuple(r.get("key", ())) == key), None)
+                if row is None:
+                    if kernel == "flash_attention":
+                        B, S, Hq, Hkv, hd, win, cap = key
+                        row = flash_case(dev, randn, model, B, S, (Hq, Hkv, hd, cap, attn_of(get_config(model))[4]),
+                                         win)
+                    elif kernel == "grouped_matmul":
+                        E, C, K, N = key
+                        row = gmm_case(randn, model, E, C, K, N, "wi" if K == get_config(model).d_model else "wo")
+                    else:
+                        raise AssertionError(f"{run} ({model}): {kernel} launched at {key}, and no row holds it")
+                    by_name[kernel]["also"].append(row)
+                    added.append(row)
+                    torch.cuda.empty_cache()
+                row.setdefault(field, {})[run] = n
+    emit({"phase": "path_kernels", "rows": added})
+
+
 def phase_families() -> dict:
     """Each family of ``FAMILIES`` at full width on seeded random weights,
     freed before the next: ``run()`` eager and captured, the agree check,
@@ -2241,6 +2483,207 @@ def phase_families() -> dict:
               "continuous_wall_s": cont["wall_s"] if cont else None,
               "continuous_decode_step_ms_mean": cont["decode_step_ms_mean"] if cont else None,
               "launches": out[name]})
+        del params
+    _free()
+    return out
+
+
+# ssm phase: the families with mamba layers, at full width and depth, on
+# seeded random weights in bf16. Each bf16 check is held to the rounding
+# noise measured in the same run at the same depth, which grows with depth
+# (``tools/mamba_rounding.py`` reads it layer count by layer count): the
+# same path at another batch size (each row alone, B=1, against the batch
+# of 4) rounds otherwise and nothing else differs, and a wrong scan, state
+# hand-off or kernel gives unrelated logits (rel L2 near 1.4). Beside each,
+# a float32 gate on the same weights cast up, where rounding is ~1e-5.
+# - Prefill against decode: a prefill of the first batch's prompts and 4
+#   greedy tokens against the 4th of the decode steps that took them; bf16
+#   within twice the batch noise of that prefill, float32 within 1e-3.
+# - Hymba's agree check (hopper against ref, teacher-forced on the hopper
+#   path's greedy tokens), where only the attention kernels differ (the
+#   mamba heads and the dense FFN are the same plain PyTorch on both
+#   backends): bf16 within twice the ref path's batch noise on the same
+#   forced tokens (per step, rel L2 and max rel), float32 within 1e-3.
+SSM_FAMILIES = ("falcon-mamba-7b", "hymba-1.5b")
+SSM_AB_ORDER = (False, True)  # one eager and one captured run each: the script's time limit
+SSM_PVD_STEPS = 4
+SSM_F32_TOL = 1e-3  # rel L2, float32: prefill against decode, and Hymba's hopper against ref
+SSM_NOISE_FACTOR = 2  # bf16: a reading within this many times the same run's batch noise
+
+
+def _prefill_vs_decode(cfg, params, tokens) -> dict:
+    """``tokens`` prefilled, then ``SSM_PVD_STEPS`` greedy decode steps,
+    against one prefill of ``tokens`` and those steps' tokens; and, for the
+    same path's rounding noise, that prefill of each row alone."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    S, n = tokens.shape[1], SSM_PVD_STEPS
+    logits, cache = prefill(params, cfg, {"tokens": tokens}, S + n + 1)
+    fed = []
+    for _ in range(n):
+        fed.append(logits.argmax(-1))
+        logits, cache = decode_step(params, cfg, fed[-1][:, None], cache)
+    del cache
+    full = torch.cat([tokens, torch.stack(fed, 1)], 1)
+    whole, _ = prefill(params, cfg, {"tokens": full}, S + n + 1)
+    alone = torch.cat([prefill(params, cfg, {"tokens": full[i:i + 1]}, S + n + 1)[0] for i in range(len(full))])
+    if not all(torch.isfinite(t).all() for t in (logits, whole, alone)):
+        raise AssertionError(f"ssm ({cfg.name}, {cfg.dtype}): non-finite logits")
+    return {"rel_l2_err": _rel_l2(logits, whole), "batch_noise_rel_l2": _rel_l2(alone, whole),
+            "max_rel_err": ((logits.float() - whole.float()).abs().max() / whole.float().abs().max()).item(),
+            "argmax_agreement": (logits.argmax(-1) == whole.argmax(-1)).float().mean().item()}
+
+
+def prefill_vs_decode(cfg, params) -> dict:
+    """``_prefill_vs_decode`` on the serve traffic's first batch
+    (left-padded to 128), in bf16 (within ``SSM_NOISE_FACTOR`` times its
+    batch noise) and in float32 on the same weights cast up (within
+    ``SSM_F32_TOL``)."""
+    import torch
+
+    tokens = _first_batch(cfg)
+    with torch.inference_mode():
+        bf16 = _prefill_vs_decode(cfg, params, tokens)
+        res = {"prompt_len": tokens.shape[1], "steps": SSM_PVD_STEPS,
+               "bfloat16": dict(bf16, rel_l2_tol=SSM_NOISE_FACTOR * bf16["batch_noise_rel_l2"])}
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = _cast(params, torch.float32)
+        res["float32"] = dict(_prefill_vs_decode(f32, p32, tokens), rel_l2_tol=SSM_F32_TOL)
+        del p32
+    _free()
+    if any(r["rel_l2_err"] > r["rel_l2_tol"] for r in (res["bfloat16"], res["float32"])):
+        raise AssertionError(f"ssm ({cfg.name}): prefill and decode disagree beyond the bound: {res}")
+    return res
+
+
+def _cast(tree, dtype):
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+
+
+def agree_noise(cfg, params) -> tuple:
+    """The bf16 agree check's bounds from this run's noise: the ref path
+    teacher-forced on the hopper path's greedy tokens (as ``phase_agree``
+    runs it), each row alone (B=1) against the batch. Returns ((rel L2,
+    max rel) bounds, ``SSM_NOISE_FACTOR`` times the largest per-step
+    reading of each; the reading)."""
+    import torch
+
+    tokens = _first_batch(cfg)
+    hop = _forced_logits(cfg, params, tokens, "hopper")
+    batch = _forced_logits(cfg, params, tokens, "ref", feed=hop)
+    alone = [_forced_logits(cfg, params, tokens[i:i + 1], "ref", feed=[h[i:i + 1] for h in hop])
+             for i in range(len(tokens))]
+    noise = _errors([torch.cat(rows) for rows in zip(*alone)], batch)
+    del hop, batch, alone
+    _free()
+    return (SSM_NOISE_FACTOR * max(noise["rel_l2_err_per_step"]),
+            SSM_NOISE_FACTOR * max(noise["max_rel_err_per_step"])), noise
+
+
+def agree_f32(cfg, params) -> dict:
+    """Hymba's agree check in float32 on the weights cast up: the hopper
+    path's first batch (prefill + 15 decode steps, greedy) and the ref path
+    teacher-forced on its tokens, rel L2 per step, gated at
+    ``SSM_F32_TOL``."""
+    import torch
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _cast(params, torch.float32)
+    tokens = _first_batch(cfg)
+    hop = _forced_logits(f32, p32, tokens, "hopper")
+    ref = _forced_logits(f32, p32, tokens, "ref", feed=hop)
+    del p32
+    _free()
+    res = {"rel_l2_err_per_step": [_rel_l2(h, r) for h, r in zip(hop, ref)], "rel_l2_tol": SSM_F32_TOL}
+    if not all(torch.isfinite(h).all() for h in hop) or max(res["rel_l2_err_per_step"]) > SSM_F32_TOL:
+        raise AssertionError(f"ssm_agree ({cfg.name}): float32 hopper and ref logits differ: {res}")
+    return res
+
+
+def mixer_times(cfg, params) -> dict:
+    """The plain mamba mixer of layer 0 on the card at the static prefill's
+    shape (B=4, S=128) and a contiguous admission's (B=1, S=256), the
+    in-chunk scan alone at the first, and one decode step of the layer at
+    B=8: device ms per call."""
+    import torch
+
+    from repro_torch.models import mamba
+    from repro_torch.models.params import layer_slice
+
+    mp = layer_slice(params["layers"], 0)["mamba"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    with torch.inference_mode():
+        for B, S in ((MAX_BATCH, 128), (1, 256)):
+            x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+            out[f"mixer_ms_B{B}_S{S}"] = cuda_ms(lambda: mamba.mamba_mixer(x, mp, cfg), 5)
+        shape = (MAX_BATCH, 128, cfg.ssm_d_inner, cfg.ssm_state)
+        a = torch.rand(shape, generator=gen, device="cuda")
+        b = torch.randn(shape, generator=gen, device="cuda")
+        h0 = torch.zeros((MAX_BATCH, cfg.ssm_d_inner, cfg.ssm_state), device="cuda")
+        # each pass reads and writes both (B, cs, di, N) float32 operands in
+        # place (the time does not depend on their values)
+        out["scan_ms_B4_S128"] = cuda_ms(lambda: mamba._scan_chunk(a, b, h0), 5)
+        out["scan_operand_bytes"] = 2 * a.numel() * 4
+        out["scan_passes"] = math.ceil(math.log2(128))
+        del a, b
+        cache = mamba.init_cache(cfg, CONT_MAX_BATCH, torch.bfloat16, "cuda")
+        x = torch.randn(CONT_MAX_BATCH, 1, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+        out["decode_step_ms_B8"] = cuda_ms(lambda: mamba.mamba_decode_step(x, mp, cfg, cache), 20)
+    return out
+
+
+def phase_ssm() -> dict:
+    """Falcon-Mamba-7B and Hymba-1.5B at full width and depth on seeded
+    random weights, each freed before the next: ``run()`` eager and
+    captured, then the continuous traffic through ``serve_continuous()``
+    (the contiguous fallback, their default) eager and captured, Hymba's
+    agree check, prefill against decode, and the plain mixer's times.
+    Returns {name: {"static": launches by shape of the captured run(),
+    "continuous": of the captured continuous run}} (``launch_shapes``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    out = {}
+    for name in SSM_FAMILIES:
+        cfg = get_config(name)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        torch.cuda.synchronize()
+        emit({"phase": "ssm", "model": name, "step": "init", "seconds": time.perf_counter() - t0,
+              "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated()})
+        serve = phase_serve(cfg, params, "ssm", SSM_AB_ORDER)
+        agree, noise = None, None
+        if cfg.has_attention:
+            tol, noise = agree_noise(cfg, params)
+            agree = phase_agree(cfg, params, serve, "ssm_agree", tol, same_tol=tol[0])
+        agree32 = agree_f32(cfg, params) if cfg.has_attention else None
+        cont = serve_contiguous(cfg, params, "ssm", f"{name} contiguous", SSM_AB_ORDER)
+        pvd = prefill_vs_decode(cfg, params)
+        times = mixer_times(cfg, params)
+        out[name] = {"static": serve["shapes"], "continuous": cont["shapes"]}
+        launches = {"static": serve["launches"], "continuous": cont["launches"]}
+        emit({"phase": "ssm", "model": name, "step": "summary", "num_layers": cfg.num_layers,
+              "kernels": launches if cfg.has_attention else "none: a pure mamba model runs no TPU kernel's port "
+                                                              "(its mixer is plain PyTorch, as the reference's is "
+                                                              "plain JAX)",
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "static_decode_ms_per_step": serve["decode_ms_per_step"], "static_prefill_ms": serve["prefill_ms"],
+              "static_tokens_per_s": serve["tokens_per_s"], "continuous_wall_s": cont["wall_s"],
+              "continuous_tokens_per_s": cont["tokens_per_s"], "continuous_decode_step_ms_mean":
+                  cont["decode_step_ms_mean"], "continuous_prefill_ms_mean": sum(cont["prefill_ms"]) / CONT_REQUESTS,
+              "continuous_max_memory_allocated": cont["max_memory_allocated"],
+              "prefill_vs_decode": pvd, "mixer": times,
+              "agree_max_rel_l2": max(agree["rel_l2_err_per_step"]) if agree else None,
+              "agree_max_rel": max(agree["max_rel_err_per_step"]) if agree else None,
+              "agree_tol": [agree["rel_l2_tol"], agree["max_rel_tol"]] if agree else None,
+              "agree_batch_noise": noise, "agree_f32": agree32})
         del params
     _free()
     return out
@@ -2333,7 +2776,7 @@ def _teacher_forced(cfg, params, plan, ref) -> dict:
         return [sum(xs[i:i + per_step]) for i in range(0, len(xs), per_step)]
 
     def rel_l2(got, ref_):
-        return [((h - r).norm() / r.norm()).item() for h, r in zip(got, ref_)]
+        return [_rel_l2(h, r) for h, r in zip(got, ref_)]
 
     res = {"split_tokens": any(a.shape[0] != e.shape[0] for a, e in zip(seen, whole)),
            "rel_l2_err_per_step": rel_l2(out, want),
@@ -2763,6 +3206,7 @@ def main() -> int:
     agree_ref = {}
     timed("agree", phase_agree, cfg, params, serve, "agree", AGREE_TOL, agree_ref)
     cont = timed("continuous", phase_continuous, cfg, params)
+    contig = timed("contiguous", phase_contiguous, cfg, params, cont["plain_tokens"])
     # the resident phase overwrites the expert leaves with their INT4 round trip
     resident = timed("resident", phase_resident, cfg, params)
     trans = timed("transitions", phase_transitions, cfg, params)
@@ -2773,10 +3217,16 @@ def main() -> int:
     robust = timed("robustness", phase_robustness, cfg, params, robust_shapes)
     del params  # DeepSeek's weights, before the families' own
     families = timed("families", phase_families)
+    ssm = timed("ssm", phase_ssm)
     sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl)
     timed("sharded_kernels", sharded_kernel_rows, cfg, rows, sharded["shapes"])
     timed("replication_kernels", replication_kernel_rows, cfg, rows, repl_shapes)
     timed("robustness_kernels", robustness_kernel_rows, cfg, rows, robust_shapes)
+    # the contiguous fallback's captured run (DeepSeek) and the mamba
+    # families' captured run() and contiguous continuous run, by shape
+    timed("path_kernels", path_kernel_rows, rows,
+          [("launches_contiguous", f"{cfg.name} contiguous", cfg.name, contig["shapes"])]
+          + [("launches_ssm", run, m, sh) for m, fam in ssm.items() for run, sh in fam.items()])
     emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for

@@ -5,6 +5,7 @@ from .transformer import (  # noqa: F401
     decode_step,
     init_cache,
     init_paged_cache,
+    merge_cache_rows,
     prefill,
     unembed,
 )

@@ -105,7 +105,10 @@ def param_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
     vocabulary, ``lm_head`` over its vocabulary columns, attention over
     heads (k/v only when the kv heads divide), the dense FFN and the shared
     experts over d_ff, and the routed experts over E (EP) or d_ff (TP).
-    A dimension that does not divide its axis stays replicated."""
+    A dimension that does not divide its axis stays replicated. The mamba
+    leaves take the reference's specs (d_inner on the FFN's TP axis), but
+    no engine serves them on a mesh yet: their conv/ssm caches have no
+    layout (ROADMAP A.9)."""
     tp = plan.ffn_tp_axis
     at = plan.attn_tp_axis if plan.attn_mode == "tp_heads" else None
     kv_ok = at is not None and cfg.num_kv_heads % plan.axis_size(at) == 0
@@ -120,6 +123,13 @@ def param_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
     if cfg.has_attention:
         layers["attn"] = {"wq": (None, None, at), "wk": (None, None, at if kv_ok else None),
                           "wv": (None, None, at if kv_ok else None), "wo": (None, at, None)}
+    if cfg.has_mamba:
+        layers["mamba"] = {"in_proj": (None, None, tp), "conv_w": (None, None, tp), "conv_b": (None, tp),
+                           "x_proj": (None, tp, None), "dt_w": (None, None, tp), "dt_b": (None, tp),
+                           "A_log": (None, tp, None), "D": (None, tp), "out_proj": (None, tp, None)}
+    if cfg.block_type == "hybrid":
+        layers["fuse_norm_attn"] = (None, None)
+        layers["fuse_norm_mamba"] = (None, None)
     if cfg.ffn_type == "dense":
         layers["ln2"] = (None, None)
         if cfg.activation in ("silu", "gelu"):

@@ -11,6 +11,14 @@ Two serving loops share it (DESIGN.md §4/§4b):
                          joiner's next prefill chunk, fused with a decode
                          step over the full slot set when rows are live),
                          and finished rows free their blocks (``retire``).
+                         With ``paged=False`` (the default for models with
+                         mamba layers, whose state has no paged layout) it
+                         is the contiguous fallback: every slot holds a
+                         KV capacity of its own, a joiner is prefilled
+                         whole at admission (B=1, at its own prompt
+                         bucket) and its cache rows, K/V and mamba state,
+                         are merged into its slot of the live cache; each
+                         step is then a decode step over every slot.
 
 Continuous KV memory is a shared block pool (``kv_cache``): admission
 reserves each request's worst-case block need, blocks materialise as chunks
@@ -56,7 +64,8 @@ the engine raises if they differ. A plan switch moves the leaves whose
 layout changes: the expert leaves by the Eq.-6 mechanism (a reshard moves
 slices between the ranks, an INT4 restore uploads each rank's target shard
 from the whole-leaf host backup), the attention leaves by a reshard.
-Data-parallel mesh axes of size > 1 and sequence-sharded caches raise
+Data-parallel mesh axes of size > 1, sequence-sharded caches and models
+with mamba layers (their conv/ssm caches have no layout yet) raise
 (ROADMAP A.9).
 
 With ``replicate_experts`` or ``prefetch`` a routing tracker follows the
@@ -86,9 +95,6 @@ and is counted. On a mesh rank 0 decides which requests expire or are
 cancelled and whether the restore watchdog tripped, and every rank
 follows it, so the ranks never part ways at a collective.
 
-The contiguous continuous fallback comes in a later slice; its knob raises
-``NotImplementedError`` naming the ROADMAP item.
-
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 CUDA device and no ``device`` it raises rather than fall back. The kernel
 backend follows ``repro_torch.kernels.ops.resolve_backend``: ``hopper`` on
@@ -112,7 +118,7 @@ from repro_torch.core.hap import HAPPlan
 from repro_torch.core.quantization import pick_group_size
 from repro_torch.core.transition import TransitionExecutor
 from repro_torch.device import resolve_device
-from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_cache, prefill
+from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_cache, merge_cache_rows, prefill
 from repro_torch.models.attention import local_kv_heads
 from repro_torch.models.moe import serving_replication
 from repro_torch.models.params import param_pspecs, param_shapes
@@ -214,7 +220,7 @@ class _Slot:
 
     req: QueuedRequest
     start: int  # padded prompt length = first decode position
-    table: BlockTable
+    table: Optional[BlockTable] = None  # paged only
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False  # decode-sampled EOS seen
     prefill_ms: float = 0.0
@@ -234,19 +240,23 @@ class _Slot:
 
 @dataclasses.dataclass
 class _LiveBatch:
-    """The in-flight set: per-slot state, the block pool and its host
-    mirrors (``pos`` per row, ``tables`` trash-padded), fed into the step's
-    buffers before every step so drained rows stay frozen."""
+    """The in-flight set: per-slot state, the KV cache and its host mirrors
+    (``pos`` per row, ``tables`` trash-padded), fed into the step's buffers
+    before every step so drained rows stay frozen. Paged: the block pool,
+    its allocator and tables. Contiguous: a (nslots, kv_capacity) cache and
+    ``sub``, the B=1 cache a joiner is prefilled into before its rows are
+    merged into its slot."""
 
     kv_capacity: int  # logical per-row KV length (tokens)
     slots: List[Optional[_Slot]]
     cache: DecodeCache
     pos: np.ndarray  # (nslots,) int32
     next_tok: np.ndarray  # (nslots,) int32
-    allocator: BlockAllocator
-    max_blocks: int  # block-table width
-    tables: np.ndarray  # (nslots, max_blocks) int32
+    allocator: Optional[BlockAllocator] = None
+    max_blocks: int = 0  # block-table width
+    tables: Optional[np.ndarray] = None  # (nslots, max_blocks) int32
     prefix: Optional[PrefixCache] = None  # prompt-prefix index over the pool
+    sub: Optional[DecodeCache] = None  # contiguous only
 
     def active(self) -> List[int]:
         """Rows decoding this step: admitted, prefill complete, not done."""
@@ -301,6 +311,8 @@ class InferenceEngine:
                 raise _not_ported(f"a mesh with data-parallel axes {big} of size > 1", "A.9")
             if not hasattr(self.mesh, "rank"):
                 raise TypeError(f"the port serves on a repro_torch.sharding.RankMesh, got {type(self.mesh).__name__}")
+            if cfg.has_mamba:
+                raise _not_ported(f"serving {cfg.name} (mamba conv/ssm cache layouts) on a mesh", "A.9")
         self.device = resolve_device(device)
         # step capture: None means on for the card, off for the CPU; False on
         # the card is the eager A/B (the same bodies and buffers, op by op)
@@ -335,14 +347,17 @@ class InferenceEngine:
         bucket = session.prompt_bucket if session is not None else 64
         self.scheduler = ContinuousScheduler(max_batch=max_batch, bucket=bucket, coalesce_buckets=session is not None)
         self.stats = EngineStats()
-        if paged and not (cfg.has_attention and not cfg.has_mamba):
+        # paged KV + chunked prefill for serve_continuous: attention-only
+        # families (mamba state has no paged layout or chunked append); the
+        # others serve through the contiguous fallback
+        can_page = cfg.has_attention and not cfg.has_mamba
+        self.paged = can_page if paged is None else bool(paged)
+        if self.paged and not can_page:
             raise ValueError("paged KV serving requires an attention-only model")
         if kv_block_size < 1:
             raise ValueError("kv_block_size must be positive")
-        if prefix_cache and paged is False:
+        if prefix_cache and not self.paged:
             raise ValueError("prefix_cache requires the paged KV path")
-        if paged is False:
-            raise _not_ported("the contiguous continuous fallback (paged=False)", "A.6")
         self.kv_block_size = kv_block_size
         self.kv_blocks = kv_blocks  # pool size override (blocks, sans trash)
         self.prefill_chunk = prefill_chunk  # None => one chunk per bucket
@@ -359,7 +374,7 @@ class InferenceEngine:
         # the overflow, so it needs the paged path (DESIGN.md §4f)
         if kv_overcommit is not None and not 0.0 < kv_overcommit <= 1.0:
             raise ValueError("kv_overcommit must be in (0, 1] or None")
-        if kv_overcommit is not None and not (cfg.has_attention and not cfg.has_mamba):
+        if kv_overcommit is not None and not self.paged:
             raise ValueError("kv_overcommit requires the paged KV path")
         self.kv_overcommit = kv_overcommit
         self.max_preemptions = max(int(max_preemptions), 1)
@@ -1109,8 +1124,10 @@ class InferenceEngine:
         batch of another shape releases it and drops its graphs first, so
         varied output budgets do not pile up caches and graph pools."""
         plan = self._sharding_for("decode")
-        heads = local_kv_heads(self.cfg, plan)  # a plan of another attention layout needs another cache
-        if self._static is None or self._static[0] != (B, max_len) or self._static[1].k.shape[3] != heads:
+        # a plan of another attention layout needs another cache
+        heads = local_kv_heads(self.cfg, plan) if self.cfg.has_attention else 0
+        if self._static is None or self._static[0] != (B, max_len) or (
+                heads and self._static[1].k.shape[3] != heads):
             self._static = None
             self.steps.new_cache("static")
             cache = init_cache(self.cfg, B, max_len, dtype=self.params["embed"].dtype, device=self.device, plan=plan)
@@ -1226,10 +1243,10 @@ class InferenceEngine:
         """Drain the queue with continuous batching; uid-ordered completions.
 
         Each iteration first retires cancelled and expired requests, then
-        admits whatever fits the pool, runs one step and retires finished
-        rows. Greedy outputs equal the JAX engine's: every request is
-        prefilled at its own prompt bucket and chunk boundaries only re-tile
-        the same causal attention.
+        admits whatever fits the pool (or, contiguous, a free slot's
+        capacity), runs one step and retires finished rows. Greedy outputs
+        equal the JAX engine's: every request is prefilled at its own prompt
+        bucket and chunk boundaries only re-tile the same causal attention.
         """
         sampling = sampling if sampling is not None else SamplingParams()
         gen = self._generator(sampling)
@@ -1242,7 +1259,7 @@ class InferenceEngine:
                     if not len(self.scheduler):
                         break
                     self._begin_live_batch()
-                self.admit()
+                self.admit(sampling, gen)
                 out.extend(self.retire())  # zero-token budgets end here
                 if not self.step(sampling, gen):
                     # nothing runnable: the queue head outgrows this
@@ -1254,13 +1271,30 @@ class InferenceEngine:
         return sorted(out, key=lambda c: c.uid)
 
     def _begin_live_batch(self) -> None:
-        """Size a fresh live batch from the queue: tables as wide as the
-        largest queued need, a pool holding the sum of queued needs (capped
-        at every slot full-length, never below the head's own need)."""
+        """Size a fresh live batch from the queue. Paged: tables as wide as
+        the largest queued need, a pool holding the sum of queued needs
+        (capped at every slot full-length, never below the head's own
+        need). Contiguous: every slot holds the largest queued need, rounded
+        up to the prompt bucket so repeated capacities reuse the same step
+        graphs, and a B=1 cache of that capacity takes each joiner's
+        prefill."""
         sch = self.scheduler
         queued = sch.queued()
         cap = round_up(max(sch.kv_need(r) for r in queued), sch.bucket)
         nslots = sch.max_batch
+        if not self.paged:
+            self._end_live_batch()
+            dt, plan = self.params["embed"].dtype, self._sharding_for("decode")
+            cache = init_cache(self.cfg, nslots, cap, dtype=dt, device=self.device, plan=plan)
+            cache.pos = torch.zeros((nslots,), dtype=torch.int32, device=self.device)
+            self._live = _LiveBatch(
+                kv_capacity=cap, slots=[None] * nslots, cache=cache, pos=np.zeros((nslots,), np.int32),
+                next_tok=np.zeros((nslots,), np.int32),
+                sub=init_cache(self.cfg, 1, cap, dtype=dt, device=self.device, plan=plan),
+            )
+            log.info("live batch: %d slots, KV capacity %d tokens", nslots, cap)
+            self.stats.batches += 1
+            return
         bs = self.kv_block_size
         max_blocks = blocks_for(cap, bs)
         needs = [blocks_for(sch.kv_need(r), bs) for r in queued]
@@ -1291,25 +1325,81 @@ class InferenceEngine:
         self._live = None
         self.steps.new_cache("live")
 
-    def admit(self) -> List[int]:
-        """Admit queue-head requests into free slots (strict FIFO) while the
-        pool can reserve their charge; their prompts queue as chunks.
+    def admit(self, sampling: Optional[SamplingParams] = None, gen=None) -> List[int]:
+        """Admit queue-head requests into free slots (strict FIFO). Paged:
+        while the pool can reserve their charge; their prompts queue as
+        chunks. Contiguous: while the head fits a slot's capacity; each is
+        prefilled here and its first token sampled with ``sampling``.
         Returns the joined slot indices."""
+        sampling = sampling if sampling is not None else SamplingParams()
         live = self._live
         joined: List[int] = []
         while True:
             free = [i for i, s in enumerate(live.slots) if s is None]
             if not free:
                 break
-            r = self.scheduler.next_fit_blocks(live.allocator, live.kv_capacity, prefix_cache=live.prefix,
-                                               overcommit=self.kv_overcommit)
+            if self.paged:
+                r = self.scheduler.next_fit_blocks(live.allocator, live.kv_capacity, prefix_cache=live.prefix,
+                                                   overcommit=self.kv_overcommit)
+            else:
+                r = self.scheduler.next_fit(live.kv_capacity)
             if r is None:
                 break
-            self._admit_one(free[0], r)
+            if self.paged:
+                self._admit_one(free[0], r)
+            else:
+                self._admit_whole(free[0], r, sampling, gen)
             joined.append(free[0])
         return joined
 
+    def _admit_whole(self, i: int, r: QueuedRequest, sampling: SamplingParams, gen) -> None:
+        """Contiguous admission of ``r`` into slot ``i``: re-plan on the join
+        (its prefill layout; the decode-layout restore is kicked to overlap
+        the prefill), prefill it alone at its own bucket, run the
+        expert-layout transition, merge its cache rows into the slot and
+        take its first token."""
+        live = self._live
+        slot = _Slot(req=r, start=self.scheduler.padded_len(r))
+        live.slots[i] = slot
+        self.stats.joins += 1
+        inter_ms = self._replan_on_join()
+        self._begin_async_restore("decode")
+        toks, _ = self.scheduler.pad_batch([r])
+        self._sync()
+        t0 = time.perf_counter()
+        logits = self._admit_prefill(toks)
+        tok0 = int(self._sample(logits, sampling, gen).cpu()[0])
+        slot.prefill_ms = (time.perf_counter() - t0) * 1e3
+        slot.transition_ms = self._book_transition(inter_ms + self.transition_expert_layout())
+        merge_cache_rows(live.cache, live.sub, [i])
+        live.pos[i] = slot.start
+        live.next_tok[i] = tok0
+        if r.max_new_tokens >= 1:
+            slot.tokens.append(tok0)
+        log.info("join uid=%d slot=%d start=%d (queued %d)", r.uid, i, slot.start, len(self.scheduler))
+
+    def _admit_prefill(self, toks: np.ndarray) -> torch.Tensor:
+        """Prefill one joiner's padded prompt ``toks`` (1, S) into the live
+        batch's B=1 cache under the prefill layout; returns its logits
+        (1, V). One step per prompt bucket; the merge into the live cache
+        runs after it, in place, so a join drops no graph."""
+        live = self._live
+        S, cap = toks.shape[1], live.kv_capacity
+        plan = self._sharding_for("prefill")
+
+        def body(g: StepGraph) -> torch.Tensor:
+            logits, _ = prefill(self.params, self.cfg, {"tokens": g.bufs["tokens"]}, cap,
+                                backend=self.kernel_backend, cache=live.sub, plan=plan)
+            return logits
+
+        g = self.steps.graph(("admit_prefill", plan, S, cap), lambda: self.steps.buffers(tokens=((1, S), torch.long)),
+                             body, "live")
+        g.feed("tokens", toks)
+        return self._run_step(g)
+
     def _admit_one(self, i: int, r: QueuedRequest) -> None:
+        """Paged admission of ``r`` into slot ``i``: reserve its charge and
+        queue its prompt as chunks."""
         live = self._live
         # the worst case (growth cannot run the pool dry), or under
         # kv_overcommit the expected need: growth past it takes spare blocks,
@@ -1372,8 +1462,9 @@ class InferenceEngine:
 
     def step(self, sampling: SamplingParams, gen=None) -> bool:
         """One iteration: the FIFO-first joiner's next prefill chunk, fused
-        with a decode step when live rows exist, else a decode step. Returns
-        False when nothing is runnable (drain-and-resize)."""
+        with a decode step when live rows exist, else (and always on the
+        contiguous path, whose joiners were prefilled at admission) a decode
+        step. Returns False when nothing is runnable (drain-and-resize)."""
         live = self._live
         pending = live.prefilling()
         active = live.active()
@@ -1393,7 +1484,7 @@ class InferenceEngine:
         copies are queued on the card before that write."""
         live = self._live
         s = live.slots[i]
-        if s is None:
+        if s is None or s.table is None:
             return
         dirty = not s.mirrored
         if write_from is not None:
@@ -1527,6 +1618,17 @@ class InferenceEngine:
             g.bufs["route"].copy_(new.route_topk)
         return logits
 
+    def _contiguous_decode(self, g: StepGraph) -> torch.Tensor:
+        """A decode step over every slot of the contiguous live cache (K/V,
+        and each mamba layer's conv window and state) at the step's
+        position buffer; returns the logits (nslots, V)."""
+        cache = dataclasses.replace(self._live.cache, pos=g.bufs["pos"])
+        logits, new = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
+                                  plan=g.key[1], collect_routing="route" in g.bufs)
+        if "route" in g.bufs:
+            g.bufs["route"].copy_(new.route_topk)
+        return logits
+
     def _fused_body(self, g: StepGraph) -> torch.Tensor:
         """The chunk half, then the decode half, as one step (the
         reference's ``_fused_fn`` is one jit). The two halves read two
@@ -1537,13 +1639,18 @@ class InferenceEngine:
 
     def _live_step(self, kind: str, C: int = 0) -> StepGraph:
         """The live batch's step of ``kind`` ("chunk", "paged_decode" or
-        "fused") for a C-token chunk, keyed as the reference's jit entries
-        plus the shape class."""
+        "fused" on the paged pool; "decode" on the contiguous cache) for a
+        C-token chunk, keyed as the reference's jit entries plus the shape
+        class."""
         live = self._live
         n, mb, pfx = len(live.slots), live.max_blocks, live.prefix is not None
         plan = self._sharding_for("decode")
-        if local_kv_heads(self.cfg, plan) != live.cache.k.shape[3]:
+        if live.cache.k is not None and local_kv_heads(self.cfg, plan) != live.cache.k.shape[3]:
             raise _not_ported("moving a live KV pool to another attention layout", "A.9")
+        if kind == "decode":
+            specs = dict(tokens=((n, 1), torch.long), pos=((n,), torch.int32), **self._route_spec(n))
+            return self.steps.graph(("decode", plan, n, live.kv_capacity), lambda: self.steps.buffers(**specs),
+                                    self._contiguous_decode, "live")
         specs = {}
         if kind in ("chunk", "fused"):
             specs.update(chunk=((1, C), torch.long), chunk_pos=((1,), torch.int32),
@@ -1645,23 +1752,27 @@ class InferenceEngine:
             s.tokens.append(t)
 
     def step_decode(self, sampling: SamplingParams, gen=None) -> None:
-        """One decode step over the full slot set (drained rows frozen on the
-        host, writing to the trash block): constant shapes per slot count."""
+        """One decode step over the full slot set, drained rows frozen on
+        the host (paged: writing to the trash block; contiguous: at their
+        own frozen position, their mamba state running on until a join
+        overwrites it): constant shapes per slot count."""
         live = self._live
         active = live.active()
-        for j in active:
-            if live.slots[j] is not None:
-                self._grow_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
-        active = [j for j in active if live.slots[j] is not None]
-        if not active:
-            return  # every decode row was preempted to cover the pool
-        g = self._live_step("paged_decode")
+        if self.paged:
+            for j in active:
+                if live.slots[j] is not None:
+                    self._grow_blocks(j, int(live.pos[j]) + 1, write_from=int(live.pos[j]))
+            active = [j for j in active if live.slots[j] is not None]
+            if not active:
+                return  # every decode row was preempted to cover the pool
+        g = self._live_step("paged_decode" if self.paged else "decode")
         g.feed("tokens", live.next_tok[:, None])
         g.feed("pos", live.pos)
-        g.feed("tables", live.tables)
-        groups = self._groups(decode=True)
-        if groups is not None:
-            g.feed("groups", groups)
+        if self.paged:
+            g.feed("tables", live.tables)
+            groups = self._groups(decode=True)
+            if groups is not None:
+                g.feed("groups", groups)
         t0 = time.perf_counter()
         logits = self._run_step(g)
         route = self._read_route(g)
@@ -1673,12 +1784,13 @@ class InferenceEngine:
         self._maybe_rebalance()
 
     def _free_slot(self, i: int) -> _Slot:
-        """Release row ``i``'s blocks, point its mirror at the trash block and
-        empty the slot; returns the old slot state."""
+        """Release row ``i``'s blocks and point its mirror at the trash block
+        (paged), and empty the slot; returns the old slot state."""
         live = self._live
         s = live.slots[i]
-        s.table.free()
-        live.tables[i, :] = TRASH_BLOCK
+        if s.table is not None:
+            s.table.free()
+            live.tables[i, :] = TRASH_BLOCK
         s.pending = []
         live.slots[i] = None
         live.next_tok[i] = 0

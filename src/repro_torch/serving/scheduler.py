@@ -147,7 +147,8 @@ class ContinuousScheduler(FifoScheduler):
 
     The continuous engine calls ``next_fit_blocks`` at step boundaries: the
     queue head is admitted only when its worst-case KV need fits the
-    block-table width and its charge fits the pool's free blocks. A head that does not fit
+    block-table width and its charge fits the pool's free blocks (the
+    contiguous fallback's ``next_fit``: when it fits a slot's capacity). A head that does not fit
     the width blocks the queue until the live batch drains and a fresh pool
     is sized for it; a head short only on blocks becomes admittable as
     retirements return blocks.
@@ -167,6 +168,14 @@ class ContinuousScheduler(FifoScheduler):
         gen = max(r.max_new_tokens, 1)
         expect = int(np.ceil(overcommit * gen))
         return self.padded_len(r) + min(max(expect, 1), gen) + 1
+
+    def next_fit(self, kv_capacity: int) -> Optional[QueuedRequest]:
+        """Contiguous admission: pop the queue head iff its worst-case KV
+        need fits the per-slot ``kv_capacity``, else None."""
+        head = self.peek()
+        if head is None or self.kv_need(head) > kv_capacity:
+            return None
+        return self._q.popleft()
 
     def next_fit_blocks(self, allocator, max_tokens: int, prefix_cache=None,
                         overcommit: Optional[float] = None) -> Optional[QueuedRequest]:

@@ -10,7 +10,8 @@ scenarios of ``tests/test_continuous.py``, ``tests/test_kv_cache.py`` and
 ``tests/test_prefix_cache.py`` (both engines without a session, with the
 same 16-token prompt bucket). The paths not ported yet raise
 ``NotImplementedError``; the robustness knobs raise the reference's
-``ValueError``s on bad values, and deadlines and cancels are served.
+``ValueError``s on bad values and without the paged path, and deadlines
+and cancels are served.
 """
 
 import dataclasses
@@ -235,7 +236,7 @@ def test_engine_mirrors_and_groups(moe_setup):
 @pytest.mark.parametrize(
     "kw,err",
     [
-        (dict(paged=False), NotImplementedError),
+        (dict(paged=False, kv_overcommit=0.5), ValueError),  # overcommit needs the paged path
         (dict(paged=False, prefix_cache=True), ValueError),
         (dict(kv_overcommit=1.5), ValueError),
         (dict(faults=lambda: FaultInjector().fail("nope")), ValueError),

@@ -96,7 +96,8 @@ def setup(request):
 
 
 def test_registry_holds_deepseek_and_the_eight_families():
-    assert list_configs() == tuple(sorted(("deepseek-moe-16b",) + FAMILIES))
+    # and the two families with mamba layers (tests/test_torch_ssm_models.py)
+    assert list_configs() == tuple(sorted(("deepseek-moe-16b", "falcon-mamba-7b", "hymba-1.5b") + FAMILIES))
 
 
 @pytest.mark.parametrize("name", FAMILIES)

@@ -71,6 +71,9 @@ def _decode_variant(dtype, hd):
         (2, 4, 4, 1, 50, 256, 0, 0.0),  # hd 256, one query row
         (2, 32, 4, 100, 100, 128, 0, 0.0),  # Qwen3-30B-A3B's G=8 at hd 128
         (2, 4, 2, 37, 37, 144, 0, 0.0),  # hd 144: no wgmma instance, simt in bf16 too
+        (4, 25, 5, 128, 128, 64, 0, 0.0),  # Hymba-1.5B prefill: hd 64, G=5
+        (4, 25, 5, 128, 128, 64, 1024, 0.0),  # Hymba's local layers (window 1024)
+        (1, 25, 5, 132, 132, 64, 1024, 0.0),  # Hymba, a ragged last q tile
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -102,6 +105,8 @@ def test_flash_attention_kernel(B, Hq, Hkv, Sq, Sk, hd, window, softcap, dtype):
         (4, 1, 16, 16, 128, 145, 1, 0, True, 0.0),  # main path: identity table, Smax 145
         (3, 5, 4, 2, 32, 16, 4, 6, False, 25.0),  # block pool, chunk, window, softcap
         (2, 40, 4, 2, 64, 8, 12, 0, True, 0.0),  # C*G = 80 rows: two row chunks
+        (4, 1, 25, 5, 64, 145, 1, 0, True, 0.0),  # Hymba-1.5B's static decode: hd 64, G=5
+        (4, 1, 25, 5, 64, 145, 1, 1024, False, 0.0),  # its local layers
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -135,6 +140,33 @@ def test_paged_attention_kernel(B, C, Hq, Hkv, hd, bs, nb, window, is_global, so
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     live = slice(0, N) if nb == 1 else slice(1, N)
     assert torch.equal(kp[live], kp_w[live]) and torch.equal(vp[live], vp_w[live])
+
+
+@pytest.mark.parametrize("Hq,Hkv,hd", [(25, 5, 64), (16, 16, 128)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_contiguous_per_row_positions(Hq, Hkv, hd, dtype):
+    """The contiguous continuous decode step: 8 rows of a (8, 320) cache
+    through the identity table, each at its own position (40-300), one
+    row at position 0 (a slot no request has used); Hymba-1.5B's and
+    DeepSeekMoE-16B's heads."""
+    from repro_torch.kernels import paged_attention as pa
+
+    dev = _card()
+    rng = np.random.default_rng(2)
+    B, Smax = 8, 320
+    pos = torch.tensor([40, 300, 77, 0, 256, 129, 288, 191], dtype=torch.int32, device=dev)
+    tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    q = _randn(rng, (B, 1, Hq, hd), dtype, dev)
+    kc, vc = (_randn(rng, (B, Smax, Hkv, hd), dtype, dev) for _ in range(2))
+    kn, vn = (_randn(rng, (B, 1, Hkv, hd), dtype, dev) for _ in range(2))
+    kc2, vc2 = kc.clone(), vc.clone()
+    out, _, _ = pa.paged_attention(q, kc, vc, tables, kn, vn, pos, True, scale=hd**-0.5)
+    torch.cuda.synchronize()
+    want, kw, vw = pa.paged_attention_plain(q, kc2, vc2, tables, kn, vn, pos, True, scale=hd**-0.5)
+    tol = _tol(out.dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(kc, kw) and torch.equal(vc, vw)
+    assert torch.equal(out, pa.paged_attention(q, kc, vc, tables, kn, vn, pos, True, scale=hd**-0.5)[0])
 
 
 def _scattered(rng, B, nb, N):
@@ -743,6 +775,71 @@ def test_captured_full_width_family_equals_eager(name):
         if continuous:
             assert launches["prefix_paged_attention"] > 0 and captured[5].stats.prefix_hit_blocks > 0
         assert not any(k.split(".")[1].startswith("ref") for k in captured[4])
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba_prefill_equals_decode_on_the_card(dtype):
+    """Falcon-Mamba-7B at full width, 4 layers, left-padded prompts: a
+    prefill of the prompt and 4 more tokens against the prompt's prefill
+    and those tokens decoded one by one. A wrong scan or state hand-off
+    gives unrelated logits (rel L2 near 1.4). In float32 the two paths
+    differ by rounding alone (the H100 read 1.4e-5 at this depth); in bf16
+    by bf16 rounding, which the H100 read at 0.02-0.03 at this depth (as
+    much as the same path at another batch size)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), num_layers=4, dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 68))).to(dev)
+    toks[0, :20] = 0  # left padding, as the scheduler pads a short prompt
+    with torch.inference_mode():
+        whole, _ = prefill(params, cfg, {"tokens": toks}, 72)
+        logits, cache = prefill(params, cfg, {"tokens": toks[:, :64]}, 72)
+        for t in range(64, 68):
+            logits, cache = decode_step(params, cfg, toks[:, t : t + 1], cache)
+    assert torch.isfinite(logits).all()
+    assert _rel_l2(logits, whole) < (1e-3 if dtype == "float32" else 0.1)
+
+
+def test_ssm_families_captured_contiguous_equals_eager():
+    """Hymba-1.5B (hd 64, G=5, window 1024) and Falcon-Mamba-7B at full
+    width, 2 layers, bf16: ``run()`` and the contiguous
+    ``serve_continuous()`` give the eager tokens, logits bit for bit and
+    counts when captured; Hymba's flash launches are wgmma and its paged
+    launches split, Falcon-Mamba launches no kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+
+    dev = _card()
+    for name in ("hymba-1.5b", "falcon-mamba-7b"):
+        cfg = dataclasses.replace(get_config(name), num_layers=2)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        rng = np.random.default_rng(17)
+        for continuous in (False, True):
+            reqs = [(rng.integers(1, cfg.vocab_size, n).tolist(), g) for n, g in ((20, 6), (70, 4), (33, 8), (100, 5))]
+            runs = _served_both_ways(
+                lambda capture: InferenceEngine(cfg, params, max_batch=2, capture_steps=capture), reqs, continuous)
+            eager, captured = runs[False], runs[True]
+            assert captured[0] == eager[0] and [len(t) for t in captured[0]] == [g for _, g in reqs]
+            assert len(captured[1]) == len(eager[1]) > 0
+            for a, b in zip(captured[1], eager[1]):
+                assert torch.equal(a, b)
+            assert captured[2:5] == eager[2:5]
+            launches, variants = captured[2], captured[3]
+            assert not captured[5].paged
+            assert launches.get("flash_attention", 0) == variants.get(("flash_attention", "wgmma"), 0)
+            assert launches.get("paged_attention", 0) == variants.get(("paged_attention", "split"), 0)
+            assert (launches.get("flash_attention", 0) > 0) == cfg.has_attention
+            assert not any(v for k, v in launches.items() if k not in ("flash_attention", "paged_attention"))
+            assert not any(k.split(".")[1].startswith("ref") for k in captured[4])
 
 
 # ---------------------------------------------------------------------------

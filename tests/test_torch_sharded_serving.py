@@ -9,7 +9,8 @@ under each plan; one pair of gloo ranks does the same through the port's
 shard of the same weights (``shard_params``). Tokens and counters must be
 equal, logits within 1e-4, and the two ranks' results equal. Reduced
 DeepSeekMoE-16B (and reduced Mixtral-8x7B) in float32 with capacity factor
-8. The scenarios mirror ``tests/test_moe_pipeline.py:261``,
+8, through ``run()``, the paged ``serve_continuous()`` and its contiguous
+fallback (``paged=False``). The scenarios mirror ``tests/test_moe_pipeline.py:261``,
 ``tests/test_session.py:97`` and ``tests/test_sharding_multidevice.py:47``.
 """
 
@@ -48,6 +49,12 @@ SCENARIOS = {
     "kv1_tp2_continuous": ("deepseek-moe-16b", {"num_kv_heads": 1}, ("TP2", "TP2", "", "reshard"),
                            {"kv_block_size": 8, "prefill_chunk": 8}, True),
     "mixtral_ep2": ("mixtral-8x7b", {}, ("TP2", "EP2", "", "reshard"), {}, False),
+    # the contiguous continuous fallback: whole-prompt admissions merged into
+    # slots, under TP2 attention and EP2 experts, then under the switching
+    # INT4 plan (an expert transition at every admission)
+    "contiguous_tp2_ep2": ("deepseek-moe-16b", {}, ("TP2", "EP2", "", "reshard"), {"paged": False}, True),
+    "contiguous_switch_int4": ("deepseek-moe-16b", {}, ("TP2", "EP2", "TP2", "int4_upload"),
+                               {"paged": False, "use_int4_transition": True}, True),
     # a capacity that drops tokens: EP2 routes each rank's half of the tokens with
     # the capacity of that half, so it drops other tokens than one device does
     "ep2_drops": ("deepseek-moe-16b", {"capacity_factor": 0.5}, ("TP2", "EP2", "", "reshard"), {}, False),
