@@ -73,7 +73,9 @@ printing one JSON line:
              kernels phase has no row for (68 slots, the slot leaf, the
              barrier's assembled leaf)
 9. robustness - the same weights (the router put back after the
-             replication phase) at capacity factor E / k, so nothing drops
+             replication phase), their first 7 of 28 layers (the script's
+             time limit; the schedule does not depend on the depth), at
+             capacity factor E / k, so nothing drops
              and rows cannot couple: the continuous traffic at a pool of 51
              blocks (3 rows' expected need, 2 rows' worst case) with
              worst-case admission, then ``kv_overcommit=0.25`` eager and
@@ -99,7 +101,7 @@ printing one JSON line:
              Qwen3-30B-A3B (12 of 48 layers, 128 experts top-8, GQA 32/4): the
              serve phase's ``run()`` eager and captured, the agree check,
              and the continuous traffic with the prefix cache off and on
-             (equal tokens); Gemma-2-9B (42 layers, head dim 256, softcaps,
+             (equal tokens); Gemma-2-9B (14 of 42 layers, head dim 256, softcaps,
              alternating 4096-token window): ``run()``, agree, and the
              continuous traffic with the prefix cache on; Mixtral-8x7B at
              its first 8 of 32 layers (93.4 GB in bf16 does not fit the
@@ -116,6 +118,22 @@ printing one JSON line:
              rounding noise), Hymba's agree check (float32 gate, bf16
              bound), exact launch counts (Falcon-Mamba launches none), and
              the plain mamba mixer's and scan's device times
+    vlm     - LLaVA-NeXT-Mistral-7B at full width and depth (32 layers, image
+             patch embeddings ahead of the text) through ``prefill`` +
+             ``decode_step``: two image prompts of 2,880 patches + 64 text
+             tokens, then one of 37 (a partial last flash query tile), 16
+             greedy tokens each, launches exact; hopper against ref in bf16
+             within twice the ref path's batch noise in the same run, and at
+             4 layers in float32 hopper = ref = one forward over the longer
+             sequence (1e-3). The kernels phase has flash and paged rows at
+             these shapes
+    train   - training on the card (the loss pins the plain ``ref`` path, so
+             no hand kernel launches): HuBERT-XLarge at full width and depth
+             through ``repro_torch.launch.train --full`` (5 steps, B=4, 512
+             frames, remat), DeepSeekMoE-16B at full width, 4 of 28 layers
+             (5 steps, B=4 S=256, the router's aux loss); ms per step, peak
+             memory, loss; then float32 parity with the port on the CPU (a
+             HuBERT train step; DeepSeek's loss, aux and gradients)
 11. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
              gloo group, both on the one card (NCCL refuses two ranks on one
              device), spawned by ``repro_torch.sharding.launch``; each rank
@@ -232,7 +250,11 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # and the replicated two-rank run added ~2.5 min; one full run took 1068 s
 # of the 1200 allowed). The contiguous and ssm phases added ~95 s and a
 # run read ~990 s, so Qwen3 went from 24 layers to 12, not the mamba
-# families, which serve at full depth.
+# families, which serve at full depth. The vlm and train phases and their
+# kernel rows took ~40 s on the H100, which the ~990 s runs had room for
+# (phases <= 1,050 s), but one H100 run with them read 1,061 s:
+# Gemma-2-9B went from 21 layers to 14, and the robustness phase to 7 of
+# DeepSeek's 28 (ROBUST_LAYERS).
 # The agree bounds with each path routing on its own sit 2-4x above what
 # the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
 # 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
@@ -240,7 +262,7 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # its logits most (its steps without a flip read 0.018-0.019).
 FAMILIES = (
     ("qwen3-moe-30b-a3b", 12, (False, True), (0.15, 0.2)),
-    ("gemma2-9b", 21, (True,), (0.1, 0.1)),
+    ("gemma2-9b", 14, (True,), (0.1, 0.1)),
     ("mixtral-8x7b", 8, (), (0.35, 0.6)),
 )
 
@@ -443,6 +465,10 @@ def phase_kernels(cfg) -> list:
     # and Hymba-1.5B's (ssm phase): head dim 64, 25 q heads over 5 KV heads,
     # on its global and its windowed (1024) layers
     hy = get_config("hymba-1.5b")
+    # and LLaVA-NeXT-Mistral-7B's image prompts (vlm phase): 2,880 patches
+    # ahead of 64 text tokens (B=2) and of 37 (B=1, a partial last q tile)
+    lv = get_config(VLM_MODEL)
+    vlm_seqs = [(rows, lv.num_patches + n_text) for rows, n_text in VLM_PROMPTS]
     flash_rows = [flash_case(dev, randn, model, fb, fs, attn, win) for model, fb, fs, attn, win in (
         (cfg.name, B, S, attn_of(cfg), 0),
         (cfg.name, 1, 2048, attn_of(cfg), 0),
@@ -452,6 +478,7 @@ def phase_kernels(cfg) -> list:
         (mx.name, B, S, attn_of(mx), 0),
         (hy.name, B, S, attn_of(hy), 0),
         (hy.name, B, S, attn_of(hy), hy.sliding_window),
+        *((lv.name, rows, seq, attn_of(lv), 0) for rows, seq in vlm_seqs),
     )]
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -487,6 +514,10 @@ def phase_kernels(cfg) -> list:
             static_decode_case(rng, dev, hy.name, attn_of(hy), 0),
             static_decode_case(rng, dev, cfg.name, attn_of(cfg), 0, CONTIG_POS, _contig_capacity()),
             static_decode_case(rng, dev, hy.name, attn_of(hy), 0, CONTIG_POS, _contig_capacity()),
+            # LLaVA's decode steps after each image prompt, at the middle
+            # of the 15 (positions seq .. seq + 14 of a seq + 16 cache)
+            *(static_decode_case(rng, dev, lv.name, attn_of(lv), 0, [seq + VLM_NEW // 2 - 1] * rows,
+                                 seq + VLM_NEW) for rows, seq in vlm_seqs),
         ],
     })
     rows.append(prefix_row(cfg, rng, dev))
@@ -1989,6 +2020,11 @@ def replication_kernel_rows(cfg, rows, shapes) -> None:
 # row's arithmetic). The schedule (admissions, growth, preemptions) depends
 # on the lengths alone, never on the weights or tokens, so the CPU tests'
 # reduced model gives the same one (tests/test_torch_faults.py).
+# The phase runs the first ROBUST_LAYERS of DeepSeek's 28 layers (views of
+# the same weights): the schedule does not depend on the depth, and the
+# vlm and train phases needed the time (one H100 run with them read 1,061 s
+# of phases at full depth, against the 1,050 s the script keeps to).
+ROBUST_LAYERS = 7
 ROBUST_OVERCOMMIT = 0.25
 ROBUST_ROWS = 3  # the pool: this many rows' expected need (17 blocks each); worst case admits 2
 ROBUST_CACHE_BLOCKS = 38  # with the prefix cache on, the pool that evicts and preempts under growth
@@ -2155,7 +2191,7 @@ def _replay_gate(cfg, params, name: str, run: dict, base: dict) -> dict:
 
 
 def phase_robustness(cfg, params, shapes) -> dict:
-    """The §4f robustness layer at full width and depth on the continuous
+    """The §4f robustness layer at full width (the caller's depth) on the continuous
     traffic at capacity factor E / k: worst-case admission against
     ``kv_overcommit=0.25`` at the same pool (cache off, eager and captured;
     cache on at a smaller pool, where growth evicts prefix entries and
@@ -2689,6 +2725,336 @@ def phase_ssm() -> dict:
     return out
 
 
+# vlm phase: LLaVA-NeXT-Mistral-7B at full width and depth (32 layers, bf16,
+# seeded random weights and inputs) through the model's own entry points,
+# prefill + decode_step (the engine serves token prompts only, as the
+# reference's does): a batch of two image prompts, each 2,880 patch
+# embeddings of dim 1,024 ahead of 64 text tokens (S=2944), then one prompt
+# of 37 text tokens (S=2917: the flash kernel's last query tile partial),
+# each followed by 16 greedy tokens. The launches of those two runs are
+# exact. Gates:
+# - bf16, hopper against ref: the ref path teacher-forced on the hopper
+#   path's tokens; the rel L2 of the prefill logits and of every decode
+#   step's within VLM_NOISE_FACTOR times the ref path's own batch noise in
+#   this run (each row of the batch alone, B=1, against the batch; its
+#   largest step), the bound the B=1 prompt is held to as well. A wrong
+#   kernel gives unrelated logits (rel L2 near 1.4).
+# - float32 at the first VLM_F32_LAYERS layers (the weights cast up): hopper
+#   against ref per step, and the hopper path's decode logits against one
+#   forward_hidden + unembed over the prompt and the tokens it took (the
+#   reference's prefill/decode consistency test), rel L2 within VLM_F32_TOL.
+VLM_MODEL = "llava-next-mistral-7b"
+VLM_PROMPTS = ((2, 64), (1, 37))  # (rows, text tokens) after each row's 2,880 patches
+VLM_NEW = 16
+VLM_NOISE_FACTOR = 2
+VLM_F32_LAYERS = 4
+VLM_F32_TOL = 1e-3  # rel L2
+
+
+def vlm_batch(cfg, rows: int, n_text: int, seed: int) -> dict:
+    """An image prompt: standard normal patch embeddings (bf16) and text ids."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    patches = torch.randn(rows, cfg.num_patches, cfg.frontend_dim, generator=gen, device="cuda")
+    return {"patches": patches.to(torch.bfloat16),
+            "tokens": torch.randint(1, cfg.vocab_size, (rows, n_text), generator=gen, device="cuda")}
+
+
+def vlm_max_len(cfg, batch) -> int:
+    return cfg.num_patches + batch["tokens"].shape[1] + VLM_NEW
+
+
+def _vlm_logits(cfg, params, batch, backend, feed=None) -> tuple:
+    """Prefill of ``batch`` and VLM_NEW - 1 decode steps on ``backend``,
+    each step fed the argmax of ``feed``'s logits at that step (its own
+    with None): (every step's float32 logits, on the card; prefill ms and
+    mean decode ms per step, the device waited for at both ends)."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, batch, vlm_max_len(cfg, batch), backend=backend)
+        out = [logits.float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for step in range(VLM_NEW - 1):
+            logits, cache = decode_step(params, cfg, (feed or out)[step].argmax(-1)[:, None], cache, backend=backend)
+            out.append(logits.float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    del cache
+    return out, {"prefill_ms": (t1 - t0) * 1e3, "decode_ms_per_step": (t2 - t1) * 1e3 / (VLM_NEW - 1)}
+
+
+def _per_step(got, want) -> dict:
+    return {"rel_l2_err_per_step": [_rel_l2(g, w) for g, w in zip(got, want)],
+            "max_rel_err_per_step": [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)],
+            "argmax_agreement": sum(int((g.argmax(-1) == w.argmax(-1)).sum()) for g, w in zip(got, want))
+            / sum(len(w) for w in want)}
+
+
+def vlm_bf16_gate(cfg, params, batch, hop, bound=None) -> dict:
+    """The ref path teacher-forced on the hopper path's tokens against the
+    hopper path's logits ``hop``; with ``bound`` None, the bound is
+    VLM_NOISE_FACTOR times the ref path's batch noise (each row alone
+    against the batch, its largest step)."""
+    import torch
+
+    ref, _ = _vlm_logits(cfg, params, batch, "ref", feed=hop)
+    res = {"hopper_vs_ref": _per_step(hop, ref)}
+    if bound is None:
+        rows = len(batch["tokens"])
+        alone = [_vlm_logits(cfg, params, {k: v[i:i + 1] for k, v in batch.items()}, "ref",
+                             feed=[h[i:i + 1] for h in hop])[0] for i in range(rows)]
+        res["ref_batch_noise"] = _per_step([torch.cat(r) for r in zip(*alone)], ref)
+        bound = VLM_NOISE_FACTOR * max(res["ref_batch_noise"]["rel_l2_err_per_step"])
+        del alone
+    del ref
+    res["rel_l2_tol"] = bound
+    if not max(res["hopper_vs_ref"]["rel_l2_err_per_step"]) <= bound:
+        raise AssertionError(f"vlm ({cfg.name}): bf16 hopper and ref logits differ beyond the noise bound: {res}")
+    return res
+
+
+def vlm_f32_gate(cfg, params, batch) -> dict:
+    """The first VLM_F32_LAYERS layers in float32: hopper against ref, and
+    the hopper path's logits against one forward over the prompt and the
+    tokens it took."""
+    import torch
+
+    from repro_torch.models import embed_inputs, forward_hidden, unembed
+
+    f32 = dataclasses.replace(cfg, dtype="float32", num_layers=VLM_F32_LAYERS)
+    p32 = _cast(_first_layers_of(params, VLM_F32_LAYERS), torch.float32)
+    hop, _ = _vlm_logits(f32, p32, batch, "hopper")
+    ref, _ = _vlm_logits(f32, p32, batch, "ref", feed=hop)
+    taken = torch.cat([batch["tokens"]] + [h.argmax(-1)[:, None] for h in hop[:-1]], dim=1)
+    with torch.inference_mode():
+        x = embed_inputs(p32, f32, dict(batch, tokens=taken))
+        h, _, _ = forward_hidden(p32, f32, x)
+        whole = unembed(p32, f32, h[:, -VLM_NEW:]).float()
+    res = {"layers": VLM_F32_LAYERS, "hopper_vs_ref": _per_step(hop, ref),
+           "decode_vs_forward": _per_step(hop, [whole[:, i] for i in range(VLM_NEW)]), "rel_l2_tol": VLM_F32_TOL}
+    del p32, hop, ref, whole, h, x
+    _free()
+    if not all(torch.isfinite(torch.tensor(r["rel_l2_err_per_step"])).all() and
+               max(r["rel_l2_err_per_step"]) <= VLM_F32_TOL for r in (res["hopper_vs_ref"], res["decode_vs_forward"])):
+        raise AssertionError(f"vlm ({cfg.name}): float32 logits differ: {res}")
+    return res
+
+
+def _first_layers_of(params, n: int):
+    """``params`` with only the first ``n`` layers (views)."""
+    return dict(params, layers=_first_layers(params["layers"], n))
+
+
+def phase_vlm() -> dict:
+    """LLaVA-NeXT-Mistral-7B at full width and depth: the two prompts on the
+    hopper backend (the main path, launches exact), then the bf16 and
+    float32 gates. Returns {"launches", "shapes"} of the main path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    cfg = get_config(VLM_MODEL)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "vlm", "model": VLM_MODEL, "step": "init", "seconds": time.perf_counter() - t0,
+          "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated()})
+    batches = [vlm_batch(cfg, rows, n_text, SEED + i) for i, (rows, n_text) in enumerate(VLM_PROMPTS)]
+    _vlm_logits(cfg, params, batches[1], "hopper")  # warm-up: the library handles, the kernels' first loads
+    ops.reset_counts()
+    runs = [_vlm_logits(cfg, params, b, "hopper") for b in batches]
+    launches, dispatch, shapes = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), launch_shapes()
+    variants = check_variants("vlm", launches)
+    L = cfg.num_layers
+    expect = {"flash_attention": L * len(batches), "paged_attention": L * (VLM_NEW - 1) * len(batches)}
+    if launches != expect or ref_ops(dispatch):
+        raise AssertionError(f"vlm: launches {launches} (expected {expect}), dispatch {dispatch}")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(torch.isfinite(t).all() for hop, _ in runs for t in hop):
+        raise AssertionError("vlm: non-finite logits")
+    bf16 = [vlm_bf16_gate(cfg, params, batches[0], runs[0][0])]
+    bf16.append(vlm_bf16_gate(cfg, params, batches[1], runs[1][0], bound=bf16[0]["rel_l2_tol"]))
+    f32 = [vlm_f32_gate(cfg, params, b) for b in batches]
+    for (rows, n_text), (hop, times), b16, b32 in zip(VLM_PROMPTS, runs, bf16, f32):
+        emit({"phase": "vlm", "model": VLM_MODEL, "step": "prompt", "rows": rows, "text_tokens": n_text,
+              "seq": cfg.num_patches + n_text, "max_len": cfg.num_patches + n_text + VLM_NEW, **times,
+              "bfloat16": b16, "float32": b32})
+    emit({"phase": "vlm", "model": VLM_MODEL, "step": "summary", "num_layers": L, "max_memory_allocated": peak,
+          "prefill_ms": [t["prefill_ms"] for _, t in runs], "decode_ms_per_step": [t["decode_ms_per_step"]
+                                                                                  for _, t in runs],
+          "launches": launches, "variants": variants, "dispatch": dispatch})
+    del params, runs, batches
+    _free()
+    return {"launches": launches, "shapes": shapes}
+
+
+# train phase: training through the port's entry points on the card. The
+# loss pins the kernel seam to its plain PyTorch path (the hand kernels
+# define no backward, as the reference's Pallas kernels define none): a
+# train step launches no hand kernel, and the phase counts its ref
+# dispatches. TRAIN_RUNS, each TRAIN_STEPS steps on the data pipeline's
+# batches with the launcher's schedule (warm-up 100 steps, so the rate is
+# 3e-6 .. 1.5e-5 and only the small bf16 weights move):
+# - HuBERT-XLarge at full width and depth (48 layers, bf16, remat on):
+#   ``python -m repro_torch.launch.train --arch hubert-xlarge --full
+#   --batch 4 --seq 512`` (``launch.train.main``) on audio frame batches;
+# - DeepSeekMoE-16B at full width, its first 4 of 28 layers (2.56 B
+#   parameters, ~31 GB with the float32 moments; all 28 layers' ~200 GB do
+#   not fit the card): ``train_loop`` on the Markov data, B=4, S=256, the
+#   router's aux loss in the objective.
+# Each prints ms per step (the steps after the first), tokens or frames per
+# second, peak memory, loss and grad norm; gated finite, parameters
+# changed, no hand-kernel launch. Then float32 parity with the port on the
+# CPU from one set of weights and one batch: HuBERT at full width, 2 layers,
+# one whole train step (loss and grad norm at rel 1e-5, updated parameters
+# at rel L2 1e-5: a wrong update moves them ~2e-4); DeepSeek at full width,
+# 1 layer, B=1 S=64: loss and aux at rel 1e-5, the gradients of the router,
+# the experts' wi_gate and wq at rel L2 1e-4 (gradients only, to keep the
+# host near 10 GB).
+TRAIN_STEPS = 5
+TRAIN_RUNS = (("hubert-xlarge", None, 4, 512), ("deepseek-moe-16b", 4, 4, 256))  # (model, layers kept, B, S)
+TRAIN_PARITY_TOL = 1e-5  # rel: loss, grad norm, aux; rel L2: updated parameters
+TRAIN_GRAD_TOL = 1e-4  # rel L2: gradients
+
+
+def _train_run(name, layers, B, S) -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_data
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    from repro_torch.training.train_loop import train_loop
+    from repro_torch.training.tree import tree_leaves
+
+    cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    hist = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # the loop's log lines; stdout carries JSON only
+        if layers is None:
+            state = launch_train.main(["--arch", name, "--full", "--steps", str(TRAIN_STEPS), "--batch", str(B),
+                                       "--seq", str(S)], history=hist)
+        else:
+            state = train_loop(cfg, synthetic_lm_data(cfg, B, S), TRAIN_STEPS, log_every=1, seed=SEED,
+                               device="cuda", history=hist)
+    wall = time.perf_counter() - t0
+    launches, dispatch = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    init = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")  # the loop's own draw
+    changed = sum(int((a.detach() != b).sum()) for a, b in zip(tree_leaves(state.params), tree_leaves(init)))
+    n = sum(t.numel() for t in tree_leaves(init))
+    del init, state
+    _free()
+    step_s = sum(h["seconds"] for h in hist[1:]) / (len(hist) - 1)
+    res = {"phase": "train", "model": name, "num_layers": cfg.num_layers, "of": get_config(name).num_layers,
+           "dtype": cfg.dtype, "batch": B, "seq": S, "params": n, "steps": TRAIN_STEPS, "wall_s": wall,
+           "first_step_ms": hist[0]["seconds"] * 1e3, "ms_per_step": step_s * 1e3,
+           ("frames_per_s" if cfg.frontend == "audio" else "tokens_per_s"): B * S / step_s,
+           "max_memory_allocated": peak,
+           "loss": [h["loss"] for h in hist], "ce": [h["ce"] for h in hist], "aux": [h["aux"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist], "lr": [h["lr"] for h in hist],
+           "params_changed": changed, "params_changed_share": changed / n, "launches": launches,
+           "ref_dispatch": ref_ops(dispatch)}
+    emit(res)
+    finite = all(math.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm", "ce", "aux"))
+    if not finite or not changed or sum(launches.values()) or set(dispatch) != set(ref_ops(dispatch)):
+        raise AssertionError(f"train ({name}): finite {finite}, parameters changed {changed}, launches {launches}, "
+                             f"dispatch {dispatch}")
+    return res
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def train_parity() -> dict:
+    """Float32 parity of the card's training with the port on the CPU (the
+    weights drawn once on the host, copied to the card)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_data
+    from repro_torch.models import init_params, loss_and_aux
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import TrainState, batch_to, make_train_step
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    out = {}
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), num_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batch = next(synthetic_lm_data(cfg, 2, 128, seed=SEED))
+    step = make_train_step(cfg)  # the launcher's schedule: the first step's rate 3e-6
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        got[dev] = step(TrainState(p, adamw_init(p)), batch)
+    (gs, gm), (cs, cm) = got["cuda"], got["cpu"]
+    new = [(a.detach().cpu(), b.detach()) for a, b in zip(tree_leaves(gs.params), tree_leaves(cs.params))]
+    res = {"layers": 2, "batch": 2, "seq": 128, "loss_rel_err": _rel(gm["loss"], cm["loss"]),
+           "grad_norm_rel_err": _rel(gm["grad_norm"], cm["grad_norm"]),
+           "params_rel_l2_err": max(_rel_l2(a, b) for a, b in new),
+           "update_rel_l2_err": max(_rel_l2(a - p, b - p) for (a, b), p in zip(new, tree_leaves(params))),
+           "tol": TRAIN_PARITY_TOL}
+    out["hubert-xlarge"] = res
+    del got, gs, cs, new, params
+    _free()
+    if max(res["loss_rel_err"], res["grad_norm_rel_err"], res["params_rel_l2_err"]) > TRAIN_PARITY_TOL:
+        raise AssertionError(f"train parity (hubert-xlarge): {res}")
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=1, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batch = next(synthetic_lm_data(cfg, 1, 64, seed=SEED))
+    picks = (("moe", "router"), ("moe", "wi_gate"), ("attn", "wq"))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params) if dev == "cuda" else params
+        leaves = [p["layers"][a][b].requires_grad_(True) for a, b in picks]
+        loss, m = loss_and_aux(p, cfg, batch_to(batch, dev), remat=False)
+        grads = torch.autograd.grad(loss, leaves)
+        got[dev] = (float(loss.detach()), float(m["aux"].detach()), [g.cpu() for g in grads])
+        del p, leaves, loss, m, grads
+    (gl, ga, gg), (cl, ca, cg) = got["cuda"], got["cpu"]
+    res = {"layers": 1, "batch": 1, "seq": 64, "loss_rel_err": _rel(gl, cl), "aux_rel_err": _rel(ga, ca),
+           "grad_rel_l2_err": {f"{a}/{b}": _rel_l2(g, c) for (a, b), g, c in zip(picks, gg, cg)},
+           "tol": TRAIN_PARITY_TOL, "grad_tol": TRAIN_GRAD_TOL}
+    out["deepseek-moe-16b"] = res
+    del got, gg, cg, params
+    _free()
+    if max(res["loss_rel_err"], res["aux_rel_err"]) > TRAIN_PARITY_TOL or \
+            max(res["grad_rel_l2_err"].values()) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train parity (deepseek-moe-16b): {res}")
+    return out
+
+
+def phase_train() -> dict:
+    """TRAIN_RUNS on the card, then float32 parity with the CPU. Returns the
+    hand-kernel launches of the runs (none)."""
+    runs = [_train_run(*r) for r in TRAIN_RUNS]
+    parity = train_parity()
+    emit({"phase": "train", "step": "parity", **parity})
+    launches = collections.Counter()
+    for r in runs:
+        launches.update(r["launches"])
+    return {"launches": dict(launches), "runs": runs, "parity": parity}
+
+
 # sharded phase: DeepSeekMoE-16B on two ranks of a gloo group, both on the
 # one card (NCCL refuses two ranks on one device), then one NCCL rank
 SHARDED_RANK = "deepseek-moe-16b rank of 2"  # the model of a kernel row at a sharded per-rank shape
@@ -3214,19 +3580,24 @@ def main() -> int:
     repl_shapes = {}
     repl = timed("replication", phase_replication, cfg, params, trans, repl_shapes)
     robust_shapes = {}
-    robust = timed("robustness", phase_robustness, cfg, params, robust_shapes)
+    robust = timed("robustness", phase_robustness, dataclasses.replace(cfg, num_layers=ROBUST_LAYERS),
+                   _first_layers_of(params, ROBUST_LAYERS), robust_shapes)
     del params  # DeepSeek's weights, before the families' own
     families = timed("families", phase_families)
     ssm = timed("ssm", phase_ssm)
+    vlm = timed("vlm", phase_vlm)
+    train = timed("train", phase_train)
     sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl)
     timed("sharded_kernels", sharded_kernel_rows, cfg, rows, sharded["shapes"])
     timed("replication_kernels", replication_kernel_rows, cfg, rows, repl_shapes)
     timed("robustness_kernels", robustness_kernel_rows, cfg, rows, robust_shapes)
-    # the contiguous fallback's captured run (DeepSeek) and the mamba
-    # families' captured run() and contiguous continuous run, by shape
+    # the contiguous fallback's captured run (DeepSeek), the mamba
+    # families' captured run() and contiguous continuous run, and LLaVA's
+    # two image prompts, by shape
     timed("path_kernels", path_kernel_rows, rows,
           [("launches_contiguous", f"{cfg.name} contiguous", cfg.name, contig["shapes"])]
-          + [("launches_ssm", run, m, sh) for m, fam in ssm.items() for run, sh in fam.items()])
+          + [("launches_ssm", run, m, sh) for m, fam in ssm.items() for run, sh in fam.items()]
+          + [("launches_vlm", f"{VLM_MODEL} image prompts", VLM_MODEL, vlm["shapes"])])
     emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for
@@ -3251,6 +3622,10 @@ def main() -> int:
         r["launches_sharded"] = {run: [n.get(r["name"], 0) for n in per_rank]
                                  for run, per_rank in sharded["launches"].items()}
         r["launches_sharded_nccl"] = sharded["nccl"].get(r["name"], 0)
+        # LLaVA's image prompts (their rows carry them by shape), and the
+        # train phase's runs, which launch no hand kernel (training pins ref)
+        r["launches_vlm"] = vlm["launches"].get(r["name"], 0)
+        r["launches_train"] = train["launches"].get(r["name"], 0)
         for row in r.get("also", []):
             if row.get("model") in families:
                 row["launches_families"] = r["launches_families"][row["model"]]

@@ -158,7 +158,9 @@ def full_attention(q, k, v, cfg: ModelConfig, is_global, q_positions, k_position
     """Attention over KV chunks with an online softmax.
 
     q (B,Sq,Hq,hd), k/v (B,Sk,Hkv,hd) -> (B,Sq,Hq,hd); score tiles are
-    (Sq, kv_chunk), never (Sq, Sk).
+    (Sq, kv_chunk), never (Sq, Sk). Where ``kv_chunk`` does not divide Sk
+    the last chunk is shorter (the reference asserts that it divides; a
+    vision prompt of 2,880 patches and its text is no multiple of 1024).
     """
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -172,13 +174,11 @@ def full_attention(q, k, v, cfg: ModelConfig, is_global, q_positions, k_position
         bias = _mask_bias(q_positions, k_positions, cfg, is_global, kv_len)
         o, _, s = _sdpa_chunk(q, k, v, bias, cfg)
         return finish(o, s)
-    if Sk % kv_chunk:
-        raise ValueError(f"kv length {Sk} must be divisible by kv_chunk {kv_chunk}")
     o_acc = torch.zeros((B, Hkv, G, Sq, hd), dtype=torch.float32, device=q.device)
     m_acc = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     s_acc = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
-    for c in range(Sk // kv_chunk):
-        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+    for c0 in range(0, Sk, kv_chunk):
+        sl = slice(c0, c0 + kv_chunk)
         bias = _mask_bias(q_positions, k_positions[sl], cfg, is_global, kv_len)
         o, m, s = _sdpa_chunk(q, k[:, sl], v[:, sl], bias, cfg)
         m_new = torch.maximum(m_acc, m)

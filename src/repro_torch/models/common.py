@@ -57,3 +57,20 @@ def glu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, wo: torch
     """Gated FFN (SwiGLU / GeGLU), outputs in the input dtype."""
     act = activation_fn(act_name)
     return (act(x @ w_gate) * (x @ w_up)) @ wo
+
+
+def plain_ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, act_name: str) -> torch.Tensor:
+    """Ungated FFN (HuBERT's ``gelu_plain``): act(x @ wi) @ wo."""
+    return activation_fn(act_name)(x @ wi) @ wo
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean token-level cross entropy in float32: logsumexp minus the gold
+    logit; with ``mask``, the mean over the positions it weights."""
+    logits = logits.float()
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -64,8 +64,18 @@ def _scan_chunk(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
     products, b with the states); h0: (B, di, N). Returns b, now every
     step's state h_t. After the pass at offset d, (a_t, b_t) compose steps
     t-2d+1 .. t, so log2(cs) passes compose each step with all before it;
-    each pass computes its update into one temporary before it writes."""
+    each pass computes its update into one temporary before it writes.
+
+    Under autograd (training) the same passes run out of place: the
+    in-place writes would overwrite tensors that the backward needs."""
     cs = a.shape[1]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
+        d = 1
+        while d < cs:
+            b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], dim=1)
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+            d *= 2
+        return b + a * h0[:, None]
     d = 1
     while d < cs:
         b[:, d:] += a[:, d:] * b[:, :-d]

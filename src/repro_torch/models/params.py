@@ -12,7 +12,7 @@ shard=(plan, rank))`` draws it directly.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -116,6 +116,8 @@ def param_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
     specs: Dict[str, Any] = {"embed": (tp, None), "final_norm": (None,)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = (None, tp)
+    if cfg.frontend != "none":
+        specs["frontend_proj"] = (None, None)
     layers: Dict[str, Any] = {"ln1": (None, None)}
     if cfg.use_post_norm:
         layers["ln1_post"] = (None, None)
@@ -295,3 +297,17 @@ def params_from_numpy(tree: Dict[str, Any], device=None, dtype=None) -> Params:
 def layer_slice(tree: Dict[str, Any], layer: int) -> Dict[str, Any]:
     """The per-layer view of the stacked ``params["layers"]`` dict."""
     return {k: layer_slice(v, layer) if isinstance(v, dict) else v[layer] for k, v in tree.items()}
+
+
+def layer_slices(tree: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]]:
+    """Every layer's view of the stacked ``params["layers"]`` dict, from
+    one ``unbind`` per leaf. Under autograd the backward of an unbind
+    stacks the layers' gradients into the leaf once; indexing the leaf
+    once per layer (``layer_slice``) would give it L whole (L, ...)
+    gradients, each zero but for one layer, added one by one: work
+    quadratic in L."""
+    def unbind(t):
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in t.items()}
+
+    unbound = unbind(tree)
+    return [layer_slice(unbound, layer) for layer in range(num_layers)]

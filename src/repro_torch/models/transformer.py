@@ -1,45 +1,55 @@
-"""The stacked-layer decoder (the port of ``repro.models.transformer`` for
-the causal text families: attention-only, mamba and hybrid).
+"""The stacked-layer model (the port of ``repro.models.transformer``):
+decoders (attention-only, mamba and hybrid), the encoder-only audio model
+and the vision-language model.
 
 JAX scans one layer body over the stacked parameters; here a Python loop
-walks the leading L axis. A layer's mixer is attention, the mamba1 SSM
-(``mamba``), or both in parallel heads (hybrid), their outputs fused as
-``0.5 * (rms_norm(attn) + rms_norm(mamba))``; then the FFN, MoE or nothing.
-Entry points:
+walks the leading L axis, and one layer body (``layer_full``) serves both
+the prefill and the training forward, as the reference's does. A layer's
+mixer is attention, the mamba1 SSM (``mamba``), or both in parallel heads
+(hybrid), their outputs fused as ``0.5 * (rms_norm(attn) + rms_norm(mamba))``;
+then the FFN (gated or plain), MoE or nothing. The inputs are token ids,
+audio frame embeddings (``features``) or image patch embeddings
+(``patches``) ahead of the text, each projected by ``frontend_proj``
+(``embed_inputs``). Entry points:
 
-  prefill           full forward over the prompt: last-position logits plus
-                    a primed contiguous decode cache (a new one, or the
-                    caller's, filled in place)
+  loss_and_aux      the training objective: next-token (or, encoder-only,
+                    per-frame) cross entropy plus the MoE load-balance aux
+  forward_hidden    the layer stack over a whole sequence, differentiable
+  prefill           full forward over the prompt (decoders): last-position
+                    logits plus a primed contiguous decode cache (a new
+                    one, or the caller's, filled in place)
   init_paged_cache  an empty block-pooled cache for continuous batching
                     (attention-only models)
   decode_step       one cache-appending step (a token or a prefill chunk),
                     over either layout
   merge_cache_rows  a prefilled request's rows into a live contiguous cache
 
-Each entry point takes a ShardingPlan (``plan``; None is one device). On a
-mesh every rank runs the same loop on its shards of the weights and of the
-KV cache: the embedding is vocab-parallel (a masked lookup and one
-all-reduce), attention and the FFN / MoE sublayers complete their products
-with the collectives their mode needs (``attention``, ``moe``), and the
-logits of the rank's vocabulary columns are all-gathered, so every rank
-holds the whole logits. Mamba layers have no layout on a mesh yet
-(ROADMAP A.9).
+Each serving entry point takes a ShardingPlan (``plan``; None is one
+device). On a mesh every rank runs the same loop on its shards of the
+weights and of the KV cache: the embedding is vocab-parallel (a masked
+lookup and one all-reduce), attention and the FFN / MoE sublayers complete
+their products with the collectives their mode needs (``attention``,
+``moe``), and the logits of the rank's vocabulary columns are all-gathered,
+so every rank holds the whole logits. Mamba layers, and training, have no
+layout on a mesh yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
-from .common import glu_ffn, rms_norm, softcap
-from .params import layer_slice, torch_dtype
+from .common import cross_entropy_loss, glu_ffn, plain_ffn, rms_norm, softcap
+from .params import layer_slice, layer_slices, torch_dtype
 
 
 @dataclasses.dataclass
@@ -74,17 +84,26 @@ class DecodeCache:
     ssm: Optional[torch.Tensor] = None
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if not cfg.causal or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-only and audio/vision-input models are not ported to repro_torch yet "
-            "(ROADMAP A.7)"
-        )
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
+def _check_layers(cfg: ModelConfig) -> None:
     if cfg.block_type not in ("attention", "mamba", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: block_type {cfg.block_type!r} is unknown")
-    glu = cfg.activation in ("silu", "gelu")
-    if cfg.ffn_type not in ("moe", "dense", "none") or (cfg.ffn_type == "dense" and not glu):
-        raise NotImplementedError(f"{cfg.name}: ffn_type {cfg.ffn_type!r} with {cfg.activation!r} is not ported yet")
+    if cfg.ffn_type not in ("moe", "dense", "none"):
+        raise NotImplementedError(f"{cfg.name}: ffn_type {cfg.ffn_type!r} is unknown")
+    if cfg.frontend not in ("none", "audio", "vision"):
+        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is unknown")
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    """prefill and decode_step: decoders only (the reference asserts
+    ``cfg.causal`` there)."""
+    _check_layers(cfg)
+    if not cfg.causal:
+        raise ValueError(f"{cfg.name}: prefill/decode only for decoder models (this one is encoder-only; "
+                         "it runs through forward_hidden and loss_and_aux)")
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +126,20 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, plan=None) -> t
     return x
 
 
+def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], plan=None) -> torch.Tensor:
+    """The (B, S, d) input sequence of any modality: audio frames
+    (``features`` @ ``frontend_proj``), image patches (``patches`` @
+    ``frontend_proj``) ahead of the text's token embeddings, or tokens.
+    Frame and patch inputs are cast to the embedding's dtype first."""
+    dt = params["embed"].dtype
+    if cfg.frontend == "audio":
+        return batch["features"].to(dt) @ params["frontend_proj"]
+    if cfg.frontend == "vision":
+        patches = batch["patches"].to(dt) @ params["frontend_proj"]
+        return torch.cat([patches, embed_tokens(params, cfg, batch["tokens"], plan)], dim=1)
+    return embed_tokens(params, cfg, batch["tokens"], plan)
+
+
 def unembed(params, cfg: ModelConfig, hidden: torch.Tensor, plan=None) -> torch.Tensor:
     h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -120,26 +153,135 @@ def unembed(params, cfg: ModelConfig, hidden: torch.Tensor, plan=None) -> torch.
     return logits
 
 
-def _ffn(x, lp, cfg: ModelConfig, backend=None, plan=None, routes=None) -> Optional[torch.Tensor]:
-    """FFN / MoE sublayer on the residual stream, None for a model without
-    one (``ffn_type="none"``, whose reference adds zeros); a dense FFN runs
-    TP on a mesh (its d_ff sharded, one all-reduce). ``routes``, a list,
-    collects the MoE router's top-k ids."""
+def _ffn(x, lp, cfg: ModelConfig, backend=None, plan=None, routes=None):
+    """FFN / MoE sublayer on the residual stream: (out, MoE aux loss), out
+    None for a model without one (``ffn_type="none"``, whose reference
+    adds zeros) and aux None without MoE; a dense FFN runs TP on a mesh
+    (its d_ff sharded, one all-reduce). ``routes``, a list, collects the
+    MoE router's top-k ids."""
     if cfg.ffn_type == "none":
-        return None
+        return None, None
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    aux = None
     if cfg.ffn_type == "dense":
-        out = glu_ffn(h, lp["ffn"]["wi_gate"], lp["ffn"]["wi_up"], lp["ffn"]["wo"], cfg.activation)
+        if cfg.activation in ("silu", "gelu"):
+            out = glu_ffn(h, lp["ffn"]["wi_gate"], lp["ffn"]["wi_up"], lp["ffn"]["wo"], cfg.activation)
+        else:
+            out = plain_ffn(h, lp["ffn"]["wi"], lp["ffn"]["wo"], cfg.activation)
         if plan is not None and plan.divides(cfg.d_ff):
             plan.mesh.all_reduce(out)
     else:
         moe_out = moe_mod.apply_moe(h, lp["moe"], cfg, backend=backend, plan=plan)
-        out = moe_out.y
+        out, aux = moe_out.y, moe_out.aux_loss
         if routes is not None:
             routes.append(moe_out.route_idx)
     if cfg.use_post_norm:
         out = rms_norm(out, lp["ln2_post"], cfg.norm_eps)
-    return out
+    return out, aux
+
+
+def _fuse(a_out, m_out, lp, cfg: ModelConfig) -> torch.Tensor:
+    """A hybrid layer's parallel attention and mamba heads, each normed."""
+    return 0.5 * (rms_norm(a_out, lp["fuse_norm_attn"], cfg.norm_eps)
+                  + rms_norm(m_out, lp["fuse_norm_mamba"], cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# one layer over the whole sequence (prefill and training)
+# ---------------------------------------------------------------------------
+def layer_full(x, lp, flag, cfg: ModelConfig, plan=None, collect_kv: bool = False, backend=None):
+    """One layer over the whole sequence: (x, its cache entries or None,
+    its MoE aux loss or None). With ``collect_kv`` the entries are a dict:
+    the rope'd ``k``/``v`` of an attention mixer, the final ``conv``
+    window and ``ssm`` state of a mamba one. Nothing is written in place,
+    so autograd can differentiate it; prefill writes the entries into its
+    cache."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    kv = {} if collect_kv else None
+    if cfg.has_attention:
+        a_out = attn_mod.attention_block(h, attn_mod.AttnTemps(**lp["attn"]), cfg, flag, return_kv=collect_kv,
+                                         backend=backend, plan=plan)
+        if collect_kv:
+            a_out, (kv["k"], kv["v"]) = a_out
+    if cfg.has_mamba:
+        m_out, state = mamba_mod.mamba_mixer(h, lp["mamba"], cfg)
+        if collect_kv:
+            kv["conv"], kv["ssm"] = state.conv, state.ssm
+    out = _fuse(a_out, m_out, lp, cfg) if cfg.block_type == "hybrid" else a_out if cfg.has_attention else m_out
+    if cfg.use_post_norm:
+        out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
+    x = x + out
+    ffn, aux = _ffn(x, lp, cfg, backend, plan)
+    if ffn is not None:
+        x = x + ffn
+    return x, kv, aux
+
+
+# the products ``remat="dots"`` keeps: the plain matmuls (a (B, S, d) @ (d,
+# f) product reaches the dispatcher as ``mm``), not the batched ones
+# (attention scores, the expert slabs), as
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps them
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, plan=None, collect_kv: bool = False,
+                   remat: Union[bool, str] = False, backend="ref"):
+    """The layer stack over the whole sequence ``x`` (B, S, d): (hidden,
+    the stacked (k, v) of every layer (L, B, S, Hkv, hd) with
+    ``collect_kv`` on an attention model, else None, the MoE aux loss
+    summed over the layers, float32).
+
+    ``backend`` pins the kernel seam to the plain PyTorch (``ref``) path
+    by default, as the reference pins its jnp path: this entry is
+    differentiated by training, and the hand-written kernels, like the
+    reference's Pallas kernels, define no backward. On the card a training
+    step therefore launches no hand kernel; that is the design, not a
+    fallback. ``remat=True`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``); ``remat="dots"`` keeps the plain matmuls'
+    outputs and recomputes the rest, as the reference's
+    ``dots_with_no_batch_dims_saveable`` policy does."""
+    _check_layers(cfg)
+    if plan is not None and not plan.is_null:
+        raise not_ported("training on a mesh", "A.9")
+    if remat == "dots":
+        context = functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, _dots_saveable)
+        run = functools.partial(torch_checkpoint.checkpoint, layer_full, use_reentrant=False, context_fn=context)
+    elif remat:
+        run = functools.partial(torch_checkpoint.checkpoint, layer_full, use_reentrant=False)
+    else:
+        run = layer_full
+    flags = cfg.global_layer_flags()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for layer, lp in enumerate(layer_slices(params["layers"], cfg.num_layers)):
+        x, kv, layer_aux = run(x, lp, flags[layer], cfg, plan, collect_kv, backend)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+        if collect_kv and cfg.has_attention:
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+    kvs = (torch.stack(ks), torch.stack(vs)) if ks else None
+    return x, kvs, aux
+
+
+def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], plan=None, remat: Union[bool, str] = True):
+    """The training objective: (cross entropy + MoE load-balance aux,
+    {"ce", "aux"}). Decoders predict ``batch["labels"]`` (B, S); the
+    encoder-only model (HuBERT) predicts a codebook label per frame; a
+    vision batch's labels cover only the text, the patches being context.
+    ``batch["loss_mask"]``, when present, weights the positions."""
+    x = embed_inputs(params, cfg, batch, plan)
+    h, _, aux = forward_hidden(params, cfg, x, plan, remat=remat)
+    if cfg.frontend == "vision":
+        h = h[:, -batch["tokens"].shape[1]:, :]
+    ce = cross_entropy_loss(unembed(params, cfg, h), batch["labels"], batch.get("loss_mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -185,25 +327,22 @@ def init_paged_cache(cfg: ModelConfig, nslots: int, num_blocks: int, block_size:
     )
 
 
-def _fuse(a_out, m_out, lp, cfg: ModelConfig) -> torch.Tensor:
-    """A hybrid layer's parallel attention and mamba heads, each normed."""
-    return 0.5 * (rms_norm(a_out, lp["fuse_norm_attn"], cfg.norm_eps)
-                  + rms_norm(m_out, lp["fuse_norm_mamba"], cfg.norm_eps))
-
-
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: int,
             backend=None, cache: Optional[DecodeCache] = None, plan=None) -> Tuple[torch.Tensor, DecodeCache]:
-    """Process the prompt ``batch["tokens"]`` (B, S); return (last-position
-    logits (B, V), a cache of ``max_len`` positions primed with the prompt:
-    its K/V, and each mamba layer's conv window and SSM state after it).
-    ``backend`` selects the kernel path of prefill attention and the expert
-    FFNs ("ref" | "hopper" | None for the device's default). ``cache``, a
-    contiguous cache of B rows and ``max_len`` positions, is filled in place
-    and returned (its tensors, ``pos`` included, keep their storage, so a
-    captured step can read them); None makes a new one. Positions past S
-    keep what they held: decode reads none of them before writing it."""
-    _check_family(cfg)
-    x = embed_tokens(params, cfg, batch["tokens"], plan)
+    """Process the prompt (B, S): ``batch["tokens"]``, and for a vision
+    model ``batch["patches"]`` ahead of them (positions 0..S-1 run over
+    both); return (last-position logits (B, V), a cache of ``max_len``
+    positions primed with the prompt: its K/V, and each mamba layer's conv
+    window and SSM state after it). ``backend`` selects the kernel path of
+    prefill attention and the expert FFNs ("ref" | "hopper" | None for the
+    device's default). ``cache``, a contiguous cache of B rows and
+    ``max_len`` positions, is filled in place and returned (its tensors,
+    ``pos`` included, keep their storage, so a captured step can read
+    them); None makes a new one. Positions past S keep what they held:
+    decode reads none of them before writing it. Encoder-only models
+    have no prefill."""
+    _check_decoder(cfg)
+    x = embed_inputs(params, cfg, batch, plan)
     B, S = x.shape[0], x.shape[1]
     if cache is None:
         cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device, plan=plan)
@@ -213,26 +352,15 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
             raise ValueError(f"prefill fills a contiguous cache of {B} rows x {max_len} positions, got {shape}")
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], layer)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x, kv, _ = layer_full(x, layer_slice(params["layers"], layer), flags[layer], cfg, plan, True, backend)
+        # in place, layer by layer: JAX wrote the stacked K/V in one update
         if cfg.has_attention:
-            a_out, (k, v) = attn_mod.attention_block(
-                h, attn_mod.AttnTemps(**lp["attn"]), cfg, flags[layer], return_kv=True, backend=backend, plan=plan
-            )
-            # in place, layer by layer: JAX wrote the stacked K/V in one update
-            cache.k[layer, :, :S] = k.to(cache.k.dtype)
-            cache.v[layer, :, :S] = v.to(cache.v.dtype)
+            cache.k[layer, :, :S] = kv["k"].to(cache.k.dtype)
+            cache.v[layer, :, :S] = kv["v"].to(cache.v.dtype)
         if cfg.has_mamba:
-            m_out, state = mamba_mod.mamba_mixer(h, lp["mamba"], cfg)
-            cache.conv[layer] = state.conv.to(cache.conv.dtype)
-            cache.ssm[layer] = state.ssm
-        out = _fuse(a_out, m_out, lp, cfg) if cfg.block_type == "hybrid" else a_out if cfg.has_attention else m_out
-        if cfg.use_post_norm:
-            out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
-        x = x + out
-        ffn = _ffn(x, lp, cfg, backend, plan)
-        if ffn is not None:
-            x = x + ffn
+            cache.conv[layer] = kv["conv"].to(cache.conv.dtype)
+            cache.ssm[layer] = kv["ssm"]
+        del kv
     cache.pos.fill_(S)
     logits = unembed(params, cfg, x[:, -1:, :], plan)
     return logits[:, 0], cache
@@ -279,7 +407,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
     for the engine's routing tracker. Under EP with the tokens split over
     the ranks, the ranks' shares are all-gathered (once per step), so every
     rank sees every token's choice."""
-    _check_family(cfg)
+    _check_decoder(cfg)
     C = token.shape[1]
     if C != 1 and cfg.has_mamba:
         raise ValueError(f"{cfg.name}: chunked append is attention-only (a mamba layer steps one token), got C={C}")
@@ -302,7 +430,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
         if cfg.use_post_norm:
             out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
         x = x + out
-        ffn = _ffn(x, lp, cfg, backend, plan, routes)
+        ffn, _ = _ffn(x, lp, cfg, backend, plan, routes)
         if ffn is not None:
             x = x + ffn
     logits = unembed(params, cfg, x[:, -1:, :], plan)

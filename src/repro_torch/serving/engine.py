@@ -122,6 +122,7 @@ from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_
 from repro_torch.models.attention import local_kv_heads
 from repro_torch.models.moe import serving_replication
 from repro_torch.models.params import param_pspecs, param_shapes
+from repro_torch.models.transformer import not_ported as _not_ported
 from repro_torch.sharding.specs import NULL_PLAN, ExpertReplication, sharded_dim, unported_layout
 
 from .faults import FaultInjector
@@ -266,10 +267,6 @@ class _LiveBatch:
         return [i for i, s in enumerate(self.slots) if s is not None and s.prefilling]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
-
-
 class InferenceEngine:
     def __init__(
         self,
@@ -304,6 +301,13 @@ class InferenceEngine:
         moe_pipeline: int = 0,
         params_plan=None,
     ):
+        if cfg.is_encoder_only or cfg.frontend != "none":
+            # the reference's engine prefills {"tokens": ...} only: a vision
+            # prompt fails there on its missing patches, an encoder-only
+            # model at prefill's assert
+            kind = "an encoder-only model" if cfg.is_encoder_only else f"a model with {cfg.frontend} inputs"
+            raise ValueError(f"{cfg.name}: the engine serves token prompts of decoder models, not {kind}; run it "
+                             "through repro_torch.models (prefill + decode_step, or loss_and_aux)")
         self.mesh = session.mesh if session is not None else None
         if self.mesh is not None:
             big = [a for a in self.mesh.axis_names if a != "model" and self.mesh.shape[a] > 1]

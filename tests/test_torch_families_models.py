@@ -97,7 +97,9 @@ def setup(request):
 
 def test_registry_holds_deepseek_and_the_eight_families():
     # and the two families with mamba layers (tests/test_torch_ssm_models.py)
-    assert list_configs() == tuple(sorted(("deepseek-moe-16b", "falcon-mamba-7b", "hymba-1.5b") + FAMILIES))
+    # and the audio and vision models (tests/test_torch_frontends.py)
+    assert list_configs() == tuple(sorted(("deepseek-moe-16b", "falcon-mamba-7b", "hymba-1.5b", "hubert-xlarge",
+                                           "llava-next-mistral-7b") + FAMILIES))
 
 
 @pytest.mark.parametrize("name", FAMILIES)

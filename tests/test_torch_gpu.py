@@ -74,6 +74,7 @@ def _decode_variant(dtype, hd):
         (4, 25, 5, 128, 128, 64, 0, 0.0),  # Hymba-1.5B prefill: hd 64, G=5
         (4, 25, 5, 128, 128, 64, 1024, 0.0),  # Hymba's local layers (window 1024)
         (1, 25, 5, 132, 132, 64, 1024, 0.0),  # Hymba, a ragged last q tile
+        (1, 32, 8, 2917, 2917, 128, 0, 0.0),  # LLaVA: 2,880 patches + 37 text tokens, a partial last q tile
     ],
 )
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1232,3 +1233,63 @@ def test_restore_failover_on_the_card():
     assert got == want and fi.fired_at("restore") == 1
     assert eng.stats.restore_errors == eng.stats.background_errors == 1 and base.stats.restore_errors == 0
     assert eng.stats.async_restores == base.stats.async_restores >= 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_llava_decode(dtype):
+    """LLaVA-NeXT-Mistral-7B's decode step after an image prompt: B=2 rows
+    at positions 2944 and 2951 of a contiguous (2, 2961) cache through the
+    identity table, Hq 32 / Hkv 8, hd 128."""
+    from repro_torch.kernels import paged_attention as pa
+
+    dev = _card()
+    rng = np.random.default_rng(2)
+    B, Hq, Hkv, hd, Smax = 2, 32, 8, 128, 2961
+    q = _randn(rng, (B, 1, Hq, hd), dtype, dev)
+    kc, vc = (_randn(rng, (B, Smax, Hkv, hd), dtype, dev) for _ in range(2))
+    kn, vn = (_randn(rng, (B, 1, Hkv, hd), dtype, dev) for _ in range(2))
+    tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    pos = torch.tensor([2944, 2951], dtype=torch.int32, device=dev)
+    kc2, vc2 = kc.clone(), vc.clone()
+    out, _, _ = pa.paged_attention(q, kc, vc, tables, kn, vn, pos, True, scale=hd**-0.5)
+    want, kw, vw = pa.paged_attention_plain(q, kc2, vc2, tables, kn, vn, pos, True, scale=hd**-0.5)
+    tol = _tol(out.dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(kc, kw) and torch.equal(vc, vw)
+
+
+@pytest.mark.parametrize("name", ["hubert-xlarge", "deepseek-moe-16b", "llava-next-mistral-7b"])
+def test_train_step_on_the_card_equals_the_cpu(name):
+    """A reduced float32 ``make_train_step`` step on the card against the
+    same step on the CPU from the same weights and batch: loss, gradient
+    norm and updated parameters at 1e-4 (TF32 off), and the step launches
+    no hand kernel: training pins the plain PyTorch path, whose
+    dispatches it counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_data
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import TrainState, make_train_step
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
+    batch = next(synthetic_lm_data(cfg, 2, 64, seed=3))
+    step = make_train_step(cfg, base_lr=1e-3, warmup=1, total_steps=10)
+    out = {}
+    for where in ("cpu", dev):
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        params = tree_map(lambda t: t.to(where, copy=True), params)
+        state = TrainState(params, adamw_init(params))
+        ops.reset_counts()
+        state, m = step(state, batch)
+        out[str(where)] = (state, m, dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS))
+    (cs, cm, _, _), (gs, gm, launches, dispatch) = out["cpu"], out[str(dev)]
+    assert sum(launches.values()) == 0, launches
+    assert dispatch.get("prefill.ref", 0) > 0 and not any(k.endswith("hopper") for k in dispatch), dispatch
+    for k in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(gm[k].cpu(), cm[k], atol=1e-4, rtol=1e-4)
+    for a, b in zip(tree_leaves(gs.params), tree_leaves(cs.params)):
+        assert _rel_l2(a.detach().cpu(), b.detach()) < 1e-4

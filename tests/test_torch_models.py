@@ -171,7 +171,11 @@ def test_prefill_and_decode_match_jax(setup):
 
 
 def test_unported_family_raises():
-    # encoder-only models come with ROADMAP A.7 (mamba and hybrid layers are served)
-    cfg = dataclasses.replace(_torch_cfg(), causal=False)
+    # an unknown block type is not ported; an encoder-only model is (ROADMAP
+    # A.7), but has no prefill: the reference asserts cfg.causal there
+    cfg = dataclasses.replace(_torch_cfg(), block_type="rwkv")
     with pytest.raises(NotImplementedError):
+        transformer.prefill({}, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 8)
+    cfg = dataclasses.replace(_torch_cfg(), causal=False)
+    with pytest.raises(ValueError, match="prefill/decode only for decoder models"):
         transformer.prefill({}, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 8)

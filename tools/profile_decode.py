@@ -30,6 +30,19 @@ resident INT4 ``QuantizedExpert``s (``ops.quantize_weight``), so every
 expert matmul runs ``int4_dequant`` and then the grouped matmul; it combines
 with ``--continuous`` (MoE families only).
 
+For a vision family (``--arch llava-next-mistral-7b``) the default mode
+prefills ``chip_smoke.py``'s image prompts instead (2 rows of the config's
+patches and 64 text tokens).
+
+With ``--train`` it profiles a training step of the family instead
+(``make_train_step``, ``--batch`` x ``--seq`` of ``synthetic_lm_data``,
+``remat=True``: ``chip_smoke.py``'s HuBERT-XLarge run is ``--arch
+hubert-xlarge --train``): after two warm-up steps, ``timing`` lines for
+three unprofiled whole steps and for two steps cut into the loss's
+forward, the backward and the AdamW update (the device waited for after
+each), then ``profile`` and ``top`` lines for one traced step, a window
+for each of those three parts.
+
 With ``--captured`` it drives the engine's own steps instead
 (``InferenceEngine`` with ``capture_steps`` False and True) in three cells,
 each in the order eager, captured, captured, eager: ``static`` (the same 4
@@ -98,6 +111,9 @@ def main() -> int:
                     help="resident INT4 switching session, prefetch on and off, and one traced run")
     ap.add_argument("--captured", action="store_true",
                     help="eager against captured engine steps: static, continuous and resident cells")
+    ap.add_argument("--train", action="store_true", help="profile a training step instead")
+    ap.add_argument("--batch", type=int, default=4, help="--train: rows a step")
+    ap.add_argument("--seq", type=int, default=512, help="--train: positions a row")
     args = ap.parse_args()
 
     import numpy as np
@@ -121,6 +137,13 @@ def main() -> int:
         profile_route(cfg)
         print_card()
         return 0
+    if args.train:
+        profile_train(cfg, args)
+        print_card()
+        return 0
+    if not cfg.causal:
+        print(f"profile_decode: {cfg.name} is encoder-only; it has no decode (try --train)", file=sys.stderr)
+        return 1
     dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     if args.captured:
@@ -135,10 +158,18 @@ def main() -> int:
         profile_continuous(cfg, params)
         return 0
     B, S, new = 4, 128, 16
-    toks = torch.from_numpy(np.random.default_rng(args.seed).integers(1, cfg.vocab_size, (B, S))).to(dev)
+    if cfg.frontend == "vision":
+        from chip_smoke import vlm_batch
+
+        batch = vlm_batch(cfg, 2, 64, args.seed)
+        S = cfg.num_patches + batch["tokens"].shape[1]
+    else:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(args.seed).integers(1, cfg.vocab_size, (B, S)))
+                 .to(dev)}
+    emit({"phase": "shape", "batch": len(batch["tokens"]), "prompt": S, "new": new})
 
     def run_prefill():
-        logits, cache = prefill(params, cfg, {"tokens": toks}, S + new + 1)
+        logits, cache = prefill(params, cfg, batch, S + new + 1)
         return logits.argmax(-1).cpu(), cache  # the engine's host sync
 
     def run_steps(cache, tok, n):
@@ -473,6 +504,74 @@ def profile_prefetch(cfg, params) -> None:
     os.remove(path)
     os.rmdir(os.path.dirname(path))
     print_card()
+
+
+def profile_train(cfg, args) -> None:
+    """The ``--train`` mode (see the module's docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import synthetic_lm_data
+    from repro_torch.models import loss_and_aux
+    from repro_torch.training.optimizer import adamw_update, cosine_lr
+    from repro_torch.training.train_loop import TrainState, batch_to, init_train_state, make_train_step
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    data = synthetic_lm_data(cfg, args.batch, args.seq, seed=args.seed)
+    step = make_train_step(cfg, total_steps=100)
+    emit({"phase": "shape", "what": "train", "batch": args.batch, "seq": args.seq, "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in tree_leaves(state.params))})
+
+    def since(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def parts(state):
+        """One step in three parts, as ``train_step`` runs it: [(name, fn)]."""
+        batch = batch_to(next(data), dev)
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.requires_grad_(True)
+        held = {}
+
+        def forward():
+            held["loss"], _ = loss_and_aux(state.params, cfg, batch, remat=True)
+
+        def backward():
+            grads = torch.autograd.grad(held.pop("loss"), leaves, allow_unused=True)
+            held["grads"] = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)}
+
+        def update():
+            grads = held.pop("grads")
+            adamw_update(state.params, tree_map(lambda p: grads[id(p)], state.params), state.opt,
+                         lr=cosine_lr(state.opt.step, 3e-4, 100, 100))
+
+        return [("train_forward", forward), ("train_backward", backward), ("train_update", update)]
+
+    for _ in range(2):
+        state, _ = step(state, next(data))
+    torch.cuda.synchronize()
+    for i in range(3):
+        t0 = time.perf_counter()
+        state, m = step(state, next(data))
+        emit({"phase": "timing", "what": "train_step", "step": i, "ms": since(t0), "loss": float(m["loss"])})
+    for i in range(2):
+        ms = {}
+        for name, fn in parts(state):
+            t0 = time.perf_counter()
+            fn()
+            ms[name] = since(t0)
+        state = TrainState(state.params, state.opt._replace(step=state.opt.step + 1))
+        emit({"phase": "timing", "what": "train_parts", "step": i, "ms": ms, "sum_ms": sum(ms.values())})
+    for name, fn in parts(state):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall = since(t0)
+        report(prof, name, wall, 1)
 
 
 def print_card() -> None:
