@@ -72,8 +72,18 @@ printing one JSON line:
              and dequant against their plain versions at the shapes the
              kernels phase has no row for (68 slots, the slot leaf, the
              barrier's assembled leaf)
+   launcher - the serve launcher as a user starts it,
+             ``repro_torch.launch.serve.main(["--full", "--chip", "h100",
+             "--devices", "4", "--kernel-backend", "hopper"], params=...)``
+             on these weights: the mixed short/long trace through ``run()``,
+             then with ``--continuous --prefix-cache``; exact launches, no
+             ``ref`` dispatch, tokens and launches equal to an engine built
+             from the same session and flags; the h100 latency model fitted
+             in a background process from the script's start; then
+             ``python -m repro_torch.launch.serve`` at its reduced default
+             in a subprocess, reading that fit from its cache
 9. robustness - the same weights (the router put back after the
-             replication phase), their first 7 of 28 layers (the script's
+             replication phase), their first 2 of 28 layers (the script's
              time limit; the schedule does not depend on the depth), at
              capacity factor E / k, so nothing drops
              and rows cannot couple: the continuous traffic at a pool of 51
@@ -98,17 +108,17 @@ printing one JSON line:
              tail chunk and gmm rows at new capacities
 10. families - DeepSeek's weights freed, then three more families, each at
              full width on seeded random weights, freed before the next:
-             Qwen3-30B-A3B (12 of 48 layers, 128 experts top-8, GQA 32/4): the
+             Qwen3-30B-A3B (4 of 48 layers, 128 experts top-8, GQA 32/4): the
              serve phase's ``run()`` eager and captured, the agree check,
              and the continuous traffic with the prefix cache off and on
-             (equal tokens); Gemma-2-9B (14 of 42 layers, head dim 256, softcaps,
+             (equal tokens); Gemma-2-9B (6 of 42 layers, head dim 256, softcaps,
              alternating 4096-token window): ``run()``, agree, and the
              continuous traffic with the prefix cache on; Mixtral-8x7B at
-             its first 8 of 32 layers (93.4 GB in bf16 does not fit the
-             80 GB card, and 8 layers keep the whole run inside its time
+             its first 4 of 32 layers (93.4 GB in bf16 does not fit the
+             80 GB card, and 4 layers keep the whole run inside its time
              limit): ``run()`` and agree. Each prints its peak memory
-    ssm     - the families with mamba layers at full width and depth, each
-             freed before the next: Falcon-Mamba-7B (64 mamba1 layers, no
+    ssm     - the families with mamba layers at full width, each freed
+             before the next: Falcon-Mamba-7B (32 of its 64 mamba1 layers, no
              attention, no FFN) and Hymba-1.5B (32 layers of parallel
              attention and mamba heads, hd 64, GQA 25/5, window 1024 on 29
              layers, dense SwiGLU): ``run()`` and the continuous traffic
@@ -155,7 +165,15 @@ printing one JSON line:
              replication and prefetch at the replication phase's capacity
              factor: the ranks' replica sets equal, each rank holding half
              of the slots, rows hit, and its teacher-forced logits within
-             the same-expert bound of that phase's one-rank reference. Then
+             the same-expert bound of that phase's one-rank reference.
+             DP2/EP2: attention whole on each rank, its contiguous cache
+             sequence-sharded (each rank half the positions), decode on
+             the plain path; the re-plan traffic (``REPLAN_TRAFFIC``),
+             paged and contiguous, whose attention switches TP2 -> DP2 ->
+             TP2 while a request is live, moving the live cache; and
+             Falcon-Mamba-7B (8 of 64 layers) and Hymba-1.5B on two ranks,
+             the mixer tensor-parallel, against one card: logits within
+             twice its batch noise, each rank half the conv/ssm state. Then
              one NCCL rank serves TP2/EP2 captured and eager: equal tokens
 
 Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
@@ -254,16 +272,20 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # kernel rows took ~40 s on the H100, which the ~990 s runs had room for
 # (phases <= 1,050 s), but one H100 run with them read 1,061 s:
 # Gemma-2-9B went from 21 layers to 14, and the robustness phase to 7 of
-# DeepSeek's 28 (ROBUST_LAYERS).
+# DeepSeek's 28 (ROBUST_LAYERS). The launcher phase and the sharded
+# phase's seq, re-plan and mamba runs added ~300 s on the H100: Qwen3
+# went to 4 layers, Gemma-2 to 6, Mixtral to 4, the robustness phase to 2,
+# Falcon-Mamba's ssm phase to 32 of 64, and four sharded runs to 7 or 14
+# of DeepSeek's 28 (SHARDED_CUT).
 # The agree bounds with each path routing on its own sit 2-4x above what
 # the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
 # 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
 # flips an expert where the two paths' router scores near-tie, which moves
 # its logits most (its steps without a flip read 0.018-0.019).
 FAMILIES = (
-    ("qwen3-moe-30b-a3b", 12, (False, True), (0.15, 0.2)),
-    ("gemma2-9b", 14, (True,), (0.1, 0.1)),
-    ("mixtral-8x7b", 8, (), (0.35, 0.6)),
+    ("qwen3-moe-30b-a3b", 4, (False, True), (0.15, 0.2)),
+    ("gemma2-9b", 6, (True,), (0.1, 0.1)),
+    ("mixtral-8x7b", 4, (), (0.35, 0.6)),
 )
 
 
@@ -809,11 +831,12 @@ def prefix_row(cfg, rng, dev) -> dict:
     }
 
 
-def prefix_case(rng, dev, model, attn) -> dict:
+def prefix_case(rng, dev, model, attn, B: int = CONT_MAX_BATCH) -> dict:
     """The prefix kernel at the continuous decode shape of ``model``, whose
     attention is ``attn`` = (q heads, KV heads, head dim, softcap, scale):
-    8 rows; rows 1-7 share 12 leading pages (the 192-token system prompt)
-    with representative row 1; row 0 is on its own."""
+    ``B`` rows (8: the continuous phase's); rows 1.. share 12 leading pages
+    (the 192-token system prompt) with representative row 1; row 0 is on
+    its own."""
     import numpy as np
     import torch
 
@@ -823,7 +846,7 @@ def prefix_case(rng, dev, model, attn) -> dict:
 
     Hq, Hkv, hd, cap, scale = attn
     kw = dict(softcap=cap, scale=scale)
-    B, bs, nb, shared = CONT_MAX_BATCH, CONT_BLOCK, _cont_table_width(), 12
+    bs, nb, shared = CONT_BLOCK, _cont_table_width(), 12
     N = B * nb + 1
     kp, vp = _pages(rng, N, bs, Hkv, hd, dev)
     t = rng.permutation(np.arange(1, N)).astype(np.int32).reshape(B, nb)
@@ -862,8 +885,8 @@ def prefix_case(rng, dev, model, attn) -> dict:
     kpp, vpp = pages["paged"]
     heads = f"H={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
     return {
-        "model": model,
-        "shape": f"B={B} C=1 {heads} hd={hd} bs={bs} table {nb}, rows 1-7 share {shared} pages, pos {pos.min()}-"
+        "model": model, "key": [B, 1, Hq, Hkv, hd],
+        "shape": f"B={B} C=1 {heads} hd={hd} bs={bs} table {nb}, rows 1-{B - 1} share {shared} pages, pos {pos.min()}-"
                  f"{pos.max()}{f' softcap={cap}' if cap else ''} bf16",
         "variant": variant, **acc, "bit_equal_to_paged": True, "bit_equal_calls": True,
         **kernel_times(lambda: ppa.prefix_paged_attention(q, kpk, vpk, tables, kn, vn, posv, reps_t, nsh_t, **kw),
@@ -915,7 +938,7 @@ def pool_decode_row(rng, dev, model, B, C, attn, bs, nb, pos, window) -> dict:
     pairs = sum(min(p + c + 1, window) if window else p + c + 1 for p in pos for c in range(C))
     b_ms, b_by = bound(2 * (2 * B * C * Hq * hd + 2 * cached * Hkv * hd + 4 * B * C * Hkv * hd), 4 * hd * Hq * pairs)
     return {
-        "model": model,
+        "model": model, "key": [B, C, Hq, Hkv, hd],
         "shape": f"B={B} C={C} Hq={Hq} Hkv={Hkv} hd={hd} bs={bs} table {nb} scattered pages pos={min(pos)}-{max(pos)}"
                  f" window={window}{f' softcap={cap}' if cap else ''} bf16",
         "variant": variant, **acc, "bit_equal_calls": True,
@@ -2022,9 +2045,11 @@ def replication_kernel_rows(cfg, rows, shapes) -> None:
 # reduced model gives the same one (tests/test_torch_faults.py).
 # The phase runs the first ROBUST_LAYERS of DeepSeek's 28 layers (views of
 # the same weights): the schedule does not depend on the depth, and the
-# vlm and train phases needed the time (one H100 run with them read 1,061 s
-# of phases at full depth, against the 1,050 s the script keeps to).
-ROBUST_LAYERS = 7
+# later phases needed the time (one H100 run with the vlm and train phases
+# read 1,061 s of phases at full depth, against the 1,050 s the script
+# keeps to; the launcher and the sharded phase's new runs took it from 7
+# layers to 2).
+ROBUST_LAYERS = 2
 ROBUST_OVERCOMMIT = 0.25
 ROBUST_ROWS = 3  # the pool: this many rows' expected need (17 blocks each); worst case admits 2
 ROBUST_CACHE_BLOCKS = 38  # with the prefix cache on, the pool that evicts and preempts under growth
@@ -2439,14 +2464,27 @@ def robustness_kernel_rows(cfg, rows, shapes) -> None:
     emit({"phase": "robustness_kernels", "paged_tail_chunks": [list(k) for k in tails], "rows": added})
 
 
+def attention_row(kernel: str, key, model: str, attn, rng, dev) -> dict:
+    """A row of the paged or prefix kernel at a launch ``key`` (B, C, Hq,
+    Hkv, hd) no row of the kernels phase holds: a decode step (C=1) or a
+    chunk on scattered pages of the continuous phase's table width, rows
+    at positions past the 192-token system prompt; the prefix kernel's
+    rows share its 12 pages. ``attn`` = (softcap, scale) of ``model``."""
+    B, C, Hq, Hkv, hd = key
+    heads = (Hq, Hkv, hd, *attn)
+    if kernel == "prefix_paged_attention":
+        return prefix_case(rng, dev, model, heads, B)
+    return pool_decode_row(rng, dev, model, B, C, heads, CONT_BLOCK, _cont_table_width(), [CONT_SYSTEM] * B, 0)
+
+
 def path_kernel_rows(rows, runs) -> None:
     """Each launch of ``runs`` (field, run, model, ``launch_shapes()`` of
     that run) at the row of its kernel, model and shape (a row's ``key``):
     the row gets ``row[field][run]`` = launches. Where no flash or grouped
     matmul row holds that model and shape, a new one, held against its
-    plain version, two calls bit-equal, with its bound and library time.
-    The paged kernel's rows depend on the positions too, so each paged
-    launch must find its row in the kernels phase."""
+    plain version, two calls bit-equal, with its bound and library time;
+    where no paged or prefix row holds it, a new one (``attention_row``)."""
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -2454,6 +2492,7 @@ def path_kernel_rows(rows, runs) -> None:
     dev = torch.device("cuda")
     by_name = {r["name"]: r for r in rows}
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
 
     def randn(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
@@ -2472,6 +2511,8 @@ def path_kernel_rows(rows, runs) -> None:
                     elif kernel == "grouped_matmul":
                         E, C, K, N = key
                         row = gmm_case(randn, model, E, C, K, N, "wi" if K == get_config(model).d_model else "wo")
+                    elif kernel in ("paged_attention", "prefix_paged_attention"):
+                        row = attention_row(kernel, key, model, attn_of(get_config(model))[3:], rng, dev)
                     else:
                         raise AssertionError(f"{run} ({model}): {kernel} launched at {key}, and no row holds it")
                     by_name[kernel]["also"].append(row)
@@ -2524,8 +2565,8 @@ def phase_families() -> dict:
     return out
 
 
-# ssm phase: the families with mamba layers, at full width and depth, on
-# seeded random weights in bf16. Each bf16 check is held to the rounding
+# ssm phase: the families with mamba layers, at full width (Falcon-Mamba at
+# SSM_LAYERS' depth, Hymba at full depth), on seeded random weights in bf16. Each bf16 check is held to the rounding
 # noise measured in the same run at the same depth, which grows with depth
 # (``tools/mamba_rounding.py`` reads it layer count by layer count): the
 # same path at another batch size (each row alone, B=1, against the batch
@@ -2541,6 +2582,10 @@ def phase_families() -> dict:
 #   backends): bf16 within twice the ref path's batch noise on the same
 #   forced tokens (per step, rel L2 and max rel), float32 within 1e-3.
 SSM_FAMILIES = ("falcon-mamba-7b", "hymba-1.5b")
+# layers kept where not all: Falcon-Mamba's plain scan is most of its
+# prefill, and the sharded phase's seq, re-plan and mamba runs needed the
+# time (32 of 64 layers)
+SSM_LAYERS = {"falcon-mamba-7b": 32}
 SSM_AB_ORDER = (False, True)  # one eager and one captured run each: the script's time limit
 SSM_PVD_STEPS = 4
 SSM_F32_TOL = 1e-3  # rel L2, float32: prefill against decode, and Hymba's hopper against ref
@@ -2687,6 +2732,8 @@ def phase_ssm() -> dict:
     out = {}
     for name in SSM_FAMILIES:
         cfg = get_config(name)
+        if name in SSM_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=SSM_LAYERS[name])
         _free()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3055,6 +3102,202 @@ def phase_train() -> dict:
     return {"launches": dict(launches), "runs": runs, "parity": parity}
 
 
+# launcher phase: the port's serve launcher (``repro_torch.launch.serve``) in
+# process, as a user starts the system, on the serve phase's DeepSeek weights
+# (full width and depth, bf16): the default mixed trace through run(), then
+# with --continuous --prefix-cache. HAP plans for four H100s on the latency
+# model of the h100 entry; the plans execute on the one card. The model's fit
+# (~1 min on one host core) runs in a background process from the start of
+# the script, into a cache directory of its own, which the launcher reads
+# (``REPRO_CACHE_DIR``).
+LAUNCHER_ARGV = ("--full", "--chip", "h100", "--devices", "4", "--kernel-backend", "hopper")
+LAUNCHER_RUNS = {"run": (), "continuous_prefix": ("--continuous", "--prefix-cache")}
+LAUNCHER_CLI_TIMEOUT_S = 300
+# the re-plan traffic of the sharded phase's live relayout (prompt length,
+# new tokens) at a 64-token bucket and two slots: r1 retires early and r2 (a
+# 128-token bucket) joins while r0 is live, so the attention moves TP2 ->
+# DP2; r2 retires and r3 joins while r0 is live, DP2 -> TP2
+REPLAN_TRAFFIC = ((50, 12), (60, 2), (100, 2), (40, 4))
+REPLAN_MAX_BATCH = 2
+
+
+def start_latency_fit():
+    """Fit the h100 latency model in a background process into a new cache
+    directory; returns (the process, the directory). Its seconds land in
+    ``fit.json`` there."""
+    import tempfile
+
+    cache = tempfile.mkdtemp(prefix="latency_")
+    code = ("import json, sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "from repro_torch.core.latency import cached_latency_model\n"
+            "cached_latency_model('h100', disk_dir=sys.argv[1])\n"
+            "json.dump({'seconds': time.perf_counter() - t0}, open(sys.argv[1] + '/fit.json', 'w'))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-c", code, cache], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, cache
+
+
+class ReplanSource:
+    """TP2/EP2 while every live prompt fits one 64-token bucket, DP2/EP2
+    once a longer one is live: the attention layout alone switches."""
+
+    def plan_for(self, w):
+        from repro_torch.core import fixed_plan
+
+        return fixed_plan("TP2" if w.prompt <= 64 else "DP2", "EP2")
+
+
+def replan_requests(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    return [(rng.integers(1, cfg.vocab_size, n).tolist(), g) for n, g in REPLAN_TRAFFIC]
+
+
+def _launcher_expect(cfg, st, args) -> dict:
+    """The exact launches of a launcher run: run() launches flash once a
+    layer a batch, the paged kernel once a layer a decode step and the
+    expert matmuls three times a layer a step; the paged prefix-cache run
+    the paged kernel once a layer a chunk, the prefix kernel once a layer a
+    decode step (fused ones included) and the expert matmuls three times a
+    layer a chunk or decode step."""
+    L = cfg.num_layers
+    if not args.continuous:
+        return {"flash_attention": st.batches * L, "paged_attention": st.batches * (args.gen - 1) * L,
+                "grouped_matmul": st.batches * args.gen * 3 * L}
+    return {"paged_attention": st.prefill_chunks * L, "prefix_paged_attention": st.decode_steps * L,
+            "grouped_matmul": (st.prefill_chunks + st.decode_steps) * 3 * L}
+
+
+def phase_launcher(cfg, params, fit) -> dict:
+    """The serve launcher twice (``LAUNCHER_RUNS``), each against an engine
+    built directly from the same session and flags on the same trace
+    (tokens and launches equal); then ``python -m
+    repro_torch.launch.serve`` at its reduced default on the card in a
+    subprocess, reading the in-process run's latency cache. Returns
+    {"shapes": launches by shape per run, "launches": per run}."""
+    import io
+    import logging
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+
+    proc, cache = fit
+    t0 = time.perf_counter()
+    fit_out, _ = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"launcher: the latency-model fit failed:\n{fit_out[-3000:]}")
+    with open(os.path.join(cache, "fit.json")) as f:
+        fit_s = json.load(f)["seconds"]
+    emit({"phase": "launcher", "step": "latency_fit", "chip": "h100", "fit_s": fit_s,
+          "waited_s": time.perf_counter() - t0, "background": True})
+    root = logging.getLogger()
+    saved = (root.level, list(root.handlers), os.environ.get("REPRO_CACHE_DIR"))
+    os.environ["REPRO_CACHE_DIR"] = cache
+    out = {"shapes": {}, "launches": {}}
+    try:
+        for name, extra in LAUNCHER_RUNS.items():
+            argv = [*LAUNCHER_ARGV, *extra]
+            args = launcher.parser().parse_args(argv)
+            what = f"launcher ({name})"
+            runs = []
+            for direct in (False, True):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_counts()
+                lines = io.StringIO()
+                t0 = time.perf_counter()
+                if direct:  # an engine built from the launcher's session and flags, on its trace
+                    eng = launcher.build_engine(session, params, cfg, args, torch.device("cuda"))
+                    for r in launcher.trace(args, cfg.vocab_size):
+                        eng.submit(r)
+                    done = eng.serve_continuous() if args.continuous else eng.run()
+                else:
+                    with contextlib.redirect_stdout(lines):
+                        done, eng = launcher.main(argv, params=params)
+                    session = eng.session
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                st = eng.stats
+                launches, dispatch = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS)
+                expect = _launcher_expect(cfg, st, args)
+                if {k: launches.get(k, 0) for k in expect} != expect:
+                    raise AssertionError(f"{what}: launches {launches}, expected {expect}")
+                if ref_ops(dispatch):
+                    raise AssertionError(f"{what}: ref ops ran on the path: {ref_ops(dispatch)}")
+                no_fallback(what, dataclasses.asdict(st))
+                tokens = [c.tokens for c in done]
+                if len(tokens) != args.requests or any(len(t) != args.gen for t in tokens):
+                    raise AssertionError(f"{what}: a request did not get its {args.gen} tokens")
+                steps = st.decode_steps if args.continuous else st.batches * (args.gen - 1)
+                decode_ms = st.decode_step_ms_sum if args.continuous else sum(c.decode_ms for c in done[::args.batch])
+                runs.append({"direct": direct, "wall_s": wall, "tokens_per_s": sum(map(len, tokens)) / wall,
+                             "decode_ms_per_step": decode_ms / steps, "launches": launches,
+                             "variants": check_variants(what, launches), "dispatch": dispatch,
+                             "shapes": launch_shapes(), "tokens": tokens, "steps": step_stats(eng),
+                             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                             "plan": eng.hap_plan.describe(), "replans": st.replans,
+                             "plan_switches": st.plan_switches, "transition_ms_total": st.transition_ms_total,
+                             "lines": lines.getvalue().splitlines()})
+                eng.close()
+                del eng, done
+                _free()
+            main, direct = runs
+            if direct["tokens"] != main["tokens"] or direct["launches"] != main["launches"]:
+                raise AssertionError(f"{what}: the launcher and the engine built from its session differ: "
+                                     f"launches {main['launches']} against {direct['launches']}")
+            emit({"phase": "launcher", "run": name, "argv": argv,
+                  **{k: v for k, v in main.items() if k not in ("tokens", "shapes", "direct")},
+                  "direct_engine": {k: direct[k] for k in ("wall_s", "tokens_per_s", "decode_ms_per_step")},
+                  "tokens_equal_direct_engine": True, "launches_equal_direct_engine": True})
+            out["shapes"][name] = main["shapes"]
+            out["launches"][name] = main["launches"]
+        # the command line on its own: reduced, float32, the model from the cache
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), REPRO_CACHE_DIR=cache)
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--chip", "h100", "--device", "cuda"],
+                             capture_output=True, text=True, env=env, cwd=ROOT, timeout=LAUNCHER_CLI_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        emit({"phase": "launcher", "run": "cli", "command": "python -m repro_torch.launch.serve --chip h100 "
+              "--device cuda", "returncode": cli.returncode, "seconds": cli_s, "lines": cli.stdout.splitlines(),
+              "read_the_cache": "planned" in cli.stderr and not os.path.exists(os.path.join(ROOT, ".cache",
+                                                                                         "latency_torch_h100_0.pkl"))})
+        if cli.returncode:
+            raise AssertionError(f"launcher (cli): exit {cli.returncode}:\n{cli.stdout[-2000:]}\n{cli.stderr[-3000:]}")
+    finally:
+        root.setLevel(saved[0])
+        root.handlers[:] = saved[1]
+        if saved[2] is None:
+            os.environ.pop("REPRO_CACHE_DIR", None)
+        else:
+            os.environ["REPRO_CACHE_DIR"] = saved[2]
+    return out
+
+
+def replan_references(cfg, params) -> dict:
+    """The re-plan traffic on one card, paged and contiguous: the two-rank
+    relayout runs' reference tokens."""
+    from repro_torch.core import HAPSession, fixed_plan
+    from repro_torch.serving import Request
+
+    out = {}
+    for paged in (True, False):
+        eng = HAPSession(cfg, "h100", 1, source=fixed_plan("TP1", "TP1"), prompt_bucket=64).engine(
+            params, max_batch=REPLAN_MAX_BATCH, paged=paged)
+        for p, g in replan_requests(cfg):
+            eng.submit(Request(prompt=p, max_new_tokens=g))
+        out["paged" if paged else "contiguous"] = [c.tokens for c in eng.serve_continuous()]
+        eng.close()
+        del eng
+        _free()
+    return out
+
+
 # sharded phase: DeepSeekMoE-16B on two ranks of a gloo group, both on the
 # one card (NCCL refuses two ranks on one device), then one NCCL rank
 SHARDED_RANK = "deepseek-moe-16b rank of 2"  # the model of a kernel row at a sharded per-rank shape
@@ -3068,8 +3311,25 @@ SHARDED_PLANS = {  # name -> (attn, expert prefill, expert decode, mechanism, en
     "switch_reshard": ("TP2", "EP2", "TP2", "reshard", {}),
     "switch_int4": ("TP2", "EP2", "TP2", "int4_upload", {"use_int4_transition": True}),
     "switch_int4_resident": ("TP2", "EP2", "TP2", "int4_upload", {"use_int4_transition": True, "resident_int4": True}),
+    # attention-DP: attention whole on each rank, the contiguous cache
+    # sequence-sharded (each rank half the positions), decode merging the
+    # ranks' partial softmaxes on the plain path, as the reference routes it
+    "dp2_ep2": ("DP2", "EP2", "", "reshard", {}),
 }
-SHARDED_LOGITS = ("tp2_tp2", "tp2_ep2_serial", "tp2_ep2_k2")  # teacher-forced against the one-rank run
+SHARDED_LOGITS = ("tp2_tp2", "tp2_ep2_serial", "tp2_ep2_k2", "dp2_ep2")  # teacher-forced against the one-rank run
+# runs served at their first layers only (the script's time limit): the
+# reshard moves every expert leaf between the ranks three times,
+# ~30 s each at full depth over gloo, and the INT4 runs restore every leaf
+# as often; their gates (bytes moved, dequant launches, budgets) hold at any
+# depth. No one-rank run of these depths exists, so their tokens are not
+# compared
+SHARDED_CUT = {"switch_reshard": 7, "switch_int4": 7, "switch_int4_resident": 7, "continuous_tp2_ep2": 14}
+# the mamba families on two ranks (model, layers kept or None for all): the
+# mixer tensor-parallel over d_inner; Hymba's 25 heads do not divide two, so
+# its attention is replicated and its contiguous cache sequence-sharded.
+# Falcon-Mamba keeps 8 of its 64 layers, and both serve the serve traffic's
+# first batch (MAX_BATCH requests; the script's time limit)
+SHARDED_SSM = (("falcon-mamba-7b", 8), ("hymba-1.5b", None))
 # replication and prefetch on two ranks: the switching INT4 plan (experts TP2
 # in prefill, EP2 in decode) from resident INT4 experts (two dense ranks'
 # restores with replication do not fit the one card together) at the
@@ -3206,6 +3466,15 @@ def _serve_rank(eng, reqs, continuous: bool) -> dict:
 
     for p, g in reqs:
         eng.submit(Request(prompt=p, max_new_tokens=g))
+    caches = []
+    end = eng._end_live_batch
+
+    def end_live_batch():  # a live batch's cache, before the engine releases it
+        if eng._live is not None:
+            caches.append(_cache_bytes(eng._live.cache))
+        end()
+
+    eng._end_live_batch = end_live_batch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
@@ -3216,7 +3485,8 @@ def _serve_rank(eng, reqs, continuous: bool) -> dict:
     launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
     shapes = launch_shapes()
     variants = check_variants("sharded", launches)
-    refs = ref_ops(dispatch)
+    # a sequence-sharded cache decodes on the plain path by design (``decode.ref_seq``)
+    refs = {k: n for k, n in ref_ops(dispatch).items() if k != "decode.ref_seq"}
     if refs:
         raise AssertionError(f"sharded: ref ops ran on the path: {refs}")
     no_fallback("sharded", dataclasses.asdict(st))
@@ -3224,7 +3494,9 @@ def _serve_rank(eng, reqs, continuous: bool) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches, "variants": variants,
            "dispatch": dispatch, "shapes": shapes, "tokens": [c.tokens for c in comps],
            "transition_ms_total": st.transition_ms_total, "reshard_bytes": st.reshard_bytes,
-           "resident_bytes_saved": st.resident_bytes_saved, "async_restores": st.async_restores}
+           "resident_bytes_saved": st.resident_bytes_saved, "async_restores": st.async_restores,
+           "seq_decode": dispatch.get("decode.ref_seq", 0),
+           "cache": _cache_bytes(eng._static[1]) if eng._static is not None else caches[-1] if caches else {}}
     if continuous:
         res.update(decode_steps=st.decode_steps, decode_step_ms_mean=st.decode_step_ms_sum / st.decode_steps,
                    prefill_chunks=st.prefill_chunks, prefix_hit_blocks=st.prefix_hit_blocks)
@@ -3236,7 +3508,13 @@ def _serve_rank(eng, reqs, continuous: bool) -> dict:
     return res
 
 
-def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path=None) -> dict:
+def _cache_bytes(cache) -> dict:
+    """A rank's decode cache: the bytes and shape of each field it holds."""
+    return {k: {"bytes": t.nbytes, "shape": list(t.shape)} for k in ("k", "v", "conv", "ssm")
+            if (t := getattr(cache, k)) is not None}
+
+
+def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path=None, ssm_ref_path=None) -> dict:
     """One rank of the sharded phase (``repro_torch.sharding.launch``): the
     serve traffic through ``run()`` under each plan of ``SHARDED_PLANS`` (or
     ``only``), the teacher-forced logits, the one-layer checks and the
@@ -3280,24 +3558,54 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path
                 dec = dataclasses.replace(dec, moe_pipeline=kw["moe_pipeline"])
             out["logits"][name] = _teacher_forced(cfg, params, dec, ref)
         for capture in captures:
-            eng = HAPSession(cfg, "h100", mesh.size, source=hap, mesh=mesh, prompt_bucket=64).engine(
-                params, max_batch=MAX_BATCH, capture_steps=capture, **plan[4])
+            run_cfg, run_params = cfg, params
+            if name in SHARDED_CUT:  # the first layers, views of the same shard
+                run_cfg = dataclasses.replace(cfg, num_layers=SHARDED_CUT[name])
+                run_params = _first_layers_of(params, SHARDED_CUT[name])
+            eng = HAPSession(run_cfg, "h100", mesh.size, source=hap, mesh=mesh, prompt_bucket=64).engine(
+                run_params, max_batch=MAX_BATCH, capture_steps=capture, **plan[4])
+            del run_params
             if hap.switches and len(captures) == 1:
                 # a switching plan moves the expert leaves: the engine alone
                 # holds the params, so that the old leaves free as the new land
                 params, layout = None, None
             key = name if len(captures) == 1 else f"{name}/{'captured' if capture else 'eager'}"
             out["runs"][key] = _serve_rank(eng, [(p, MAX_NEW) for p in prompts(cfg)], False)
-            out["runs"][key]["steps"] = step_stats(eng)
+            out["runs"][key].update(steps=step_stats(eng), layers=run_cfg.num_layers)
             eng.close()
             del eng
             _free()
+        if name == "tp2_ep2_serial" and only is None:
+            # the re-plan traffic, paged then contiguous: the attention layout
+            # switches TP2 -> DP2 -> TP2 while requests are live, the experts
+            # stay EP2. The engine alone holds the params (its attention
+            # leaves move); the first engine's params, back in the TP2/EP2
+            # layout, serve the second
+            for paged in (True, False):
+                session = HAPSession(cfg, "h100", mesh.size, source=ReplanSource(), mesh=mesh, prompt_bucket=64)
+                session.transition_between = lambda old, new, w: ("reshard", 0.0)  # Eq. 6 pinned: no model to fit
+                eng = session.engine(params, max_batch=REPLAN_MAX_BATCH, paged=paged, params_plan=splan)
+                params, layout = None, None
+                run = _serve_rank(eng, replan_requests(cfg), True)
+                run.update(relayout_ms=list(eng.kv_relayout_ms), plan_switches=eng.stats.plan_switches,
+                           end_layout=[eng._layout.attn_mode, eng._layout.ffn_mode])
+                out["runs"][f"replan_{'paged' if paged else 'contiguous'}"] = run
+                if run["end_layout"] != ["tp_heads", "ep"]:
+                    raise AssertionError(f"sharded (replan): the run ended in {run['end_layout']}, not TP2/EP2")
+                params = eng.params
+                eng.close()
+                del eng
+                _free()
+            params = None
+            _free()
         if name == "tp2_ep2_k2" and only is None:
             # the continuous traffic with the prefix cache, TP2/EP2 (K auto)
-            eng = HAPSession(cfg, "h100", mesh.size, source=_hap(("TP2", "EP2", "", "reshard")), mesh=mesh,
-                             prompt_bucket=64).engine(params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK,
-                                                      prefix_cache=True, capture_steps=captures[0])
-            out["runs"]["continuous_tp2_ep2"] = _serve_rank(eng, cont_requests(cfg), True)
+            L = SHARDED_CUT["continuous_tp2_ep2"]
+            eng = HAPSession(dataclasses.replace(cfg, num_layers=L), "h100", mesh.size,
+                             source=_hap(("TP2", "EP2", "", "reshard")), mesh=mesh, prompt_bucket=64).engine(
+                _first_layers_of(params, L), max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=True,
+                capture_steps=captures[0])
+            out["runs"]["continuous_tp2_ep2"] = dict(_serve_rank(eng, cont_requests(cfg), True), layers=L)
             eng.close()
             del eng
             _free()
@@ -3305,6 +3613,88 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path
     _free()
     if rep_ref_path is not None:
         out["runs"]["replicated_switch_int4"], out["replicated_logits"] = _replicated_rank(mesh, rep_ref_path)
+    if ssm_ref_path is not None:
+        out["ssm"] = _ssm_rank(mesh, ssm_ref_path)
+    return out
+
+
+def _ssm_config(name: str, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def ssm_references() -> dict:
+    """The one-card runs the two-rank mamba runs are held to, each model
+    (``SHARDED_SSM``) at its depth there, on the serve phase's seed: the
+    serve traffic's first batch through ``run()`` and through the
+    contiguous fallback,
+    and the first batch's teacher-forced logits (prefill + 15 decode steps,
+    greedy), with the same path's batch noise per step (each row alone,
+    B=1, fed the batch's tokens, against the batch)."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine, Request
+
+    refs = {}
+    for name, layers in SHARDED_SSM:
+        cfg = _ssm_config(name, layers)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        ref = {"layers": cfg.num_layers}
+        for cont in (False, True):
+            eng = InferenceEngine(cfg, params, max_batch=MAX_BATCH, paged=False)
+            for p in prompts(cfg)[:MAX_BATCH]:
+                eng.submit(Request(prompt=p, max_new_tokens=MAX_NEW))
+            ref["contiguous" if cont else "static"] = [c.tokens for c in (eng.serve_continuous() if cont
+                                                                          else eng.run())]
+            eng.close()
+            del eng
+        tokens = _first_batch(cfg)
+        hop = _forced_logits(cfg, params, tokens, "hopper")
+        alone = [_forced_logits(cfg, params, tokens[i:i + 1], "hopper", feed=[h[i:i + 1] for h in hop])
+                 for i in range(len(tokens))]
+        ref.update(logits=hop, noise=[_rel_l2(torch.cat(rows), h) for rows, h in zip(zip(*alone), hop)])
+        refs[name] = ref
+        del params, alone
+        _free()
+    return refs
+
+
+def _ssm_rank(mesh, ref_path: str) -> dict:
+    """One rank's two-rank mamba runs: each model of ``SHARDED_SSM`` from
+    this rank's shard (TP2: the mixer's d_inner halved), the serve traffic's
+    first batch through ``run()`` and the contiguous fallback, and its
+    logits teacher-forced on the one-card run's tokens."""
+    import torch
+
+    from repro_torch.core import HAPSession, fixed_plan
+    from repro_torch.models import init_params
+
+    refs = torch.load(ref_path, weights_only=False)
+    hap = fixed_plan("TP2", "TP2")
+    out = {}
+    for name, layers in SHARDED_SSM:
+        cfg = _ssm_config(name, layers)
+        splan = hap.to_sharding_plan(mesh, cfg, phase="prefill")
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda", shard=(splan, mesh.rank))
+        res = {"layers": cfg.num_layers, "kv_shard": splan.kv_shard, "attn_mode": splan.attn_mode}
+        for cont in (False, True):
+            eng = HAPSession(cfg, "h100", mesh.size, source=hap, mesh=mesh, prompt_bucket=64).engine(
+                params, max_batch=MAX_BATCH, paged=False)
+            res["contiguous" if cont else "static"] = _serve_rank(eng, [(p, MAX_NEW) for p in prompts(cfg)[:MAX_BATCH]],
+                                                                  cont)
+            eng.close()
+            del eng
+            _free()
+        got = _forced_logits(cfg, params, _first_batch(cfg), "hopper", feed=refs[name]["logits"],
+                             plan=hap.to_sharding_plan(mesh, cfg, phase="decode"))
+        res["rel_l2_err_per_step"] = [_rel_l2(a, b) for a, b in zip(got, refs[name]["logits"])]
+        res["finite"] = all(bool(torch.isfinite(t).all()) for t in got)
+        out[name] = res
+        del params
+        _free()
     return out
 
 
@@ -3342,24 +3732,32 @@ def _replicated_rank(mesh, rep_ref_path: str):
     return run, logits
 
 
-def phase_sharded(serve, cont, agree_ref, repl) -> dict:
+def phase_sharded(serve, cont, agree_ref, repl, replan) -> dict:
     """DeepSeekMoE-16B at full width and depth on two ranks that share the
-    card over a gloo group, each holding only its shard; then one NCCL rank
-    with its steps captured. Each run is held to the one-rank serve and
-    continuous runs."""
+    card over a gloo group, each holding only its shard, and the mamba
+    families (``SHARDED_SSM``); then one NCCL rank with its steps captured.
+    Each run is held to its one-rank run (``replan``: the re-plan
+    traffic's, ``replan_references``)."""
     import tempfile
 
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.sharding.launch import spawn
 
     work = tempfile.mkdtemp(prefix="sharded_")
     ref_path, rep_ref_path = os.path.join(work, "ref.pt"), os.path.join(work, "rep_ref.pt")
+    ssm_ref_path = os.path.join(work, "ssm_ref.pt")
     torch.save(agree_ref, ref_path)
     torch.save(repl, rep_ref_path)
     t0 = time.perf_counter()
+    ssm_refs = ssm_references()
+    torch.save(ssm_refs, ssm_ref_path)
+    ssm_ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ranks = spawn("chip_smoke:sharded_rank", 2, backend="gloo", args={"ref_path": ref_path,
-                                                                      "rep_ref_path": rep_ref_path},
+                                                                      "rep_ref_path": rep_ref_path,
+                                                                      "ssm_ref_path": ssm_ref_path},
                   timeout=SHARDED_TIMEOUT_S, pythonpath=(ROOT,))
     two_rank_s = time.perf_counter() - t0
     r0, r1 = ranks
@@ -3368,26 +3766,40 @@ def phase_sharded(serve, cont, agree_ref, repl) -> dict:
     def per_step(xs):
         return [sum(xs[i:i + layers]) for i in range(0, len(xs), layers)]
     summary = {"phase": "sharded", "ranks": 2, "backend": "gloo", "device": "cuda:0 (both ranks)",
-               "seconds": two_rank_s, "init_s": [r["init_s"] for r in ranks],
+               "seconds": two_rank_s, "ssm_reference_s": ssm_ref_s, "init_s": [r["init_s"] for r in ranks],
                "param_bytes_per_rank": [r["param_bytes"] for r in ranks]}
     launches, shapes = {}, {}
+    cfg = get_config("deepseek-moe-16b")
     for name, run in r0["runs"].items():
         other = r1["runs"][name]
         if run["tokens"] != other["tokens"]:
             raise AssertionError(f"sharded ({name}): the two ranks' tokens differ")
-        continuous = name.startswith("continuous")
-        want = cont["tokens"] if continuous else serve["tokens"]
-        # continuous: chunks through the paged kernel, decode steps through the prefix kernel
+        continuous = name.startswith(("continuous", "replan"))
+        if name.startswith("replan"):
+            want = replan[name.split("_", 1)[1]]
+        else:
+            want = cont["tokens"] if continuous else serve["tokens"]
+        # continuous: chunks through the paged kernel, decode steps through the prefix kernel;
+        # attention-DP's static run decodes on the plain path (a seq-sharded cache)
         expect = {"paged_attention", "grouped_matmul"} | (
             {"prefix_paged_attention"} if continuous else {"flash_attention"})
+        if name == "dp2_ep2":
+            expect.discard("paged_attention")
+        elif name == "replan_paged":
+            expect.discard("prefix_paged_attention")
+        elif name == "replan_contiguous":
+            expect = {"flash_attention", "paged_attention", "grouped_matmul"}
         if "int4" in name:
             expect.add("int4_dequant")
+        _check_seq_run(name, cfg, run, other)
         for r, rr in ((0, run), (1, other)):
             missing = [k for k in expect if not rr["launches"].get(k)]
             if missing:
                 raise AssertionError(f"sharded ({name}): rank {r} launched no {missing}: {rr['launches']}")
         if any(len(t) != g for t, g in zip(run["tokens"], [len(w) for w in want])):
             raise AssertionError(f"sharded ({name}): a request did not get its budget")
+        if name in SHARDED_CUT:
+            want = None  # its depth has no one-rank run
         launches[name] = [run["launches"], other["launches"]]
         for r, rr in enumerate((run, other)):
             for kernel, by_shape in rr["shapes"].items():
@@ -3399,10 +3811,19 @@ def phase_sharded(serve, cont, agree_ref, repl) -> dict:
                                                  "prefetch_predicted", "prefetch_hits", "prefetch_misses",
                                                  "prefetch_bytes", "prefetch_hidden_ms", "prefetch_exposed_ms",
                                                  "restore_wait_ms") if k in run}
+        if name.startswith("replan"):
+            plan = ("TP2<->DP2", "EP2", "", "reshard")
+            extra.update(relayout_ms_per_rank=[run["relayout_ms"], other["relayout_ms"]],
+                         plan_switches=run["plan_switches"])
+        if run["seq_decode"]:
+            extra.update(seq_decode_per_rank=[run["seq_decode"], other["seq_decode"]])
+        if "k" in run["cache"]:
+            extra.update(kv_cache_per_rank=[run["cache"]["k"], other["cache"]["k"]])
         emit({"phase": "sharded", "run": name, "plan": list(plan[:4]), **extra,
               "two_ranks_one_card_gloo": True,
-              "token_agreement_with_one_rank": _agreement(run["tokens"], want),
-              "tokens_equal_one_rank": run["tokens"] == want,
+              "layers": run.get("layers", cfg.num_layers),
+              "token_agreement_with_one_rank": None if want is None else _agreement(run["tokens"], want),
+              "tokens_equal_one_rank": None if want is None else run["tokens"] == want,
               "max_memory_allocated_per_rank": [run["max_memory_allocated"], other["max_memory_allocated"]],
               "launches_per_rank": launches[name],
               "relayout_ms_total_per_rank": [run["transition_ms_total"], other["transition_ms_total"]],
@@ -3410,6 +3831,7 @@ def phase_sharded(serve, cont, agree_ref, repl) -> dict:
               **{k: [run[k], other[k]] for k in ("wall_s", "tokens_per_s", "prefill_ms", "decode_ms_per_step",
                                                  "transition_ms", "decode_step_ms_mean", "resident_bytes_saved",
                                                  "async_restores") if k in run}})
+    ssm_shapes = _check_ssm_ranks(ranks, ssm_refs)
     if r0["runs"]["switch_reshard"]["reshard_bytes"] <= 0:
         raise AssertionError("sharded (switch_reshard): the reshard moved nothing between the ranks")
     rr = [r["runs"]["replicated_switch_int4"] for r in ranks]
@@ -3472,22 +3894,95 @@ def phase_sharded(serve, cont, agree_ref, repl) -> dict:
           "token_agreement_with_one_rank": _agreement(cap["tokens"], serve["tokens"]),
           "steps": cap["steps"], "launches": cap["launches"], "seconds": time.perf_counter() - t0,
           **{k: [cap[k], eag[k]] for k in ("wall_s", "decode_ms_per_step", "prefill_ms", "max_memory_allocated")}})
-    os.remove(ref_path)
-    os.remove(rep_ref_path)
+    for path in (ref_path, rep_ref_path, ssm_ref_path):
+        os.remove(path)
     os.rmdir(work)
     summary["nccl_seconds"] = time.perf_counter() - t0
     emit(summary)
-    return {"launches": launches, "shapes": shapes, "nccl": cap["launches"]}
+    return {"launches": launches, "shapes": shapes, "nccl": cap["launches"], "ssm_shapes": ssm_shapes}
+
+
+def _check_seq_run(name: str, cfg, run, other) -> None:
+    """A run's per-rank cache and plain-path decodes: attention-DP's static
+    cache holds ceil(max_len / 2) of its max_len positions on each rank, and
+    every decode step of it went through the seq decode; a heads-sharded
+    run ran none; the re-plan runs moved their live cache twice."""
+    L = cfg.num_layers
+    if name == "dp2_ep2":
+        k = run["cache"]["k"]["shape"]
+        max_len = 128 + MAX_NEW + 1  # the serve traffic's bucket, its new tokens, one more
+        if k[2] != math.ceil(max_len / 2) or k[3] != cfg.num_kv_heads:
+            raise AssertionError(f"sharded ({name}): a rank's cache is {k}, not half the {max_len} positions")
+        steps = math.ceil(N_REQUESTS / MAX_BATCH) * (MAX_NEW - 1)
+        if run["seq_decode"] != steps * L or other["seq_decode"] != steps * L:
+            raise AssertionError(f"sharded ({name}): {run['seq_decode']} seq decodes, expected {steps * L}")
+    elif name.startswith("replan"):
+        for r in (run, other):
+            if len(r["relayout_ms"]) != 2 or r["plan_switches"] != 2:
+                raise AssertionError(f"sharded ({name}): expected two plan switches, each moving the live cache: "
+                                     f"{r['relayout_ms']}, {r['plan_switches']}")
+    elif run["seq_decode"] or other["seq_decode"]:
+        raise AssertionError(f"sharded ({name}): a heads-sharded run decoded on the plain path")
+
+
+def _check_ssm_ranks(ranks, refs) -> list:
+    """The two-rank mamba runs against their one-card runs: tokens equal on
+    the two ranks, token agreement with one card reported, the conv window
+    and state (and Hymba's seq cache) half of the whole on each rank, and
+    the teacher-forced logits within ``SSM_NOISE_FACTOR`` times the one-card
+    run's batch noise (the ssm phase's rule); launches exact: Hymba's joins
+    and batches through flash, its decode steps on the plain seq path,
+    Falcon-Mamba none. Returns the runs' launches by shape for
+    ``path_kernel_rows``."""
+    out = []
+    for name, _ in SHARDED_SSM:
+        a, b = ranks[0]["ssm"][name], ranks[1]["ssm"][name]
+        ref = refs[name]
+        cfg = _ssm_config(name, None)
+        L = a["layers"]
+        bound = SSM_NOISE_FACTOR * max(ref["noise"])
+        res = {"phase": "sharded_ssm", "model": name, "layers": L, "kv_shard": a["kv_shard"],
+               "attn_mode": a["attn_mode"], "rel_l2_err_per_step": a["rel_l2_err_per_step"],
+               "batch_noise_per_step": ref["noise"], "rel_l2_tol": bound, "two_ranks_one_card_gloo": True}
+        for kind in ("static", "contiguous"):
+            x, y = a[kind], b[kind]
+            if x["tokens"] != y["tokens"]:
+                raise AssertionError(f"sharded_ssm ({name} {kind}): the two ranks' tokens differ")
+            if any(len(t) != MAX_NEW for t in x["tokens"]):
+                raise AssertionError(f"sharded_ssm ({name} {kind}): a request did not get its budget")
+            prefills = MAX_BATCH if kind == "contiguous" else 1  # each join alone, or the one batch
+            expect = {"flash_attention": prefills * L} if cfg.has_attention else {}
+            for r in (x, y):
+                if {k: v for k, v in r["launches"].items() if v} != expect:
+                    raise AssertionError(f"sharded_ssm ({name} {kind}): launches {r['launches']}, expected {expect}")
+                if cfg.has_attention and not r["seq_decode"]:
+                    raise AssertionError(f"sharded_ssm ({name} {kind}): no decode step read the seq cache")
+            whole_conv = L * x["cache"]["conv"]["shape"][1] * (cfg.ssm_conv - 1) * cfg.ssm_d_inner * 2
+            whole_ssm = L * x["cache"]["ssm"]["shape"][1] * cfg.ssm_d_inner * cfg.ssm_state * 4
+            half = [x["cache"]["conv"]["bytes"] / whole_conv, x["cache"]["ssm"]["bytes"] / whole_ssm]
+            if half != [0.5, 0.5]:
+                raise AssertionError(f"sharded_ssm ({name} {kind}): a rank's conv/ssm state is {half} of the whole")
+            res[kind] = {"token_agreement_with_one_card": _agreement(x["tokens"], ref[kind]),
+                         "tokens_equal_one_card": x["tokens"] == ref[kind], "launches": x["launches"],
+                         "seq_decode": x["seq_decode"], "state_share_per_rank": half, "cache": x["cache"],
+                         **{k: [x[k], y[k]] for k in ("wall_s", "tokens_per_s", "decode_ms_per_step", "prefill_ms",
+                                                      "decode_step_ms_mean", "max_memory_allocated") if k in x}}
+            out.append(("launches_sharded_ssm", f"{name} two ranks {kind}", name, x["shapes"]))
+        emit(res)
+        if not a["finite"] or max(a["rel_l2_err_per_step"]) > bound or a["rel_l2_err_per_step"] != b[
+                "rel_l2_err_per_step"]:
+            raise AssertionError(f"sharded_ssm ({name}): two-rank logits beyond {bound} of one card: {res}")
+    return out
 
 
 def sharded_kernel_rows(cfg, rows, shapes) -> None:
     """Each kernel against its plain version at the per-rank shapes the
     sharded phase's two-rank runs sent it (``shapes``: kernel -> shape ->
     run -> launches per rank). flash, gmm and dequant get a row at each
-    such shape, with its launches, in their kernel's ``also``; the paged
-    and prefix rows depend on the positions too, so those kernels have
-    rows at a rank's heads (``rank_attn``) in the kernels phase, and every
-    launch of theirs here must be at those heads."""
+    such shape, with its launches, in their kernel's ``also``; a paged or
+    prefix launch goes to the kernels phase's row at its shape (a rank's
+    heads, or every head under attention-DP), or to a new row
+    (``attention_row``)."""
     import numpy as np
     import torch
 
@@ -3495,23 +3990,16 @@ def sharded_kernel_rows(cfg, rows, shapes) -> None:
     rng = np.random.default_rng(SEED + 3)
     by_name = {r["name"]: r for r in rows}
     for kernel in ("paged_attention", "prefix_paged_attention"):
-        for key in shapes.get(kernel, {}):
-            if key[2:] != rank_attn(cfg)[:3]:
-                raise AssertionError(f"sharded: {kernel} launched at {key} (B, C, Hq, Hkv, hd), and its rows "
-                                     f"hold a rank's heads {rank_attn(cfg)[:3]} only")
         by_name[kernel]["launches_sharded_by_shape"] = {
             f"B={k[0]} C={k[1]} Hq={k[2]} Hkv={k[3]} hd={k[4]}": v for k, v in shapes.get(kernel, {}).items()}
-        for row in by_name[kernel]["also"]:
-            if row.get("model") == SHARDED_RANK:  # the paged rows: one-token steps, or chunks
-                one = kernel == "paged_attention" and " C=1 " in row["shape"]
-                chunk = kernel == "paged_attention" and not one
-                row["launches_sharded"] = launches = {}
-                for key, per_run in shapes.get(kernel, {}).items():
-                    if (one and key[1] != 1) or (chunk and key[1] == 1):
-                        continue
-                    for run, per_rank in per_run.items():
-                        got = launches.setdefault(run, [0] * len(per_rank))
-                        launches[run] = [a + b for a, b in zip(got, per_rank)]
+        for key, per_run in sorted(shapes.get(kernel, {}).items()):
+            # a rank's heads (TP2) or every head (a whole pool or cache): the row at that shape, or a new one
+            row = next((r for r in by_name[kernel]["also"] if r.get("model") in (SHARDED_RANK, cfg.name)
+                        and tuple(r.get("key", ())) == key), None)
+            if row is None:
+                row = attention_row(kernel, key, SHARDED_RANK, attn_of(cfg)[3:], rng, dev)
+                by_name[kernel]["also"].append(row)
+            row["launches_sharded"] = per_run
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
 
@@ -3547,7 +4035,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     try:
         from repro_torch.configs import get_config
-        from repro_torch.models import init_params
     except ImportError as e:
         print(f"chip_smoke: run from the root of a repro checkout ({e})", file=sys.stderr)
         return 1
@@ -3555,11 +4042,28 @@ def main() -> int:
     cfg = get_config("deepseek-moe-16b")
     seconds = {}
 
+    start = time.perf_counter()
+
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        emit({"phase_done": name, "seconds": seconds[name], "elapsed_s": time.perf_counter() - start})
         return out
+
+    fit = start_latency_fit()  # the launcher phase's latency model, fitted meanwhile on a host core
+    try:
+        return _phases(cfg, seconds, timed, fit)
+    finally:
+        if fit[0].poll() is None:
+            fit[0].kill()
+            fit[0].wait()
+
+
+def _phases(cfg, seconds, timed, fit) -> int:
+    import torch
+
+    from repro_torch.models import init_params
 
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels, cfg)
@@ -3573,12 +4077,18 @@ def main() -> int:
     timed("agree", phase_agree, cfg, params, serve, "agree", AGREE_TOL, agree_ref)
     cont = timed("continuous", phase_continuous, cfg, params)
     contig = timed("contiguous", phase_contiguous, cfg, params, cont["plain_tokens"])
+    # the re-plan traffic's one-card reference, before the resident phase
+    # rewrites the expert leaves (the sharded ranks draw pristine ones)
+    replan = timed("replan_reference", replan_references, cfg, params)
     # the resident phase overwrites the expert leaves with their INT4 round trip
     resident = timed("resident", phase_resident, cfg, params)
     trans = timed("transitions", phase_transitions, cfg, params)
     # the replication phase doctors the router of these weights in place, and puts it back
     repl_shapes = {}
     repl = timed("replication", phase_replication, cfg, params, trans, repl_shapes)
+    # late enough that the latency model's fit, started first, has landed;
+    # the weights' expert leaves are the resident phase's INT4 round trip
+    launcher = timed("launcher", phase_launcher, cfg, params, fit)
     robust_shapes = {}
     robust = timed("robustness", phase_robustness, dataclasses.replace(cfg, num_layers=ROBUST_LAYERS),
                    _first_layers_of(params, ROBUST_LAYERS), robust_shapes)
@@ -3587,7 +4097,7 @@ def main() -> int:
     ssm = timed("ssm", phase_ssm)
     vlm = timed("vlm", phase_vlm)
     train = timed("train", phase_train)
-    sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl)
+    sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl, replan)
     timed("sharded_kernels", sharded_kernel_rows, cfg, rows, sharded["shapes"])
     timed("replication_kernels", replication_kernel_rows, cfg, rows, repl_shapes)
     timed("robustness_kernels", robustness_kernel_rows, cfg, rows, robust_shapes)
@@ -3597,7 +4107,10 @@ def main() -> int:
     timed("path_kernels", path_kernel_rows, rows,
           [("launches_contiguous", f"{cfg.name} contiguous", cfg.name, contig["shapes"])]
           + [("launches_ssm", run, m, sh) for m, fam in ssm.items() for run, sh in fam.items()]
-          + [("launches_vlm", f"{VLM_MODEL} image prompts", VLM_MODEL, vlm["shapes"])])
+          + [("launches_vlm", f"{VLM_MODEL} image prompts", VLM_MODEL, vlm["shapes"])]
+          + [("launches_launcher", f"{cfg.name} launcher {run}", cfg.name, sh)
+             for run, sh in launcher["shapes"].items()]
+          + sharded["ssm_shapes"])
     emit({"phase_seconds": seconds})
     for r in rows:
         # launches on the path the kernel serves: the static serve phase for
@@ -3625,6 +4138,8 @@ def main() -> int:
         # LLaVA's image prompts (their rows carry them by shape), and the
         # train phase's runs, which launch no hand kernel (training pins ref)
         r["launches_vlm"] = vlm["launches"].get(r["name"], 0)
+        # the serve launcher's two runs (``python -m repro_torch.launch.serve --full``)
+        r["launches_launcher"] = {run: n.get(r["name"], 0) for run, n in launcher["launches"].items()}
         r["launches_train"] = train["launches"].get(r["name"], 0)
         for row in r.get("also", []):
             if row.get("model") in families:

@@ -128,6 +128,46 @@ class LatencyModel:
         return v / self.chip.link_bw * rho
 
 
+_MODEL_CACHE: dict = {}
+
+
+def cached_latency_model(chip_name: str, seed: int = 0,
+                         disk_dir: Optional[str] = None) -> "LatencyModel":
+    """Memoized (and optionally disk-cached) fitted LatencyModel.
+
+    Fitting the forests takes ~1 min on a single CPU core; benchmarks and
+    tests share fitted models through this helper. The disk cache
+    (``REPRO_CACHE_DIR``, else ``./.cache``) holds
+    ``latency_torch_{chip}_{seed}.pkl``: a name of its own, because the JAX
+    package writes ``latency_{chip}_{seed}.pkl`` into the same directory,
+    and unpickling that file would import the JAX package's classes.
+    """
+    import os
+    import pickle
+
+    key = (chip_name, seed)
+    if key in _MODEL_CACHE:
+        return _MODEL_CACHE[key]
+    path = None
+    if disk_dir is None:
+        disk_dir = os.environ.get("REPRO_CACHE_DIR",
+                                  os.path.join(os.getcwd(), ".cache"))
+    if disk_dir:
+        os.makedirs(disk_dir, exist_ok=True)
+        path = os.path.join(disk_dir, f"latency_torch_{chip_name}_{seed}.pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                model = pickle.load(f)
+            _MODEL_CACHE[key] = model
+            return model
+    model = LatencyModel(get_chip(chip_name), seed=seed)
+    _MODEL_CACHE[key] = model
+    if path:
+        with open(path, "wb") as f:
+            pickle.dump(model, f)
+    return model
+
+
 # ---------------------------------------------------------------------------
 # module-level estimators (planner-facing)
 # ---------------------------------------------------------------------------

@@ -201,6 +201,33 @@ def decode_attention(
     )
 
 
+def seq_decode_attention(
+    q, k_cache, v_cache, k_new, v_new, pos, mesh, *, scale: Optional[float] = None, softcap: float = 0.0,
+    window: int = 0, is_global=True,
+):
+    """``decode_attention`` over a contiguous cache whose positions are
+    sharded over the ranks of ``mesh`` (the ``seq`` layout): this rank
+    holds (B, P, Hkv, hd) of every kv head, global positions rank*P ..
+    rank*P + P - 1. The rank that holds a new entry writes it; every rank
+    computes the partial softmax of every q head of ``q`` (B, C, Hq, hd)
+    over its own valid keys; one all-gather of the partials and a
+    log-sum-exp merge give every rank the whole output (B, C, Hq, hd).
+
+    The reference routes this layout to its plain path (its
+    ``decode_kernel_axes`` is None unless the cache is heads-sharded), and
+    so does the port: the plain version runs per rank on any device,
+    counted as ``decode.ref_seq``, whatever the backend."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    record("decode.ref_seq")
+    o, m, s = ref.seq_append_attention_partial_ref(
+        q, k_cache, v_cache, k_new, v_new, pos, mesh.rank, mesh.size, is_global,
+        scale=scale, softcap=softcap, window=window,
+    )
+    parts = mesh.all_gather(torch.cat([o, m[..., None], s[..., None]], dim=-1)[None], dim=0)
+    hd = q.shape[-1]
+    return ref.merge_partials_ref(parts[..., :hd], parts[..., hd], parts[..., hd + 1]).to(q.dtype), k_cache, v_cache
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantizedWeight:
     """A per-group INT4 weight in the flat transition format of

@@ -112,6 +112,29 @@ def decode_attend_ref(
     probabilities are rounded to the value dtype for the AV product,
     which accumulates in float32 (the reference's numerics).
     """
+    o, _, s = decode_attend_partial_ref(q, k, v, q_positions, k_positions, scale=scale, softcap=softcap,
+                                        window=window, is_global=is_global, kv_len=kv_len)
+    return (o / torch.clamp(s[..., None], min=1e-30)).to(q.dtype)
+
+
+def decode_attend_partial_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    k_positions: torch.Tensor,
+    *,
+    scale: float,
+    softcap: float = 0.0,
+    window: int = 0,
+    is_global=True,
+    kv_len: Optional[IntLike] = None,
+):
+    """``decode_attend_ref`` before its normalisation: the online-softmax
+    partial (o, m, s) of q (B, Sq, Hq, hd) over these keys, o (B, Sq, Hq,
+    hd) unnormalised and m, s (B, Sq, Hq) the row max and row sum, all
+    float32. Partials over disjoint key sets merge with
+    ``merge_partials_ref``."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -127,9 +150,22 @@ def decode_attend_ref(
     p = torch.exp(logits - m[..., None])
     s = p.sum(dim=-1)
     o = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
-    out = o / torch.clamp(s[..., None], min=1e-30)
-    out = out.reshape(B, Hkv, G, Sq, hd).permute(0, 3, 1, 2, 4)
-    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+    def heads_last(t):  # (B, Hkv, G, Sq, ...) -> (B, Sq, Hq, ...)
+        return t.movedim(3, 1).reshape(B, Sq, Hq, *t.shape[4:])
+
+    return heads_last(o), heads_last(m), heads_last(s)
+
+
+def merge_partials_ref(o: torch.Tensor, m: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Merge online-softmax partials over disjoint key sets, stacked on a
+    leading dim: o (n, B, Sq, Hq, hd), m and s (n, B, Sq, Hq) ->
+    the normalised float32 output (B, Sq, Hq, hd). A part whose keys were
+    all masked carries m ~ NEG_INF and weighs exp(m - max) = 0."""
+    top = m.amax(dim=0)
+    w = torch.exp(m - top)
+    den = (s * w).sum(dim=0)
+    return (o * w[..., None]).sum(dim=0) / torch.clamp(den[..., None], min=1e-30)
 
 
 def _chunk_positions(pos: torch.Tensor, C: int) -> torch.Tensor:
@@ -286,6 +322,57 @@ def append_attention_ref(
         kv_len=pos + C,
     )
     return out, k_cache, v_cache
+
+
+def seq_append_attention_partial_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pos: torch.Tensor,
+    rank: int,
+    n: int,
+    is_global=True,
+    *,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+    window: int = 0,
+):
+    """One rank's part of ``append_attention_ref`` over a contiguous cache
+    whose positions are sharded over ``n`` ranks (the ``seq`` layout):
+    k_cache/v_cache (B, P, Hkv, hd) hold the global positions rank*P ..
+    rank*P + P - 1 of a cache of n*P. The rank writes the entries of the
+    chunk that fall in its positions (a scalar ``pos`` clamped so the chunk
+    fits the global cache, a (B,) ``pos`` each row's token at its own depth,
+    as ``append_attention_ref`` writes them), in place, then attends every
+    q head over its valid positions. Returns the partial (o, m, s) of
+    ``decode_attend_partial_ref``."""
+    B, C = q.shape[0], q.shape[1]
+    if C > 1 and pos.ndim:
+        raise ValueError("contiguous multi-token append is lockstep-only")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    P = k_cache.shape[1]
+    slots = rank * P + torch.arange(P, dtype=torch.int32, device=q.device)  # global positions
+    write = pos if pos.ndim else pos.clamp(0, n * P - C)
+    if C == 1:  # one entry a row, at most one rank holds it
+        local = torch.broadcast_to(write, (B,)) - rank * P
+        mine = ((local >= 0) & (local < P))[:, None, None]
+        rows, idx = torch.arange(B, device=q.device), local.clamp(0, P - 1).long()
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            cache[rows, idx] = torch.where(mine, new[:, 0].to(cache.dtype), cache[rows, idx])
+    else:  # a lockstep chunk, which may straddle two ranks
+        c_of = slots - write
+        mine = ((c_of >= 0) & (c_of < C))[None, :, None, None]
+        pick = c_of.clamp(0, C - 1).long()
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            cache.copy_(torch.where(mine, new[:, pick].to(cache.dtype), cache))
+    q_pos = _chunk_positions(pos, C)
+    return decode_attend_partial_ref(
+        q, k_cache.to(q.dtype), v_cache.to(q.dtype), q_pos if pos.ndim else q_pos[0], slots,
+        scale=scale, softcap=softcap, window=window, is_global=is_global, kv_len=pos + C,
+    )
 
 
 def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,18 @@ On a mesh (a ShardingPlan) attention in ``tp_heads`` mode runs on this
 rank's heads: its columns of wq (and of wk/wv when the kv heads divide the
 axis), the kernels on its head shard of the KV cache, then its rows of wo
 and one all-reduce (Megatron style). Where the kv heads do not divide, k/v
-and the cache stay whole on every rank: prefill repeats k/v up to the q
-heads (``_maybe_repeat_kv``) and takes the rank's heads, and decode runs
-the kernel over every q head, the other ranks' heads zero, and keeps the
-rank's outputs. ``replicated`` attention runs whole on every rank.
+stay whole on every rank: prefill repeats k/v up to the q heads
+(``_maybe_repeat_kv``) and takes the rank's heads. ``replicated``
+attention runs whole on every rank.
+
+The decode cache follows the plan's ``kv_shard`` (``cache_layout``): a
+heads-sharded cache holds the rank's kv heads; a ``seq`` cache, contiguous
+only, holds the rank's share of the positions with every kv head, and
+decode merges the ranks' partial softmaxes (``kernels.ops.
+seq_decode_attention``; q heads sharded over the ranks are gathered
+first); otherwise (a paged pool under ``seq``) the cache is whole on every
+rank, and decode under sharded q heads runs the kernel over every q head,
+the other ranks' heads zero, and keeps the rank's outputs.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.sharding.specs import seq_sharded
 
 from .common import apply_rope, softcap
 
@@ -72,6 +81,17 @@ def local_kv_heads(cfg: ModelConfig, plan) -> int:
     if _tp(plan) and plan.kv_shard == "heads":
         return cfg.num_kv_heads // plan.axis_size(plan.attn_tp_axis)
     return cfg.num_kv_heads
+
+
+def cache_layout(cfg: ModelConfig, plan, paged: bool) -> str:
+    """What this rank's decode cache holds: ``"heads"`` (its kv heads),
+    ``"seq"`` (its share of the positions; a contiguous cache only) or
+    ``"none"`` (the whole cache)."""
+    if plan is None or plan.is_null or not cfg.has_attention:
+        return "none"
+    if local_kv_heads(cfg, plan) != cfg.num_kv_heads:
+        return "heads"
+    return "seq" if seq_sharded(plan) and not paged else "none"
 
 
 def _out_project(out, w, x, plan):
@@ -244,6 +264,18 @@ def decode_attention(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global,
     base = pos[:, None] if pos.ndim else pos[None, None]
     q_pos = base + torch.arange(C, dtype=torch.int32, device=x.device)  # (B|1, C)
     q, k_new, v_new = qkv_project(x, w, cfg, q_pos)
+    if block_tables is None and seq_sharded(plan):
+        # the rank's positions of every kv head: every q head attends them
+        if _tp(plan):
+            q = plan.mesh.all_gather(q, dim=2)
+        out, k_cache, v_cache = kernel_ops.seq_decode_attention(
+            q, k_cache, v_cache, k_new, v_new, pos, plan.mesh, scale=_scale(cfg), softcap=cfg.attn_logit_softcap,
+            window=cfg.sliding_window, is_global=is_global,
+        )
+        if _tp(plan):
+            lo, hi = _q_heads(cfg, plan)
+            out = out[:, :, lo:hi]
+        return _out_project(out, w, x, plan), k_cache, v_cache
     # heads sharded, but not the cache (its kv heads do not divide the axis)
     padded = _tp(plan) and plan.decode_kernel_axes(cfg.num_heads, cfg.num_kv_heads) is None
     if padded:

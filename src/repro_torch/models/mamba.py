@@ -19,6 +19,13 @@ Decode: the O(1) recurrent update of the (conv window, SSM state) cache, in
 place, since captured decode steps read those buffers. The recurrence is
 kept in float32, the conv window in the activations' dtype, as in the
 reference.
+
+On a mesh (a ShardingPlan whose leaves hold this rank's d_inner channels,
+``models.params.param_pspecs``) the mixer is tensor-parallel over d_inner:
+``in_proj`` gives this rank's channels of x and of z, the conv, the scan
+and the (conv window, SSM state) are per channel and stay on the rank, and
+the two row-parallel products complete with one all-reduce each: ``x_proj``
+(dt, B and C, before ``dt_proj`` and the scan) and ``out_proj``.
 """
 
 from __future__ import annotations
@@ -46,11 +53,29 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return (out + b.float()).to(x.dtype)
 
 
-def _ssm_inputs(x_c: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig):
+def _mesh(p: Dict[str, Any], cfg: ModelConfig, plan):
+    """The mesh whose ranks share d_inner, or None (the leaves are whole)."""
+    if plan is None or plan.is_null or p["conv_w"].shape[-1] == cfg.ssm_d_inner:
+        return None
+    return plan.mesh
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """x @ w over this rank's rows of ``w``. On a mesh each rank's partial
+    product is kept in float32, summed over the ranks and rounded once to
+    the activations' dtype, as the one-device product rounds once: a bf16
+    partial rounded on each rank would part from it by about twice the
+    rounding of a batch's row order."""
+    if mesh is None:
+        return x @ w
+    return mesh.all_reduce(x.float() @ w.float()).to(x.dtype)
+
+
+def _ssm_inputs(x_c: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, mesh=None):
     """x_c: (B, S, di) -> dt (B,S,di), B_ssm/C_ssm (B,S,N), A (di,N), the
     last four in float32."""
     r, n = cfg.ssm_dt_rank, cfg.ssm_state
-    proj = x_c @ p["x_proj"]
+    proj = _row_parallel(x_c, p["x_proj"], mesh)
     dt_raw, B_ssm, C_ssm = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_w"]).float() + p["dt_b"].float())
     A = -torch.exp(p["A_log"].float())
@@ -93,19 +118,21 @@ def chunk_size(S: int, chunk: int = 256) -> int:
     return cs
 
 
-def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, chunk: int = 256
+def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, chunk: int = 256, plan=None
                 ) -> Tuple[torch.Tensor, MambaCache]:
     """Full-sequence mamba1 block: (B, S, d) -> ((B, S, d), the final
     (conv window, SSM state)). The conv window is the last cw - 1 inputs of
     the conv (the pre-conv half of ``in_proj``), zeros where the sequence
-    is shorter; the state is float32."""
+    is shorter; the state is float32. On a mesh both hold this rank's
+    channels."""
     B, S, _ = x.shape
-    di, n, cw = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
+    di, n, cw = p["conv_w"].shape[-1], cfg.ssm_state, cfg.ssm_conv
+    mesh = _mesh(p, cfg, plan)
     x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     x_c = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
     conv = F.pad(x_in[:, -(cw - 1):], (0, 0, max(cw - 1 - S, 0), 0))
 
-    dt, B_ssm, C_ssm, A = _ssm_inputs(x_c, p, cfg)
+    dt, B_ssm, C_ssm, A = _ssm_inputs(x_c, p, cfg, mesh)
     xf = x_c.float()
     cs = chunk_size(S, chunk)
     h = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
@@ -123,7 +150,7 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, chunk: int
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y + xf * p["D"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], MambaCache(conv=conv, ssm=h)
+    return _row_parallel(y, p["out_proj"], mesh), MambaCache(conv=conv, ssm=h)
 
 
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None) -> MambaCache:
@@ -133,10 +160,12 @@ def init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None) 
     )
 
 
-def mamba_decode_step(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, cache: MambaCache) -> torch.Tensor:
+def mamba_decode_step(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, cache: MambaCache,
+                      plan=None) -> torch.Tensor:
     """One-token recurrent step, x: (B, 1, d) -> (B, 1, d). ``cache``'s
-    conv window and SSM state are updated in place (the reference returned
-    new ones)."""
+    conv window and SSM state (this rank's channels on a mesh) are updated
+    in place (the reference returned new ones)."""
+    mesh = _mesh(p, cfg, plan)
     x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)  # (B, 1, di)
     window = torch.cat([cache.conv.to(x_in.dtype), x_in], dim=1)
     w = p["conv_w"].float()  # (cw, di)
@@ -144,7 +173,7 @@ def mamba_decode_step(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, cach
     x_c = F.silu(x_c + p["conv_b"].float()).to(x.dtype)
     cache.conv.copy_(window[:, 1:])
 
-    dt, B_ssm, C_ssm, A = _ssm_inputs(x_c, p, cfg)  # (B, 1, ...)
+    dt, B_ssm, C_ssm, A = _ssm_inputs(x_c, p, cfg, mesh)  # (B, 1, ...)
     a = torch.exp(dt[:, 0, :, None] * A)  # (B, di, N)
     bx = (dt[:, 0] * x_c[:, 0].float())[..., None] * B_ssm[:, 0, None, :]
     h = a * cache.ssm + bx
@@ -152,4 +181,4 @@ def mamba_decode_step(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, cach
     y = torch.matmul(h, C_ssm[:, 0, :, None])[..., 0][:, None, :]  # (B, 1, di)
     y = y + x_c.float() * p["D"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"]
+    return _row_parallel(y, p["out_proj"], mesh)

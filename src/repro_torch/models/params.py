@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import QuantizedExpert
-from repro_torch.sharding.specs import Spec, packed_spec_for, shard_slices
+from repro_torch.sharding.specs import Spec, packed_spec_for, shard_slices, take_slices
 
 Params = Dict[str, Any]
 
@@ -106,9 +106,10 @@ def param_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
     heads (k/v only when the kv heads divide), the dense FFN and the shared
     experts over d_ff, and the routed experts over E (EP) or d_ff (TP).
     A dimension that does not divide its axis stays replicated. The mamba
-    leaves take the reference's specs (d_inner on the FFN's TP axis), but
-    no engine serves them on a mesh yet: their conv/ssm caches have no
-    layout (ROADMAP A.9)."""
+    leaves take the reference's specs (d_inner on the FFN's TP axis); the
+    shard of ``in_proj``, whose columns are the x half and the z half, is
+    a slice of each half (``SPLIT_LEAVES``), where the reference's
+    contiguous slice is resharded by XLA after the split."""
     tp = plan.ffn_tp_axis
     at = plan.attn_tp_axis if plan.attn_mode == "tp_heads" else None
     kv_ok = at is not None and cfg.num_kv_heads % plan.axis_size(at) == 0
@@ -161,13 +162,19 @@ def _sanitize(shapes, specs, plan):
                  for dim, ax in zip(shapes, specs))
 
 
-def take_shard(x, spec: Spec, rank: int, sizes: Dict[str, int]):
+# leaves whose sharded last dimension is this many blocks, each sharded on
+# its own: a rank's ``in_proj`` holds its channels of x and of z
+SPLIT_LEAVES = {"in_proj": 2}
+
+
+def take_shard(x, spec: Spec, rank: int, sizes: Dict[str, int], parts: int = 1):
     """``rank``'s shard of ``x`` (numpy or torch; a ``QuantizedExpert``
-    takes ``spec`` as its dense spec) under ``spec``."""
+    takes ``spec`` as its dense spec) under ``spec``; ``parts`` as in
+    ``SPLIT_LEAVES``."""
     if isinstance(x, QuantizedExpert) or _is_quantized(x):
         qspec = packed_spec_for(spec, tuple(x.packed.shape), sizes)
         return QuantizedExpert(*(t[shard_slices(qspec, t.shape, rank, sizes)] for t in (x.packed, x.scales, x.zeros)))
-    return x[shard_slices(spec, x.shape, rank, sizes)]
+    return take_slices(x, spec, rank, sizes, parts)
 
 
 def shard_params(params: Params, cfg: ModelConfig, plan, rank: int) -> Params:
@@ -178,7 +185,8 @@ def shard_params(params: Params, cfg: ModelConfig, plan, rank: int) -> Params:
     specs = param_pspecs(cfg, plan)
 
     def walk(tree, spec):
-        return {k: walk(v, spec[k]) if isinstance(v, dict) else take_shard(_array(v), spec[k], rank, sizes)
+        return {k: walk(v, spec[k]) if isinstance(v, dict)
+                else take_shard(_array(v), spec[k], rank, sizes, SPLIT_LEAVES.get(k, 1))
                 for k, v in tree.items()}
 
     return walk(params, specs)
@@ -190,7 +198,7 @@ def _array(v):
     return np.asarray(v)
 
 
-def _init_leaf(name: str, shape, stacked: bool, generator, device, dt, index=None) -> torch.Tensor:
+def _init_leaf(name: str, shape, stacked: bool, generator, device, dt, index=None, shard=None) -> torch.Tensor:
     """One leaf by the reference's rules (``repro.models.params``): norms
     and ``D`` ones, ``A_log`` log(1..N), conv/dt biases zeros, the embedding
     N(0, 0.02), every other weight N(0, 1/fan_in). Random leaves are drawn
@@ -198,7 +206,8 @@ def _init_leaf(name: str, shape, stacked: bool, generator, device, dt, index=Non
     never holds a float32 copy of a stacked leaf. ``index`` (slices of the
     global ``shape``) keeps only that shard: each slice is drawn whole, in
     the same generator sequence, and cut, so a shard holds the values the
-    whole leaf would."""
+    whole leaf would; ``shard`` ((spec, rank, sizes)) cuts a leaf of
+    ``SPLIT_LEAVES`` block by block."""
     local = shape if index is None else tuple(len(range(*ix.indices(n))) for ix, n in zip(index, shape))
     out = torch.empty(local, dtype=dt, device=device)
     if "norm" in name or name.startswith("ln") or name == "D":
@@ -220,8 +229,14 @@ def _init_leaf(name: str, shape, stacked: bool, generator, device, dt, index=Non
         return out
     whole = torch.empty(shape[1:] if stacked else shape, dtype=dt, device=device)
     cut = index[1:] if stacked else index
+    parts = SPLIT_LEAVES.get(name, 1)
     for piece in out if stacked else (out,):
-        piece.copy_(whole.normal_(0.0, std, generator=generator)[cut])
+        drawn = whole.normal_(0.0, std, generator=generator)
+        if parts == 1:
+            piece.copy_(drawn[cut])
+        else:
+            spec, rank, sizes = shard
+            piece.copy_(take_slices(drawn, spec[1:] if stacked else spec, rank, sizes, parts))
     return out
 
 
@@ -253,7 +268,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, dtype
                 out[k] = build(v, sp, stacked or k == "layers")
             else:
                 index = shard_slices(sp, v, rank, sizes) if sp is not None and any(sp) else None
-                out[k] = _init_leaf(k, v, stacked, generator, device, dt, index)
+                out[k] = _init_leaf(k, v, stacked, generator, device, dt, index, (sp, rank, sizes))
         return out
 
     return build(shapes, specs, False)

@@ -30,8 +30,12 @@ weights and of the KV cache: the embedding is vocab-parallel (a masked
 lookup and one all-reduce), attention and the FFN / MoE sublayers complete
 their products with the collectives their mode needs (``attention``,
 ``moe``), and the logits of the rank's vocabulary columns are all-gathered,
-so every rank holds the whole logits. Mamba layers, and training, have no
-layout on a mesh yet (ROADMAP A.9).
+so every rank holds the whole logits. A mamba mixer runs tensor-parallel
+over d_inner (``mamba``), its conv window and SSM state per rank. The
+contiguous KV cache follows the plan's ``kv_shard``: a rank's kv heads,
+or under ``seq`` its ``ceil(max_len / n)`` positions of every kv head
+(``attention.cache_layout``). Training has no layout on a mesh yet
+(ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.specs import seq_positions
 
 from . import attention as attn_mod
 from . import mamba as mamba_mod
@@ -204,7 +209,7 @@ def layer_full(x, lp, flag, cfg: ModelConfig, plan=None, collect_kv: bool = Fals
         if collect_kv:
             a_out, (kv["k"], kv["v"]) = a_out
     if cfg.has_mamba:
-        m_out, state = mamba_mod.mamba_mixer(h, lp["mamba"], cfg)
+        m_out, state = mamba_mod.mamba_mixer(h, lp["mamba"], cfg, plan=plan)
         if collect_kv:
             kv["conv"], kv["ssm"] = state.conv, state.ssm
     out = _fuse(a_out, m_out, lp, cfg) if cfg.block_type == "hybrid" else a_out if cfg.has_attention else m_out
@@ -289,21 +294,26 @@ def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], plan=
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
                plan=None) -> DecodeCache:
-    """A contiguous decode cache; on a mesh with ``kv_shard="heads"`` it
-    holds this rank's kv heads. Mamba state has no layout on a mesh yet."""
+    """A contiguous decode cache of ``max_len`` positions. On a mesh it
+    holds this rank's part (``attention.cache_layout``): its kv heads under
+    ``kv_shard="heads"``, its ``ceil(max_len / n)`` positions of every kv
+    head under ``seq``; the mamba conv window and state hold the rank's
+    d_inner channels (the reference's ``conv_cache_spec`` /
+    ``ssm_cache_spec``)."""
     k = v = conv = ssm = None
     if cfg.has_attention:
         kv_dt = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else dtype
+        if attn_mod.cache_layout(cfg, plan, paged=False) == "seq":
+            max_len = seq_positions(max_len, plan.mesh.size)
         shape = (cfg.num_layers, batch, max_len, attn_mod.local_kv_heads(cfg, plan), cfg.head_dim)
         k = torch.zeros(shape, dtype=kv_dt, device=device)
         v = torch.zeros(shape, dtype=kv_dt, device=device)
     if cfg.has_mamba:
-        if plan is not None and not plan.is_null:
-            raise NotImplementedError(f"{cfg.name}: mamba conv/ssm caches on a mesh are not ported to repro_torch "
-                                      "yet (ROADMAP A.9)")
-        L = cfg.num_layers
-        conv = torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.ssm_d_inner), dtype=dtype, device=device)
-        ssm = torch.zeros((L, batch, cfg.ssm_d_inner, cfg.ssm_state), dtype=torch.float32, device=device)
+        L, di = cfg.num_layers, cfg.ssm_d_inner
+        if plan is not None and not plan.is_null and plan.divides(di):
+            di //= plan.axis_size(plan.ffn_tp_axis)
+        conv = torch.zeros((L, batch, cfg.ssm_conv - 1, di), dtype=dtype, device=device)
+        ssm = torch.zeros((L, batch, di, cfg.ssm_state), dtype=torch.float32, device=device)
     return DecodeCache(k=k, v=v, conv=conv, ssm=ssm, pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -344,19 +354,26 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
     _check_decoder(cfg)
     x = embed_inputs(params, cfg, batch, plan)
     B, S = x.shape[0], x.shape[1]
+    seq = attn_mod.cache_layout(cfg, plan, paged=False) == "seq"
     if cache is None:
         cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device, plan=plan)
     else:
         shape = tuple((cache.k if cache.k is not None else cache.conv).shape)
-        if cache.block_tables is not None or shape[1] != B or (cache.k is not None and shape[2] != max_len):
+        length = seq_positions(max_len, plan.mesh.size) if seq else max_len
+        if cache.block_tables is not None or shape[1] != B or (cache.k is not None and shape[2] != length):
             raise ValueError(f"prefill fills a contiguous cache of {B} rows x {max_len} positions, got {shape}")
+    # the prompt positions [lo, hi) this rank's cache holds, from its offset
+    lo, hi, off = 0, S, 0
+    if seq:
+        off = plan.mesh.rank * seq_positions(max_len, plan.mesh.size)
+        lo, hi = min(off, S), min(off + cache.k.shape[2], S)
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
         x, kv, _ = layer_full(x, layer_slice(params["layers"], layer), flags[layer], cfg, plan, True, backend)
         # in place, layer by layer: JAX wrote the stacked K/V in one update
         if cfg.has_attention:
-            cache.k[layer, :, :S] = kv["k"].to(cache.k.dtype)
-            cache.v[layer, :, :S] = kv["v"].to(cache.v.dtype)
+            cache.k[layer, :, lo - off:hi - off] = kv["k"][:, lo:hi].to(cache.k.dtype)
+            cache.v[layer, :, lo - off:hi - off] = kv["v"][:, lo:hi].to(cache.v.dtype)
         if cfg.has_mamba:
             cache.conv[layer] = kv["conv"].to(cache.conv.dtype)
             cache.ssm[layer] = kv["ssm"]
@@ -425,7 +442,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
             )
         if cfg.has_mamba:
             m_out = mamba_mod.mamba_decode_step(
-                h, lp["mamba"], cfg, mamba_mod.MambaCache(conv=cache.conv[layer], ssm=cache.ssm[layer]))
+                h, lp["mamba"], cfg, mamba_mod.MambaCache(conv=cache.conv[layer], ssm=cache.ssm[layer]), plan)
         out = _fuse(a_out, m_out, lp, cfg) if cfg.block_type == "hybrid" else a_out if cfg.has_attention else m_out
         if cfg.use_post_norm:
             out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)

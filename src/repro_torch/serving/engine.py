@@ -63,10 +63,12 @@ requests; after each step the ranks all-gather their sampled tokens and
 the engine raises if they differ. A plan switch moves the leaves whose
 layout changes: the expert leaves by the Eq.-6 mechanism (a reshard moves
 slices between the ranks, an INT4 restore uploads each rank's target shard
-from the whole-leaf host backup), the attention leaves by a reshard.
-Data-parallel mesh axes of size > 1, sequence-sharded caches and models
-with mamba layers (their conv/ssm caches have no layout yet) raise
-(ROADMAP A.9).
+from the whole-leaf host backup), the attention leaves by a reshard, and
+a live KV cache whose layout changes (heads, seq or whole) moves with the
+mesh's collectives (``_relayout_live``). A static ``plan`` (a
+``ShardingPlan`` over a ``RankMesh``) is served with no session. Mamba and
+hybrid models run their mixer tensor-parallel over d_inner. Data-parallel
+mesh axes of size > 1 raise (ROADMAP A.9).
 
 With ``replicate_experts`` or ``prefetch`` a routing tracker follows the
 router's top-k ids, which every decode step returns through a static
@@ -119,11 +121,11 @@ from repro_torch.core.quantization import pick_group_size
 from repro_torch.core.transition import TransitionExecutor
 from repro_torch.device import resolve_device
 from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_cache, merge_cache_rows, prefill
-from repro_torch.models.attention import local_kv_heads
+from repro_torch.models.attention import cache_layout
 from repro_torch.models.moe import serving_replication
 from repro_torch.models.params import param_pspecs, param_shapes
 from repro_torch.models.transformer import not_ported as _not_ported
-from repro_torch.sharding.specs import NULL_PLAN, ExpertReplication, sharded_dim, unported_layout
+from repro_torch.sharding.specs import NULL_PLAN, ExpertReplication, seq_positions, sharded_dim, unported_layout
 
 from .faults import FaultInjector
 from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, OutOfBlocks, blocks_for
@@ -136,6 +138,34 @@ from .step_cache import StepCache, StepGraph
 log = logging.getLogger("repro_torch.serving")
 
 _EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
+
+
+def relayout_kv(t: torch.Tensor, src: str, dst: str, cfg: ModelConfig, mesh, total: Optional[int] = None
+                ) -> torch.Tensor:
+    """A rank's K or V cache, (L, B|N, S, H, hd), from layout ``src`` to
+    ``dst`` (``attention.cache_layout``: "heads", "seq" or "none"), with
+    the mesh's collectives. ``total`` is a contiguous cache's whole length
+    (``seq`` holds ``ceil(total / n)`` positions a rank). heads <-> seq is
+    one all-to-all; to "none" an all-gather; from "none" a narrow."""
+    if src == dst:
+        return t
+    n, r = mesh.size, mesh.rank
+    if src == "heads" and dst == "seq":
+        P = seq_positions(total, n)
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n * P - t.shape[2]))
+        return mesh.all_to_all(t, split=2, concat=3)
+    if src == "seq" and dst == "heads":
+        return mesh.all_to_all(t, split=3, concat=2)[:, :, :total].contiguous()
+    if src == "heads":
+        return mesh.all_gather(t, dim=3)
+    if src == "seq":
+        return mesh.all_gather(t, dim=2)[:, :, :total].contiguous()
+    if dst == "heads":
+        h = cfg.num_kv_heads // n
+        return t[:, :, :, r * h:(r + 1) * h].contiguous()
+    P = seq_positions(total, n)
+    t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n * P - t.shape[2]))
+    return t[:, :, r * P:(r + 1) * P].contiguous()
 
 
 @dataclasses.dataclass
@@ -258,6 +288,7 @@ class _LiveBatch:
     tables: Optional[np.ndarray] = None  # (nslots, max_blocks) int32
     prefix: Optional[PrefixCache] = None  # prompt-prefix index over the pool
     sub: Optional[DecodeCache] = None  # contiguous only
+    layout: str = "none"  # what this rank's cache holds (``attention.cache_layout``)
 
     def active(self) -> List[int]:
         """Rows decoding this step: admitted, prefill complete, not done."""
@@ -273,6 +304,7 @@ class InferenceEngine:
         cfg: ModelConfig,
         params,
         *,
+        plan=None,
         session=None,
         hap_plan: Optional[HAPPlan] = None,
         max_batch: int = 8,
@@ -308,15 +340,18 @@ class InferenceEngine:
             kind = "an encoder-only model" if cfg.is_encoder_only else f"a model with {cfg.frontend} inputs"
             raise ValueError(f"{cfg.name}: the engine serves token prompts of decoder models, not {kind}; run it "
                              "through repro_torch.models (prefill + decode_step, or loss_and_aux)")
-        self.mesh = session.mesh if session is not None else None
+        # a static ShardingPlan (the mesh layout) served with no session
+        self.plan = plan
+        if session is not None and session.mesh is not None:
+            self.mesh = session.mesh
+        else:
+            self.mesh = plan.mesh if plan is not None else None
         if self.mesh is not None:
             big = [a for a in self.mesh.axis_names if a != "model" and self.mesh.shape[a] > 1]
             if big:
                 raise _not_ported(f"a mesh with data-parallel axes {big} of size > 1", "A.9")
             if not hasattr(self.mesh, "rank"):
                 raise TypeError(f"the port serves on a repro_torch.sharding.RankMesh, got {type(self.mesh).__name__}")
-            if cfg.has_mamba:
-                raise _not_ported(f"serving {cfg.name} (mamba conv/ssm cache layouts) on a mesh", "A.9")
         self.device = resolve_device(device)
         # step capture: None means on for the card, off for the CPU; False on
         # the card is the eager A/B (the same bodies and buffers, op by op)
@@ -330,7 +365,7 @@ class InferenceEngine:
                              "collectives (staged through the host) cannot be captured; serve on an NCCL group, "
                              "or pass capture_steps=False")
         self.steps = StepCache(self.device, capture_steps)
-        self._static: Optional[Tuple[Tuple[int, int], DecodeCache]] = None  # ((B, max_len), its contiguous cache)
+        self._static: Optional[Tuple[tuple, DecodeCache, str]] = None  # ((B, max_len), its contiguous cache, its layout)
         self.cfg = cfg
         self.params = params
         self.session = session  # HAPSession (adaptive mode) or None
@@ -340,6 +375,8 @@ class InferenceEngine:
         # the layout the params are in (None: one device)
         self._layout = None
         if self.mesh is not None:
+            if params_plan is None and session is None:
+                params_plan = plan
             if params_plan is None:
                 pinned = hap_plan or getattr(session.source, "plan", None)
                 if pinned is None:
@@ -367,6 +404,7 @@ class InferenceEngine:
         self.prefill_chunk = prefill_chunk  # None => one chunk per bucket
         self.prefix_caching = bool(prefix_cache)
         self._live: Optional[_LiveBatch] = None
+        self.kv_relayout_ms: List[float] = []  # each live-cache relayout's ms (a mesh only)
         self.kv_pool_blocks = 0  # the newest generation's pool, trash block excluded
         # False until a batch has executed under hap_plan: a pre-seeded plan
         # counts as the *initial* plan, not as a previous batch's layout
@@ -477,16 +515,18 @@ class InferenceEngine:
         return plan
 
     def _sharding_for(self, phase: str):
-        """The execution layout of ``phase`` under the active plan (None on
-        one device; the params' layout on a mesh before a plan is active),
-        with the live replica set folded in: a replica set is part of the
-        plan, so changing it is a plan change (on one device a null plan
-        then carries it)."""
+        """The execution layout of ``phase``: the active HAP plan's on a
+        session's mesh, else the static ``plan`` (None on one device; the
+        params' layout on a mesh before a plan is active), with the live
+        replica set folded in: a replica set is part of the plan, so
+        changing it is a plan change (on one device a null plan then
+        carries it)."""
         if self.mesh is None:
             return self._with_replication(None)
-        if self.hap_plan is None:
-            return self._with_replication(self._layout)
-        return self._with_replication(self._checked(self.hap_plan.to_sharding_plan(self.mesh, self.cfg, phase=phase)))
+        if self.hap_plan is not None and self.session is not None:
+            return self._with_replication(
+                self._checked(self.hap_plan.to_sharding_plan(self.mesh, self.cfg, phase=phase)))
+        return self._with_replication(self._checked(self.plan) if self.plan is not None else self._layout)
 
     def _with_replication(self, plan):
         base = plan if plan is not None else NULL_PLAN
@@ -1128,14 +1168,13 @@ class InferenceEngine:
         batch of another shape releases it and drops its graphs first, so
         varied output budgets do not pile up caches and graph pools."""
         plan = self._sharding_for("decode")
-        # a plan of another attention layout needs another cache
-        heads = local_kv_heads(self.cfg, plan) if self.cfg.has_attention else 0
-        if self._static is None or self._static[0] != (B, max_len) or (
-                heads and self._static[1].k.shape[3] != heads):
+        # a plan of another cache layout needs another cache
+        layout = cache_layout(self.cfg, plan, paged=False)
+        if self._static is None or self._static[0] != (B, max_len) or self._static[2] != layout:
             self._static = None
             self.steps.new_cache("static")
             cache = init_cache(self.cfg, B, max_len, dtype=self.params["embed"].dtype, device=self.device, plan=plan)
-            self._static = ((B, max_len), cache)
+            self._static = ((B, max_len), cache, layout)
         return self._static[1]
 
     def _prefill_step(self, toks: np.ndarray, max_len: int) -> torch.Tensor:
@@ -1295,6 +1334,7 @@ class InferenceEngine:
                 kv_capacity=cap, slots=[None] * nslots, cache=cache, pos=np.zeros((nslots,), np.int32),
                 next_tok=np.zeros((nslots,), np.int32),
                 sub=init_cache(self.cfg, 1, cap, dtype=dt, device=self.device, plan=plan),
+                layout=cache_layout(self.cfg, plan, paged=False),
             )
             log.info("live batch: %d slots, KV capacity %d tokens", nslots, cap)
             self.stats.batches += 1
@@ -1307,12 +1347,13 @@ class InferenceEngine:
         allocator = BlockAllocator(pool + 1, bs, faults=self.faults)
         self.kv_pool_blocks = pool
         self._end_live_batch()
+        plan = self._sharding_for("decode")
         self._live = _LiveBatch(
             kv_capacity=max_blocks * bs,
             slots=[None] * nslots,
             cache=init_paged_cache(
                 self.cfg, nslots, pool + 1, bs, max_blocks, dtype=self.params["embed"].dtype, device=self.device,
-                plan=self._sharding_for("decode"),
+                plan=plan,
             ),
             pos=np.zeros((nslots,), np.int32),
             next_tok=np.zeros((nslots,), np.int32),
@@ -1320,6 +1361,7 @@ class InferenceEngine:
             max_blocks=max_blocks,
             tables=np.full((nslots, max_blocks), TRASH_BLOCK, np.int32),
             prefix=PrefixCache(allocator) if self.prefix_caching else None,
+            layout=cache_layout(self.cfg, plan, paged=True),
         )
         self.stats.batches += 1
 
@@ -1367,6 +1409,7 @@ class InferenceEngine:
         live.slots[i] = slot
         self.stats.joins += 1
         inter_ms = self._replan_on_join()
+        self._relayout_live(self._sharding_for("decode"))
         self._begin_async_restore("decode")
         toks, _ = self.scheduler.pad_batch([r])
         self._sync()
@@ -1641,6 +1684,36 @@ class InferenceEngine:
         self._chunk_half(g)
         return self._decode_half(g)
 
+    def _relayout_live(self, plan) -> float:
+        """Move the live cache into ``plan``'s layout when a re-plan changed
+        what this rank holds (DESIGN.md §5); returns ms. A paged pool goes
+        between heads-sharded and whole; a contiguous cache between heads,
+        seq and whole (its B=1 joiner cache is made anew). Slot contents,
+        positions and block tables are unchanged; the step graphs that read
+        the old cache are dropped."""
+        live = self._live
+        want = cache_layout(self.cfg, plan, paged=self.paged)
+        if live is None or live.layout == want:
+            return 0.0
+        t0 = time.perf_counter()
+        cache = live.cache
+        total = live.kv_capacity if not self.paged else None
+        for name in ("k", "v"):
+            t = getattr(cache, name)
+            setattr(cache, name, None)  # the old layout frees as the new one lands
+            setattr(cache, name, relayout_kv(t, live.layout, want, self.cfg, self.mesh, total))
+            del t
+        if live.sub is not None:
+            live.sub = init_cache(self.cfg, 1, live.kv_capacity, dtype=self.params["embed"].dtype,
+                                  device=self.device, plan=plan)
+        log.info("live cache relayout: %s -> %s", live.layout, want)
+        live.layout = want
+        self.steps.new_cache("live")
+        self._sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        self.kv_relayout_ms.append(ms)
+        return ms
+
     def _live_step(self, kind: str, C: int = 0) -> StepGraph:
         """The live batch's step of ``kind`` ("chunk", "paged_decode" or
         "fused" on the paged pool; "decode" on the contiguous cache) for a
@@ -1649,8 +1722,7 @@ class InferenceEngine:
         live = self._live
         n, mb, pfx = len(live.slots), live.max_blocks, live.prefix is not None
         plan = self._sharding_for("decode")
-        if live.cache.k is not None and local_kv_heads(self.cfg, plan) != live.cache.k.shape[3]:
-            raise _not_ported("moving a live KV pool to another attention layout", "A.9")
+        self._relayout_live(plan)
         if kind == "decode":
             specs = dict(tokens=((n, 1), torch.long), pos=((n,), torch.int32), **self._route_spec(n))
             return self.steps.graph(("decode", plan, n, live.kv_capacity), lambda: self.steps.buffers(**specs),

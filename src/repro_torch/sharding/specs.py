@@ -14,22 +14,23 @@ Two attention modes (DESIGN.md §5):
   - ``tp_heads``   q/o weights sharded over heads on the TP axis; k/v
                    sharded too when ``num_kv_heads % tp == 0``, else
                    replicated. The decode KV cache is sharded over heads
-                   when they divide, else kept whole on every rank.
+                   when they divide, else over its positions (``seq``).
   - ``replicated`` attention weights replicated (the head count does not
                    divide the axis, or HAP selects attention-DP); the
-                   model axis parallelizes only the FFN / expert side.
+                   model axis parallelizes only the FFN / expert side, and
+                   the decode cache is sharded over its positions.
 
 Expert modes: ``tp`` (expert d_ff sharded on the TP axis, all-reduce
 combine) or ``ep`` (expert dim sharded on the EP axis, all-to-all
 dispatch and combine).
 
-One layout differs from the reference by design: where its resolver
-keeps the decode cache sequence-sharded (``seq``: replicated attention, or
-kv heads that do not divide the axis), this one keeps the whole cache on
-every rank (``none``, a layout the reference also names). The tokens are
-the same; only the memory differs. The ``seq``/``seq_all`` layouts,
-data-parallel axes of size > 1, ``seq_shard_acts`` and ``fsdp`` are not
-ported yet (ROADMAP A.9).
+The decode-cache layouts are the reference's: ``heads``, ``seq`` (each
+rank holds ``ceil(max_len / n)`` positions of every kv head; only the
+contiguous cache takes it, a paged pool stays whole on every rank, as the
+reference constrains a pool only under ``heads``), ``seq_all`` (the
+sequence over every mesh axis: on the port's 1-D ``("model",)`` mesh the
+same partition as ``seq``) and ``none`` (whole). Data-parallel axes of
+size > 1, ``seq_shard_acts`` and ``fsdp`` are not ported yet (ROADMAP A.9).
 
 Expert replication differs in one point: the reference gathers each slot's
 weights from the expert-layout leaves inside every step; here the engine
@@ -41,6 +42,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
 
 Spec = Tuple[Optional[str], ...]
 
@@ -218,9 +221,9 @@ def _resolve_plan(mesh, cfg, *, want_attn_tp: bool, want_ep: bool, attn_override
     if attn_mode == "tp_heads" and not heads_ok:
         attn_mode = "replicated"
 
-    # decode KV cache layout: the whole cache where the reference picks seq
+    # decode KV cache layout
     if not kv_shard:
-        kv_shard = "heads" if attn_mode == "tp_heads" and cfg.num_kv_heads % tp == 0 else "none"
+        kv_shard = "heads" if attn_mode == "tp_heads" and cfg.num_kv_heads % tp == 0 else "seq"
 
     ep_ok = cfg.is_moe and cfg.n_routed_experts % tp == 0
     if not expert_mode:
@@ -274,15 +277,46 @@ def adapt_plan_for_batch(plan: ShardingPlan, cfg, batch: int, kind: str) -> Shar
 
 def unported_layout(plan: Optional[ShardingPlan]) -> Optional[str]:
     """What of ``plan`` the port cannot execute yet (ROADMAP A.9), or None:
-    a data-parallel axis of size > 1, or a sequence-sharded KV cache."""
+    a data-parallel mesh axis of size > 1 (in the plan's ``dp_axes``, or
+    in its mesh, which a ``seq_all`` cache would span)."""
     if plan is None or plan.is_null:
         return None
-    big = [a for a in plan.dp_axes if plan.axis_size(a) > 1]
+    model = plan.ffn_tp_axis or plan.attn_tp_axis or "model"
+    axes = set(plan.dp_axes) | {a for a in plan.mesh.axis_names if a != model}
+    big = sorted(a for a in axes if plan.axis_size(a) > 1)
     if big:
         return f"data-parallel mesh axes {big} of size > 1"
-    if plan.kv_shard in ("seq", "seq_all"):
-        return f"the {plan.kv_shard!r} KV-cache layout"
     return None
+
+
+def seq_sharded(plan: Optional[ShardingPlan]) -> bool:
+    """Whether ``plan`` shards a contiguous decode cache over its positions
+    (``seq``, or ``seq_all``, the same partition on a 1-D mesh)."""
+    return plan is not None and not plan.is_null and plan.kv_shard in ("seq", "seq_all")
+
+
+def seq_positions(max_len: int, n: int) -> int:
+    """The positions each of ``n`` ranks holds of a ``seq``-sharded cache of
+    ``max_len`` (the last rank's tail past ``max_len`` is never valid)."""
+    return -(-max_len // n)
+
+
+def take_slices(x, spec: Spec, rank: int, sizes: Dict[str, int], parts: int = 1):
+    """``rank``'s shard of ``x`` (numpy or torch) laid out by ``spec``.
+    ``parts`` > 1: the sharded dimension is that many equal blocks, each
+    sharded on its own, and the shard is every block's slice, concatenated
+    (mamba's ``in_proj``, whose columns are the x half and the z half)."""
+    d = sharded_dim(spec)
+    if parts == 1 or d is None:
+        return x[shard_slices(spec, x.shape, rank, sizes)]
+    w = x.shape[d] // parts
+    pieces = [x[(slice(None),) * d + (slice(i * w, (i + 1) * w),)] for i in range(parts)]
+    pieces = [p[shard_slices(spec, p.shape, rank, sizes)] for p in pieces]
+    if isinstance(x, np.ndarray):
+        return np.concatenate(pieces, axis=d)
+    import torch
+
+    return torch.cat(pieces, dim=d)
 
 
 def shard_slices(spec: Spec, shape, rank: int, sizes: Dict[str, int]) -> Tuple[slice, ...]:

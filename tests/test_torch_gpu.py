@@ -1293,3 +1293,70 @@ def test_train_step_on_the_card_equals_the_cpu(name):
         torch.testing.assert_close(gm[k].cpu(), cm[k], atol=1e-4, rtol=1e-4)
     for a, b in zip(tree_leaves(gs.params), tree_leaves(cs.params)):
         assert _rel_l2(a.detach().cpu(), b.detach()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the serve launcher and the sequence-sharded decode cache (ROADMAP A.9)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_row", [False, True])
+def test_seq_decode_on_the_card_equals_a_whole_cache(dtype, per_row):
+    """Two ranks' shares of a contiguous cache (``seq``), each writing the
+    entries it holds and returning its partial softmax, merged as
+    ``ops.seq_decode_attention`` merges them, against the paged kernel on
+    the whole cache: the same output and the same cache, with a window on
+    the layer and a softcap."""
+    from repro_torch.kernels import ops, ref
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    B, Hq, Hkv, hd, S, n = 3, 8, 2, 64, 96, 2
+    dt = getattr(torch, dtype)
+    q = _randn(rng, (B, 1, Hq, hd), dtype, dev)
+    k_new, v_new = (_randn(rng, (B, 1, Hkv, hd), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (B, S, Hkv, hd), dtype, dev) for _ in range(2))
+    pos = torch.tensor([5, 47, 80] if per_row else 60, dtype=torch.int32, device=dev)
+    kw = dict(scale=hd**-0.5, softcap=30.0, window=32, is_global=False)
+    want, wk, wv = ops.decode_attention(q, k.clone(), v.clone(), k_new, v_new, pos, backend="hopper", **kw)
+    P = S // n
+    parts, ks = [], []
+    for r in range(n):
+        kr, vr = k[:, r * P:(r + 1) * P].clone(), v[:, r * P:(r + 1) * P].clone()
+        parts.append(ref.seq_append_attention_partial_ref(q, kr, vr, k_new, v_new, pos, r, n, kw["is_global"],
+                                                          scale=kw["scale"], softcap=30.0, window=32))
+        ks.append(kr)
+    o, m, s = (torch.stack(t) for t in zip(*parts))
+    got = ref.merge_partials_ref(o, m, s).to(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dt), rtol=_tol(dt))
+    assert torch.equal(torch.cat(ks, dim=1), wk)
+
+
+def test_serve_launcher_on_the_card():
+    """``repro_torch.launch.serve`` at the reduced config (float32) on the
+    card with the hopper kernels: every prefill through flash, every decode
+    through the paged kernel, every expert matmul through gmm, no plain
+    path; the tokens of an engine built from the same session and flags."""
+    from repro_torch.core import hardware, latency
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request
+
+    _card()
+    latency._MODEL_CACHE.setdefault(("h100", 0), latency.LatencyModel(hardware.get_chip("h100"), n_samples=40))
+    flags = ["--chip", "h100", "--requests", "4", "--batch", "2", "--gen", "6", "--prompt-bucket", "16",
+             "--prompt-len", "40", "--kernel-backend", "hopper"]
+    ops.reset_counts()
+    done, eng = serve.main(flags)
+    launches, dispatch = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS)
+    assert all(launches.get(k) for k in ("flash_attention", "paged_attention", "grouped_matmul")), launches
+    assert not [k for k in dispatch if ".ref" in k], dispatch
+    again = eng.session.engine(eng.params, cfg=eng.cfg, max_batch=2, kernel_backend="hopper")
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        hi = 40 if i >= 2 else 16
+        lo = max(1, (hi - 1) // 16 * 16 + 1)
+        again.submit(Request(prompt=rng.integers(1, eng.cfg.vocab_size, int(rng.integers(lo, hi + 1))).tolist(),
+                             max_new_tokens=6))
+    assert [c.tokens for c in again.run()] == [c.tokens for c in done]
+    eng.close()
+    again.close()

@@ -245,9 +245,9 @@ def test_layouts_and_reshard_bytes(both):
     three expert leaves receives half of each rank's shard."""
     _, ranks = both
     res = ranks[0][0]
-    assert res["kv1_tp2"]["layout"].kv_shard == "none"  # the reference keeps a seq-sharded cache here
+    assert res["kv1_tp2"]["layout"].kv_shard == "seq"  # the reference's layout: each rank half the positions
     assert res["tp2_tp2"]["layout"].kv_shard == "heads"
-    assert res["dp2_ep2"]["layout"].attn_mode == "replicated" and res["dp2_ep2"]["layout"].kv_shard == "none"
+    assert res["dp2_ep2"]["layout"].attn_mode == "replicated" and res["dp2_ep2"]["layout"].kv_shard == "seq"
     assert res["switch_reshard"]["layout"].ffn_mode == "tp"
     cfg = _config("deepseek-moe-16b", {})
     leaf = cfg.num_layers * cfg.n_routed_experts * cfg.d_model * cfg.moe_d_ff * 4  # float32, one leaf

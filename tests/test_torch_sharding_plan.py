@@ -58,12 +58,12 @@ def test_resolver_equals_reference(name, tp, pair):
     got = specs.strategy_sharding_plan(mesh, cfg, *_strategies(*pair, tp, False))
     want = jspecs.strategy_sharding_plan(mesh, jcfg, *_strategies(*pair, tp, True))
     assert {f: getattr(got, f) for f in FIELDS} == {f: getattr(want, f) for f in FIELDS}
-    assert got.kv_shard == ("none" if want.kv_shard == "seq" else want.kv_shard)
+    assert got.kv_shard == want.kv_shard
     for kv in ("", "heads", "seq"):
         base = specs.make_plan(mesh, cfg, kv_shard=kv)
         jbase = jspecs.make_plan(mesh, jcfg, kv_shard=kv)
         assert {f: getattr(base, f) for f in FIELDS} == {f: getattr(jbase, f) for f in FIELDS}
-        assert base.kv_shard == ("none" if not kv and jbase.kv_shard == "seq" else jbase.kv_shard)
+        assert base.kv_shard == jbase.kv_shard
     # the kernel-seam axes resolve as the reference's (the port's carry the global extent)
     a, ja = got.attn_kernel_axes(cfg.num_heads, cfg.num_kv_heads), want.attn_kernel_axes(cfg.num_heads,
                                                                                           cfg.num_kv_heads)
@@ -81,8 +81,9 @@ def test_adapt_plan_for_batch_equals_reference(batch):
         got = specs.adapt_plan_for_batch(specs.make_plan(mesh, cfg), cfg, batch, kind)
         want = jspecs.adapt_plan_for_batch(jspecs.make_plan(mesh, jcfg), jcfg, batch, kind)
         assert (got.dp_axes, got.kv_shard) == (want.dp_axes, want.kv_shard)
-        # a data axis of 2 in use, or a seq_all cache: the port names it
-        assert (specs.unported_layout(got) is not None) == bool(want.dp_axes or want.kv_shard == "seq_all")
+        # a data axis of 2 in the mesh: the port names it, whether the plan
+        # shards the batch over it or, seq_all, the cache's positions
+        assert specs.unported_layout(got) is not None and "data" in specs.unported_layout(got)
 
 
 def _spec_tree(tree):
@@ -167,7 +168,8 @@ def test_sharded_init_equals_the_whole_init_cut(plan):
 def test_unported_layouts_are_named():
     cfg = get_config("deepseek-moe-16b")
     assert specs.unported_layout(specs.make_plan(_mesh(2), cfg)) is None
-    assert "seq" in specs.unported_layout(specs.make_plan(_mesh(2), cfg, kv_shard="seq"))
+    assert specs.unported_layout(specs.make_plan(_mesh(2), cfg, kv_shard="seq")) is None
+    assert specs.unported_layout(specs.make_plan(_mesh(2), cfg, kv_shard="seq_all")) is None
     assert "data" in specs.unported_layout(specs.make_plan(_mesh(2, dp=2), cfg))
     assert specs.unported_layout(None) is None
 
