@@ -118,7 +118,7 @@ printing one JSON line:
              80 GB card, and 4 layers keep the whole run inside its time
              limit): ``run()`` and agree. Each prints its peak memory
     ssm     - the families with mamba layers at full width, each freed
-             before the next: Falcon-Mamba-7B (32 of its 64 mamba1 layers, no
+             before the next: Falcon-Mamba-7B (16 of its 64 mamba1 layers, no
              attention, no FFN) and Hymba-1.5B (32 layers of parallel
              attention and mamba heads, hd 64, GQA 25/5, window 1024 on 29
              layers, dense SwiGLU): ``run()`` and the continuous traffic
@@ -171,10 +171,21 @@ printing one JSON line:
              the plain path; the re-plan traffic (``REPLAN_TRAFFIC``),
              paged and contiguous, whose attention switches TP2 -> DP2 ->
              TP2 while a request is live, moving the live cache; and
-             Falcon-Mamba-7B (8 of 64 layers) and Hymba-1.5B on two ranks,
+             Falcon-Mamba-7B (4 of 64 layers) and Hymba-1.5B (16 of 32) on two ranks,
              the mixer tensor-parallel, against one card: logits within
              twice its batch noise, each rank half the conv/ssm state. Then
              one NCCL rank serves TP2/EP2 captured and eager: equal tokens
+12. sharded_train - training on a (data, model) mesh: four gloo ranks on
+             the card, each with its shard of the state and its data rows.
+             DeepSeekMoE-16B at full width, 1 of 28 layers: float32 on (2, 2)
+             (TP-heads, EP) against one rank (loss 1e-5, grad norm 1e-4,
+             each gathered leaf 1e-4); bf16 3 steps each under TP2/EP2 on
+             (1, 2), DP2 x EP2, DP2 x EP2 with sequence parallelism and FSDP
+             on (2, 2) (ms a step, peak memory a rank, collectives a step);
+             4 layers' ``prefill`` + 15 decode steps on (2, 2) through the
+             hopper kernels, heads and seq caches, against one rank routing
+             each quarter of the tokens alone (the sharded bounds), launches
+             exact; the reduced train launcher on the four ranks against one
 
 Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
 default on the card; ``repro_torch.serving.step_cache``). The serve phase,
@@ -276,7 +287,11 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # phase's seq, re-plan and mamba runs added ~300 s on the H100: Qwen3
 # went to 4 layers, Gemma-2 to 6, Mixtral to 4, the robustness phase to 2,
 # Falcon-Mamba's ssm phase to 32 of 64, and four sharded runs to 7 or 14
-# of DeepSeek's 28 (SHARDED_CUT).
+# of DeepSeek's 28 (SHARDED_CUT). The sharded_train phase added ~160 s, and
+# a whole run on a slower host took 1,283 s: Falcon-Mamba's ssm phase went
+# to 16 layers, the sharded switch runs to 4 and its continuous run to 7,
+# the two-rank mamba runs to 4 (Falcon-Mamba) and 16 (Hymba) layers, and
+# sharded_train's own runs to 1 (training) and 4 (serving) layers.
 # The agree bounds with each path routing on its own sit 2-4x above what
 # the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
 # 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
@@ -1193,8 +1208,8 @@ def _routing(seen: list, forced=None):
 
     route, it = moe.route, iter(forced) if forced is not None else None
 
-    def spy(x_flat, router_w, cfg):
-        gates, idx, aux = route(x_flat, router_w, cfg)
+    def spy(x_flat, router_w, cfg, plan=None):
+        gates, idx, aux = route(x_flat, router_w, cfg, plan)
         seen.append(idx)
         if it is not None:
             idx = next(it)
@@ -1223,13 +1238,14 @@ def _ep_halves(*records, n: int = 2):
 
     local = moe._moe_local
 
-    def parts(x_flat, moe_p, cfg, backend=None, axes=None, rep=None):
+    def parts(x_flat, moe_p, cfg, **kw):
         if x_flat.shape[0] % n:
-            return local(x_flat, moe_p, cfg, backend=backend, axes=axes, rep=rep)
-        outs = [local(x, moe_p, cfg, backend=backend, axes=axes, rep=rep) for x in x_flat.chunk(n)]
+            return local(x_flat, moe_p, cfg, **kw)
+        outs = [local(x, moe_p, cfg, **kw) for x in x_flat.chunk(n)]
         for rec in records:
             rec[-n:] = [torch.cat(rec[-n:]) if isinstance(rec[-1], torch.Tensor) else sum(rec[-n:])]
-        return torch.cat([o[0] for o in outs]), sum(o[1] for o in outs) / n, torch.cat([o[2] for o in outs])
+        aux = None if outs[0][1] is None else sum(o[1] for o in outs) / n
+        return torch.cat([o[0] for o in outs]), aux, torch.cat([o[2] for o in outs])
 
     moe._moe_local = parts
     try:
@@ -2583,9 +2599,8 @@ def phase_families() -> dict:
 #   forced tokens (per step, rel L2 and max rel), float32 within 1e-3.
 SSM_FAMILIES = ("falcon-mamba-7b", "hymba-1.5b")
 # layers kept where not all: Falcon-Mamba's plain scan is most of its
-# prefill, and the sharded phase's seq, re-plan and mamba runs needed the
-# time (32 of 64 layers)
-SSM_LAYERS = {"falcon-mamba-7b": 32}
+# prefill, and the later phases needed the time (16 of 64 layers)
+SSM_LAYERS = {"falcon-mamba-7b": 16}
 SSM_AB_ORDER = (False, True)  # one eager and one captured run each: the script's time limit
 SSM_PVD_STEPS = 4
 SSM_F32_TOL = 1e-3  # rel L2, float32: prefill against decode, and Hymba's hopper against ref
@@ -3323,13 +3338,13 @@ SHARDED_LOGITS = ("tp2_tp2", "tp2_ep2_serial", "tp2_ep2_k2", "dp2_ep2")  # teach
 # as often; their gates (bytes moved, dequant launches, budgets) hold at any
 # depth. No one-rank run of these depths exists, so their tokens are not
 # compared
-SHARDED_CUT = {"switch_reshard": 7, "switch_int4": 7, "switch_int4_resident": 7, "continuous_tp2_ep2": 14}
+SHARDED_CUT = {"switch_reshard": 4, "switch_int4": 4, "switch_int4_resident": 4, "continuous_tp2_ep2": 7}
 # the mamba families on two ranks (model, layers kept or None for all): the
 # mixer tensor-parallel over d_inner; Hymba's 25 heads do not divide two, so
 # its attention is replicated and its contiguous cache sequence-sharded.
 # Falcon-Mamba keeps 8 of its 64 layers, and both serve the serve traffic's
 # first batch (MAX_BATCH requests; the script's time limit)
-SHARDED_SSM = (("falcon-mamba-7b", 8), ("hymba-1.5b", None))
+SHARDED_SSM = (("falcon-mamba-7b", 4), ("hymba-1.5b", 16))
 # replication and prefetch on two ranks: the switching INT4 plan (experts TP2
 # in prefill, EP2 in decode) from resident INT4 experts (two dense ranks'
 # restores with replication do not fit the one card together) at the
@@ -4025,6 +4040,354 @@ def sharded_kernel_rows(cfg, rows, shapes) -> None:
                                               if row.get("model") == SHARDED_RANK]})
 
 
+# sharded_train phase: training on a (data, model) mesh of four gloo ranks
+# that share the card (NCCL refuses two ranks on one device), each holding
+# its shard of the state and its data rows of the batch. DeepSeekMoE-16B at
+# full width and ST_LAYERS of its 28 layers (the script's time limit: 2 took
+# ~160 s, ~50 of it the FSDP steps' host-staged gathers):
+# float32 against one rank, bf16 under four layouts, then the model-level
+# prefill and decode on the (2, 2) mesh through the hopper seam, then the
+# train launcher on the four ranks
+ST_LAYERS = 1
+ST_B, ST_S, ST_STEPS = 4, 256, 3
+# the float32 run: capacity factor 11 (T k / E cf >= T on every EP shard, so
+# nothing drops) and no aux term, so that the one-rank run computes the same
+# function: EP with a data axis routes and averages the aux per shard
+# (ROADMAP C); the CPU tests hold the aux's gradient to the reference
+ST_F32 = {"capacity_factor": 11.0, "router_aux_loss_coef": 0.0}
+ST_F32_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4}  # rel; rel L2 per leaf, gathered
+# bf16 layouts: name -> (mesh, make_plan's expert mode, seq_shard_acts, fsdp)
+ST_LAYOUTS = {"tp2_ep2_1x2": ("1x2", "", False, False), "dp2_ep2_2x2": ("2x2", "", False, False),
+              "dp2_ep2_sp_2x2": ("2x2", "", True, False), "fsdp_2x2": ("2x2", "", False, True)}
+ST_SERVE_LAYERS, ST_SERVE_B, ST_SERVE_S = 4, 4, 64  # prefill + MAX_NEW - 1 greedy decode steps
+ST_CACHES = ("heads", "seq")
+ST_LAUNCH_STEPS = 5
+SHARDED_TRAIN_TIMEOUT_S = 900.0
+
+
+def _st_config(layers: int, dtype: str, small: bool, **over):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-moe-16b")
+    if small:  # the CPU rehearsal
+        cfg = cfg.reduced()
+    return dataclasses.replace(cfg, num_layers=layers, dtype=dtype, **over)
+
+
+def _st_plan(mesh, cfg, expert: str = "", sp: bool = False, fsdp: bool = False, kv: str = ""):
+    from repro_torch.sharding.specs import ShardingPlan, make_plan
+
+    if fsdp:  # the reference dry run's ZeRO-3 plan
+        return ShardingPlan(mesh=mesh, dp_axes=tuple(mesh.axis_names), attn_mode="replicated", kv_shard="none",
+                            ffn_mode="tp", ffn_tp_axis=None, ep_axis=None, fsdp=True)
+    return dataclasses.replace(make_plan(mesh, cfg, expert_mode=expert, kv_shard=kv), seq_shard_acts=sp)
+
+
+def _st_train(cfg, plan, device, B, S, steps) -> tuple:
+    """``steps`` steps of ``train_loop`` from the seeded state (this rank's
+    shard of it): (state, history, peak bytes, collectives per step)."""
+    import torch
+
+    from repro_torch.data import synthetic_lm_data
+    from repro_torch.training.train_loop import init_train_state, train_loop
+
+    if device == "cuda":
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(SEED), device, plan=plan)
+    calls = dict(plan.mesh.calls) if plan is not None else {}
+    hist = []
+    state = train_loop(cfg, synthetic_lm_data(cfg, B, S, seed=SEED, plan=plan), steps, plan=plan, state=state,
+                       log_every=0, history=hist)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    per_step = {k: (n - calls.get(k, 0)) / steps for k, n in plan.mesh.calls.items()} if plan is not None else {}
+    return state, hist, peak, per_step
+
+
+def _st_gathered_errors(state, cfg, plan, want, me) -> dict:
+    """Rank 0's rel L2 of each leaf of ``state.params``, gathered from the
+    ranks' shards, against ``want`` (one rank's), a leaf at a time."""
+    from repro_torch.models.params import SPLIT_LEAVES, gather_leaf, leaf_specs
+    from repro_torch.training.tree import tree_items
+
+    specs, errs = leaf_specs(cfg, plan), {}
+    for name, t in tree_items(state.params):
+        whole = gather_leaf(t.detach(), specs[name], plan.mesh, SPLIT_LEAVES.get(name.rsplit("/", 1)[-1], 1))
+        if me == 0:
+            errs[name] = _rel_l2(whole, want[name])
+        del whole
+    return errs
+
+
+def _st_serve(cfg, params, plan, tokens, fed, backend, forced=None, parts: int = 0) -> tuple:
+    """Prefill of ``tokens`` and a decode step per column of ``fed`` under
+    ``plan``: (logits per step on the host, the expert choices of each
+    layer and step, the cache's shape). ``forced``: the choices to route
+    on; ``parts``: one rank routing each of that many equal parts of the
+    tokens with its own capacity (``_ep_halves``), the function EP over as
+    many ranks computes."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    seen = []
+    split = _ep_halves(seen, n=parts) if parts else contextlib.nullcontext()
+    with torch.inference_mode(), _routing(seen, forced), split:
+        lg, cache = prefill(params, cfg, {"tokens": tokens}, tokens.shape[1] + MAX_NEW + 1, backend=backend,
+                            plan=plan)
+        out = [lg.float().cpu()]
+        for step in range(fed.shape[1]):
+            lg, cache = decode_step(params, cfg, fed[:, step:step + 1], cache, backend=backend, plan=plan)
+            out.append(lg.float().cpu())
+    return out, [e.cpu() for e in seen], tuple(cache.k.shape)
+
+
+def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher: bool = True) -> dict:
+    """One of the four ranks of the sharded_train phase
+    (``repro_torch.sharding.launch``; ``mesh`` is the spawn's four ranks).
+    ``small`` rehearses it on reduced widths (the CPU, the plain path)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.sharding.mesh import RankMesh
+    from repro_torch.training.tree import tree_items
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    backend = "hopper" if device == "cuda" else "ref"
+    me = mesh.index
+    grid = RankMesh(data=2)
+    pair_group = dist.new_group([0, 1])
+    meshes = {"2x2": grid, "1x2": RankMesh(pair_group) if me < 2 else None}
+    B, S = (ST_B, 16) if small else (ST_B, ST_S)
+    out = {"rank": me, "coords": grid.coords}
+
+    # 1. float32: one rank (rank 0 alone), then the four ranks as (2, 2)
+    cfg = _st_config(ST_LAYERS, "float32", small, **ST_F32)
+    one = None
+    if me == 0:
+        t0 = time.perf_counter()
+        state, hist, peak, _ = _st_train(cfg, None, device, B, S, ST_STEPS)
+        one = {n: t.detach() for n, t in tree_items(state.params)}
+        out["f32_one_rank"] = {"history": hist, "peak_bytes": peak, "seconds": time.perf_counter() - t0}
+        del state
+        _free()
+    dist.barrier()
+    plan = _st_plan(grid, cfg)
+    t0 = time.perf_counter()
+    state, hist, peak, calls = _st_train(cfg, plan, device, B, S, ST_STEPS)
+    out["f32_2x2"] = {"history": hist, "peak_bytes": peak, "collectives_per_step": calls,
+                      "seconds": time.perf_counter() - t0, "plan": [plan.attn_mode, plan.ffn_mode]}
+    out["f32_2x2"]["params_rel_l2"] = _st_gathered_errors(state, cfg, plan, one, me)
+    del state, one
+    _free()
+
+    # 2. bf16 under each layout
+    cfg = _st_config(ST_LAYERS, "float32" if small else "bfloat16", small)
+    out["bf16"] = {}
+    for name, (where, expert, sp, fsdp) in ST_LAYOUTS.items():
+        m = meshes[where]
+        if m is not None:
+            plan = _st_plan(m, cfg, expert, sp, fsdp)
+            ops.reset_counts()
+            state, hist, peak, calls = _st_train(cfg, plan, device, B, S, ST_STEPS)
+            out["bf16"][name] = {"history": hist, "peak_bytes": peak, "collectives_per_step": calls,
+                                 "launches": dict(ops.LAUNCH_COUNTS),
+                                 "plan": [plan.attn_mode, plan.ffn_mode, plan.seq_shard_acts, plan.fsdp]}
+            del state
+            _free()
+        dist.barrier()
+
+    # 3. prefill + decode on (2, 2) through the hopper seam: one rank first
+    cfg = _st_config(ST_SERVE_LAYERS if not small else 2, "float32" if small else "bfloat16", small)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    tokens = torch.randint(1, cfg.vocab_size, (ST_SERVE_B, ST_SERVE_S if not small else 16), generator=gen)
+    ref = [None]
+    if me == 0:  # the greedy tokens, then the logits and experts teacher-forced on them
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+        fed = torch.zeros((ST_SERVE_B, MAX_NEW - 1), dtype=torch.long)
+        with _ep_halves(n=4):
+            _greedy(cfg, params, tokens.to(device), fed, device, backend)
+        logits, seen, _ = _st_serve(cfg, params, None, tokens.to(device), fed.to(device), backend, parts=4)
+        ref[0] = {"logits": logits, "experts": seen, "fed": fed}
+        del params
+        _free()
+    dist.broadcast_object_list(ref, src=0)
+    ref = ref[0]
+    from repro_torch.data.pipeline import local_rows
+
+    out["serve"] = {}
+    for kv in ST_CACHES:
+        plan = _st_plan(grid, cfg, kv=kv)
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device,
+                             shard=(plan, grid.coords))
+        rows = local_rows({"tokens": tokens.numpy(), "fed": ref["fed"].numpy()}, plan)
+        lo = grid.coords["data"] * rows["tokens"].shape[0]
+        mine_rows = slice(lo, lo + rows["tokens"].shape[0])
+
+        def quarter(e):  # this rank's share of a layer's routed tokens (EP over data x model)
+            k = e.shape[0] // 4
+            return e[grid.index * k:(grid.index + 1) * k]
+
+        ops.reset_counts()
+        got, _, shape = _st_serve(cfg, params, plan, torch.from_numpy(rows["tokens"]).to(device),
+                                  torch.from_numpy(rows["fed"]).to(device), backend)
+        launches, shapes = dict(ops.LAUNCH_COUNTS), launch_shapes()
+        same, _, _ = _st_serve(cfg, params, plan, torch.from_numpy(rows["tokens"]).to(device),
+                               torch.from_numpy(rows["fed"]).to(device), backend,
+                               forced=[quarter(e).to(device) for e in ref["experts"]])
+        want = [w[mine_rows] for w in ref["logits"]]
+        out["serve"][kv] = {"rel_l2_err_per_step": [_rel_l2(g, w) for g, w in zip(got, want)],
+                            "same_experts_rel_l2_err_per_step": [_rel_l2(g, w) for g, w in zip(same, want)],
+                            "finite": all(bool(torch.isfinite(g).all()) for g in got + same),
+                            "launches": launches, "shapes": shapes, "cache": shape,
+                            "plan": [plan.attn_mode, plan.ffn_mode, plan.kv_shard]}
+        del params
+        _free()
+
+    # 4. the train launcher on the four ranks
+    if launcher:
+        from repro_torch.launch import train as launch_train
+
+        hist = []
+        with contextlib.redirect_stdout(sys.stderr):
+            launch_train.main(["--steps", str(ST_LAUNCH_STEPS), "--device", device], history=hist)
+        out["launcher"] = hist
+    return out
+
+
+def _greedy(cfg, params, tokens, fed, device, backend):
+    """Fill ``fed`` with the greedy tokens of ``params`` from ``tokens``
+    (one rank): prefill, then each step fed the last step's argmax."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    with torch.inference_mode():
+        lg, cache = prefill(params, cfg, {"tokens": tokens}, tokens.shape[1] + MAX_NEW + 1, backend=backend)
+        for step in range(fed.shape[1]):
+            fed[:, step] = lg.argmax(-1).cpu()
+            lg, cache = decode_step(params, cfg, fed[:, step:step + 1].to(device), cache, backend=backend)
+    return lg, cache
+
+
+def _st_expect(cfg, kv: str, steps: int) -> dict:
+    """A rank's exact launches in the 2-D serving run: flash once a layer
+    in the prefill, the paged kernel once a layer a decode step over a
+    heads-sharded cache (a seq cache decodes on the plain path, the
+    reference's routing), the expert matmuls three times a layer a step."""
+    L = cfg.num_layers
+    out = {"flash_attention": L, "grouped_matmul": 3 * L * (1 + steps)}
+    if kv == "heads":
+        out["paged_attention"] = L * steps
+    return out
+
+
+def phase_sharded_train(small: bool = False) -> dict:
+    """Training on a (data, model) mesh of four gloo ranks on the card
+    (``sharded_train_rank``): float32 against one rank, the bf16 layouts'
+    step times, memory and collectives, the 2-D prefill and decode against
+    one rank with exact launches, the train launcher against one rank.
+    Returns {"launches": {run: per-rank launches}, "shapes": {kernel:
+    {shape: {run: per-rank launches}}}}."""
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sharding.launch import spawn
+
+    device = "cpu" if small else "cuda"
+    card = card_line() if not small else "cpu"
+    one = []
+    with contextlib.redirect_stdout(sys.stderr):  # the one-rank launcher, before the ranks start
+        launch_train.main(["--steps", str(ST_LAUNCH_STEPS), "--device", device], history=one)
+    _free()
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:sharded_train_rank", 4, backend="gloo", args={"device": device, "small": small},
+                  timeout=SHARDED_TRAIN_TIMEOUT_S, pythonpath=(ROOT,),
+                  env={"OMP_NUM_THREADS": "1"} if small else None)
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    fails = []
+
+    # 1. float32 against one rank
+    o, f = r0["f32_one_rank"], r0["f32_2x2"]
+    loss = [_rel(a["loss"], b["loss"]) for a, b in zip(f["history"], o["history"])]
+    gnorm = [_rel(a["grad_norm"], b["grad_norm"]) for a, b in zip(f["history"], o["history"])]
+    worst = max(f["params_rel_l2"].items(), key=lambda kv: kv[1])
+    res = {"phase": "sharded_train", "step": "float32", "card": card, "layers": ST_LAYERS, "batch": ST_B,
+           "seq": 16 if small else ST_S, "steps": ST_STEPS, "plan": f["plan"], "config": ST_F32, "loss_rel_err": loss,
+           "grad_norm_rel_err": gnorm, "params_worst_rel_l2": worst, "tol": ST_F32_TOL,
+           "one_rank_peak_bytes": o["peak_bytes"], "peak_bytes_per_rank": [r["f32_2x2"]["peak_bytes"] for r in ranks],
+           "one_rank_ms_per_step": [h["seconds"] * 1e3 for h in o["history"]],
+           "ms_per_step": [h["seconds"] * 1e3 for h in f["history"]], "collectives_per_step": f["collectives_per_step"]}
+    emit(res)
+    if max(loss) > ST_F32_TOL["loss"] or max(gnorm) > ST_F32_TOL["grad_norm"] or worst[1] > ST_F32_TOL["params"]:
+        fails.append(f"float32: {res}")
+
+    # 2. bf16 layouts
+    for name in ST_LAYOUTS:
+        per = [r["bf16"].get(name) for r in ranks]
+        got = [p for p in per if p is not None]
+        hist = got[0]["history"]
+        res = {"phase": "sharded_train", "step": "bf16", "layout": name, "card": card, "ranks": len(got),
+               "plan": got[0]["plan"], "loss": [h["loss"] for h in hist],
+               "ms_per_step_2_3": sum(h["seconds"] for h in hist[1:]) / (len(hist) - 1) * 1e3,
+               "first_step_ms": hist[0]["seconds"] * 1e3, "peak_bytes_per_rank": [p["peak_bytes"] for p in got],
+               "collectives_per_step": got[0]["collectives_per_step"], "launches": got[0]["launches"]}
+        emit(res)
+        finite = all(math.isfinite(h[k]) for p in got for h in p["history"] for k in ("loss", "grad_norm"))
+        same = all(p["history"][i]["loss"] == hist[i]["loss"] for p in got for i in range(len(hist)))
+        if not finite or not same or sum(got[0]["launches"].values()):
+            fails.append(f"bf16 {name}: finite {finite}, ranks agree {same}, launches {got[0]['launches']}")
+
+    # 3. the 2-D prefill + decode
+    cfg = _st_config(ST_SERVE_LAYERS if not small else 2, "bfloat16", small)
+    launches, shapes = {}, {}
+    for kv in ST_CACHES:
+        per = [r["serve"][kv] for r in ranks]
+        run = f"sharded_train_{kv}"
+        launches[run] = [p["launches"] for p in per]
+        for p in per:
+            for kernel, by_shape in p["shapes"].items():
+                for shape, n in by_shape.items():
+                    shapes.setdefault(kernel, {}).setdefault(shape, {}).setdefault(run, []).append(n)
+        worst = max(max(p["rel_l2_err_per_step"]) for p in per)
+        worst_same = max(max(p["same_experts_rel_l2_err_per_step"]) for p in per)
+        expect = _st_expect(cfg, kv, MAX_NEW - 1)
+        res = {"phase": "sharded_train", "step": "serve", "cache": kv, "card": card, "layers": cfg.num_layers,
+               "batch": ST_SERVE_B, "prompt": ST_SERVE_S, "decode_steps": MAX_NEW - 1, "plan": per[0]["plan"],
+               "cache_shape_per_rank": per[0]["cache"], "rel_l2_err_worst": worst,
+               "same_experts_rel_l2_err_worst": worst_same, "tol": [AGREE_TOL[0], AGREE_SAME_EXPERTS_TOL],
+               "launches_per_rank": [{k: p["launches"].get(k, 0) for k in expect} for p in per], "expect": expect}
+        emit(res)
+        if small:
+            continue
+        exact = all({k: p["launches"].get(k, 0) for k in set(expect) | set(p["launches"])} ==
+                    {**{k: 0 for k in p["launches"]}, **expect} for p in per)
+        if not all(p["finite"] for p in per) or worst > AGREE_TOL[0] or worst_same > AGREE_SAME_EXPERTS_TOL \
+                or not exact:
+            fails.append(f"serve {kv}: {res}")
+
+    # 4. the launcher on four ranks against one
+    four = r0["launcher"]
+    err = max(_rel(a["loss"], b["loss"]) for a, b in zip(four, one))
+    res = {"phase": "sharded_train", "step": "launcher", "card": card, "steps": ST_LAUNCH_STEPS,
+           "loss_one_rank": [h["loss"] for h in one], "loss_four_ranks": [h["loss"] for h in four],
+           "loss_rel_err": err, "tol": ST_F32_TOL["loss"]}
+    emit(res)
+    if err > ST_F32_TOL["loss"] or len(four) != ST_LAUNCH_STEPS:
+        fails.append(f"launcher: {res}")
+    emit({"phase": "sharded_train", "seconds": seconds})
+    if fails:
+        raise AssertionError("sharded_train: " + "; ".join(fails))
+    _free()
+    return {"launches": launches, "shapes": shapes}
+
+
 def main() -> int:
     import torch
 
@@ -4098,6 +4461,10 @@ def _phases(cfg, seconds, timed, fit) -> int:
     vlm = timed("vlm", phase_vlm)
     train = timed("train", phase_train)
     sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl, replan)
+    strain = timed("sharded_train", phase_sharded_train)
+    for kernel, by_shape in strain["shapes"].items():  # its 2-D runs' shapes get kernel rows too
+        for shape, per_run in by_shape.items():
+            sharded["shapes"].setdefault(kernel, {}).setdefault(shape, {}).update(per_run)
     timed("sharded_kernels", sharded_kernel_rows, cfg, rows, sharded["shapes"])
     timed("replication_kernels", replication_kernel_rows, cfg, rows, repl_shapes)
     timed("robustness_kernels", robustness_kernel_rows, cfg, rows, robust_shapes)
@@ -4135,6 +4502,9 @@ def _phases(cfg, seconds, timed, fit) -> int:
         r["launches_sharded"] = {run: [n.get(r["name"], 0) for n in per_rank]
                                  for run, per_rank in sharded["launches"].items()}
         r["launches_sharded_nccl"] = sharded["nccl"].get(r["name"], 0)
+        # the (2, 2) mesh's model-level prefill and decode, per rank, by cache layout
+        r["launches_sharded_train"] = {run: [n.get(r["name"], 0) for n in per_rank]
+                                       for run, per_rank in strain["launches"].items()}
         # LLaVA's image prompts (their rows carry them by shape), and the
         # train phase's runs, which launch no hand kernel (training pins ref)
         r["launches_vlm"] = vlm["launches"].get(r["name"], 0)

@@ -7,6 +7,9 @@ a k-th order Markov chain over a Zipf-distributed vocabulary — so training
 loss measurably drops, which the end-to-end training example and tests
 assert. The audio and vision variants emit the stub frontends' frame and
 patch embeddings.
+
+On a mesh (``plan``) every rank draws the same global batch from the seed
+and keeps its data rows (``local_rows``).
 """
 from __future__ import annotations
 
@@ -34,8 +37,31 @@ def _markov_tokens(rng: np.random.Generator, vocab: int, n: int,
     return out
 
 
+def local_rows(batch: Dict[str, np.ndarray], plan) -> Dict[str, np.ndarray]:
+    """This rank's rows of a global ``batch`` under ``plan``: block
+    ``dp_index`` of ``dp_size`` along the leading (batch) dimension of
+    every array. The batch must divide the data-parallel axes
+    (``sharding.specs.adapt_plan_for_batch`` drops them where it does not)."""
+    from repro_torch.sharding.specs import dp_index, dp_size
+
+    n = dp_size(plan)
+    if n == 1:
+        return batch
+    B = len(next(iter(batch.values())))
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over {n} data-parallel ranks")
+    i, rows = dp_index(plan), B // n
+    return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+
+
 def synthetic_lm_data(cfg: ModelConfig, batch: int, seq: int,
-                      seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                      seed: int = 0, plan=None) -> Iterator[Dict[str, np.ndarray]]:
+    it = _synthetic_lm_data(cfg, batch, seq, seed)
+    while True:
+        yield local_rows(next(it), plan)
+
+
+def _synthetic_lm_data(cfg: ModelConfig, batch: int, seq: int, seed: int) -> Iterator[Dict[str, np.ndarray]]:
     rng = np.random.default_rng(seed)
     vocab = cfg.vocab_size
     while True:

@@ -37,6 +37,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.sharding import autograd as sharding_autograd
+
 from . import _build, ref
 from ._build import DISPATCH_COUNTS, LAUNCH_COUNTS  # noqa: F401 (re-export)
 from .flash_attention import flash_attention as _flash_hopper
@@ -203,7 +205,7 @@ def decode_attention(
 
 def seq_decode_attention(
     q, k_cache, v_cache, k_new, v_new, pos, mesh, *, scale: Optional[float] = None, softcap: float = 0.0,
-    window: int = 0, is_global=True,
+    window: int = 0, is_global=True, shard=None,
 ):
     """``decode_attention`` over a contiguous cache whose positions are
     sharded over the ranks of ``mesh`` (the ``seq`` layout): this rank
@@ -216,14 +218,19 @@ def seq_decode_attention(
     The reference routes this layout to its plain path (its
     ``decode_kernel_axes`` is None unless the cache is heads-sharded), and
     so does the port: the plain version runs per rank on any device,
-    counted as ``decode.ref_seq``, whatever the backend."""
+    counted as ``decode.ref_seq``, whatever the backend. ``shard`` (this
+    rank's index, the number of shards; ``specs.seq_shards``) defaults to
+    the model axis's; more shards than the model axis has (``seq_all`` on a
+    mesh with a data axis) spread over every rank of the mesh."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     record("decode.ref_seq")
+    index, n = shard or (mesh.rank, mesh.size)
     o, m, s = ref.seq_append_attention_partial_ref(
-        q, k_cache, v_cache, k_new, v_new, pos, mesh.rank, mesh.size, is_global,
+        q, k_cache, v_cache, k_new, v_new, pos, index, n, is_global,
         scale=scale, softcap=softcap, window=window,
     )
-    parts = mesh.all_gather(torch.cat([o, m[..., None], s[..., None]], dim=-1)[None], dim=0)
+    axis = "model" if n == mesh.size else tuple(mesh.axis_names)
+    parts = mesh.all_gather(torch.cat([o, m[..., None], s[..., None]], dim=-1)[None], dim=0, axis=axis)
     hd = q.shape[-1]
     return ref.merge_partials_ref(parts[..., :hd], parts[..., hd], parts[..., hd + 1]).to(q.dtype), k_cache, v_cache
 
@@ -361,7 +368,7 @@ def grouped_matmul(lhs, rhs, *, shard_axes=None, sharded_dim: str = "out",
         record("gmm.ref" if shard_axes is None else f"gmm.ref_shard_{sharded_dim}")
         out = ref.grouped_matmul_ref(lhs, w)
     if shard_axes is not None and sharded_dim == "in":
-        shard_axes.mesh.all_reduce(out)
+        out = sharding_autograd.reduce_out(out, shard_axes.mesh, shard_axes.axis)
     return out
 
 
@@ -414,6 +421,12 @@ def pipelined_ep_ffn(buf: torch.Tensor, ffn, *, mesh, chunks: int) -> torch.Tens
     row-independent, and the concat restores the capacity order.
     """
     K = min(max(int(chunks), 1), buf.shape[1])
+    if torch.is_grad_enabled() and buf.requires_grad:
+        # training: the serial schedule through the differentiable exchange
+        # (the same function: the slabs only reorder its work)
+        record("moe.ep_serial")
+        a2a = sharding_autograd.all_to_all
+        return a2a(ffn(a2a(buf, mesh, split=0, concat=1)), mesh, split=1, concat=0)
     if K <= 1:
         record("moe.ep_serial")
         return mesh.all_to_all(ffn(mesh.all_to_all(buf, split=0, concat=1)), split=1, concat=0)

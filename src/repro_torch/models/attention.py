@@ -24,6 +24,13 @@ seq_decode_attention``; q heads sharded over the ranks are gathered
 first); otherwise (a paged pool under ``seq``) the cache is whole on every
 rank, and decode under sharded q heads runs the kernel over every q head,
 the other ranks' heads zero, and keeps the rank's outputs.
+
+Training runs the same prefill body under autograd: the sharded heads
+enter through ``parallel.tp_in`` and their ``wo`` rows leave through
+``parallel.tp_out`` (an all-reduce, or a reduce-scatter over the sequence
+under ``seq_shard_acts``); replicated k/v beside sharded q heads take
+their weights' gradient summed over the model axis, and replicated
+attention runs whole on every rank (``parallel.whole_in``/``whole_out``).
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.sharding.specs import seq_sharded
+from repro_torch.sharding import autograd as ad
+from repro_torch.sharding.specs import seq_sharded, seq_shards
 
+from . import parallel
 from .common import apply_rope, softcap
 
 NEG_INF = -2.0e38  # f32-safe mask value
@@ -94,14 +103,26 @@ def cache_layout(cfg: ModelConfig, plan, paged: bool) -> str:
     return "seq" if seq_sharded(plan) and not paged else "none"
 
 
-def _out_project(out, w, x, plan):
+def _out_project(out, w, x, plan, sp: bool = False):
     """(B, S, H_local, hd) -> (B, S, d): this rank's rows of wo, summed
-    over the ranks when the heads are sharded."""
+    over the ranks when the heads are sharded (reduce-scattered over the
+    sequence under ``sp``)."""
     B, S = out.shape[0], out.shape[1]
     o = out.reshape(B, S, -1).to(x.dtype) @ w.wo
     if _tp(plan):
-        plan.mesh.all_reduce(o)
+        return parallel.tp_out(o, plan, sp)
+    if parallel.on_mesh(plan):
+        return parallel.whole_out(o, plan, sp)
     return o
+
+
+def _whole_kv(k, v, cfg: ModelConfig, plan):
+    """k/v projected on this rank's kv heads, gathered to every kv head
+    where the cache holds them all (heads-sharded weights beside a ``seq``
+    cache)."""
+    if _tp(plan) and k.shape[2] != local_kv_heads(cfg, plan):
+        return ad.gather_out(k, plan.mesh, 2), ad.gather_out(v, plan.mesh, 2)
+    return k, v
 
 
 class AttnTemps(NamedTuple):
@@ -210,16 +231,24 @@ def full_attention(q, k, v, cfg: ModelConfig, is_global, q_positions, k_position
 
 
 def attention_block(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global, q_chunk: int = 512,
-                    return_kv: bool = False, backend=None, plan=None):
-    """Full-sequence attention (prefill): (B,S,d) -> (B,S,d).
+                    return_kv: bool = False, backend=None, plan=None, sp: bool = False):
+    """Full-sequence attention (prefill and training): (B,S,d) -> (B,S,d),
+    each sequence-sharded over the model axis under ``sp``.
 
     ``return_kv=True`` also returns the rope'd K/V to seed the decode cache
     (before any kv repetition: the heads the cache holds).
     """
+    if _tp(plan):
+        x = parallel.tp_in(x, plan, sp)
+        if w.wk.shape[-1] == cfg.num_kv_heads * cfg.head_dim and plan.axis_size(plan.attn_tp_axis) > 1:
+            # whole k/v beside this rank's q heads: each rank's gradient is its heads' part
+            w = w._replace(wk=ad.copy_in(w.wk, plan.mesh), wv=ad.copy_in(w.wv, plan.mesh))
+    elif parallel.on_mesh(plan):
+        x = parallel.whole_in(x, plan, sp)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = qkv_project(x, w, cfg, positions[None, :])
-    kv_out = (k, v) if return_kv else None
+    kv_out = _whole_kv(k, v, cfg, plan) if return_kv else None
     k, v = _maybe_repeat_kv(k, v, cfg, plan)
     be = kernel_ops.resolve_backend(backend, x.device)
     if be is kernel_ops.KernelBackend.HOPPER and cfg.causal:
@@ -239,7 +268,7 @@ def attention_block(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global, 
             )
         else:
             out = full_attention(q, k, v, cfg, is_global, positions, positions)
-    o = _out_project(out, w, x, plan)
+    o = _out_project(out, w, x, plan, sp)
     if return_kv:
         return o, kv_out
     return o
@@ -268,9 +297,10 @@ def decode_attention(x: torch.Tensor, w: AttnTemps, cfg: ModelConfig, is_global,
         # the rank's positions of every kv head: every q head attends them
         if _tp(plan):
             q = plan.mesh.all_gather(q, dim=2)
+        k_new, v_new = _whole_kv(k_new, v_new, cfg, plan)
         out, k_cache, v_cache = kernel_ops.seq_decode_attention(
             q, k_cache, v_cache, k_new, v_new, pos, plan.mesh, scale=_scale(cfg), softcap=cfg.attn_logit_softcap,
-            window=cfg.sliding_window, is_global=is_global,
+            window=cfg.sliding_window, is_global=is_global, shard=seq_shards(plan),
         )
         if _tp(plan):
             lo, hi = _q_heads(cfg, plan)

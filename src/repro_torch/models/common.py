@@ -5,6 +5,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import autograd as ad
+from repro_torch.sharding.specs import dp_axes
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm: the variance in float32, the normalize-multiply in the input
@@ -64,13 +67,45 @@ def plain_ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, act_name: str
     return activation_fn(act_name)(x @ wi) @ wo
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None, plan=None,
+                       vocab_parallel: bool = False) -> torch.Tensor:
     """Mean token-level cross entropy in float32: logsumexp minus the gold
-    logit; with ``mask``, the mean over the positions it weights."""
+    logit; with ``mask``, the mean over the positions it weights.
+
+    On a mesh (``plan``) the rows are this rank's data rows and the mean is
+    the global one: the sums of the loss (and of the mask) are all-reduced
+    over the plan's data axes, never a mean of the ranks' means. With
+    ``vocab_parallel`` the logits hold this rank's block of the vocabulary
+    (the model axis): the log-sum-exp (a max and a sum) and the gold logit
+    are completed over the model axis (Megatron's vocab-parallel cross
+    entropy)."""
     logits = logits.float()
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = torch.logsumexp(logits, dim=-1) - gold
-    if mask is not None:
+    if plan is None or plan.is_null:
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        nll = torch.logsumexp(logits, dim=-1) - gold
+        if mask is not None:
+            mask = mask.float()
+            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll.mean()
+    mesh = plan.mesh
+    if vocab_parallel:
+        V = logits.shape[-1]
+        top = mesh.all_reduce(logits.detach().amax(dim=-1, keepdim=True), op=torch.distributed.ReduceOp.MAX)
+        logz = top[..., 0] + torch.log(ad.reduce_out(torch.exp(logits - top).sum(dim=-1), mesh))
+        local = labels.long() - mesh.rank * V
+        mine = (local >= 0) & (local < V)
+        gold = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0] * mine
+        nll = logz - ad.reduce_out(gold, mesh)
+    else:
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels.long()[..., None])[..., 0]
+    axes = dp_axes(plan)
+    if mask is None:
+        total = nll.sum()
+        count = torch.tensor(float(nll.numel() * plan.axis_size(axes)), device=nll.device)
+    else:
         mask = mask.float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+        total = (nll * mask).sum()
+        count = mesh.all_reduce(mask.sum(), axes) if axes else mask.sum()
+    if axes:
+        total = ad.reduce_out(total, mesh, axes)
+    return total / torch.clamp(count, min=1.0)

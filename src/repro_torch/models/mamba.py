@@ -25,7 +25,12 @@ On a mesh (a ShardingPlan whose leaves hold this rank's d_inner channels,
 ``in_proj`` gives this rank's channels of x and of z, the conv, the scan
 and the (conv window, SSM state) are per channel and stay on the rank, and
 the two row-parallel products complete with one all-reduce each: ``x_proj``
-(dt, B and C, before ``dt_proj`` and the scan) and ``out_proj``.
+(dt, B and C, before ``dt_proj`` and the scan) and ``out_proj``. In
+training these go through ``repro_torch.sharding.autograd``: the mixer
+enters through ``parallel.tp_in``, ``x_proj``'s sum is replicated and then
+read by the rank's channels (``copy_in``), and ``out_proj``'s sum leaves
+through ``parallel.tp_out`` (a reduce-scatter over the sequence under
+``seq_shard_acts``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import autograd as ad
+
+from . import parallel
 
 
 class MambaCache(NamedTuple):
@@ -60,15 +68,18 @@ def _mesh(p: Dict[str, Any], cfg: ModelConfig, plan):
     return plan.mesh
 
 
-def _row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, mesh, plan=None, sp: bool = False) -> torch.Tensor:
     """x @ w over this rank's rows of ``w``. On a mesh each rank's partial
-    product is kept in float32, summed over the ranks and rounded once to
-    the activations' dtype, as the one-device product rounds once: a bf16
-    partial rounded on each rank would part from it by about twice the
-    rounding of a batch's row order."""
+    product is kept in float32, summed over the ranks (reduce-scattered
+    over the sequence under ``sp``) and rounded once to the activations'
+    dtype, as the one-device product rounds once: a bf16 partial rounded
+    on each rank would part from it by about twice the rounding of a
+    batch's row order."""
     if mesh is None:
         return x @ w
-    return mesh.all_reduce(x.float() @ w.float()).to(x.dtype)
+    if sp:
+        return parallel.tp_out(x.float() @ w.float(), plan, True).to(x.dtype)
+    return ad.reduce_out(x.float() @ w.float(), mesh).to(x.dtype)
 
 
 def _ssm_inputs(x_c: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, mesh=None):
@@ -76,6 +87,8 @@ def _ssm_inputs(x_c: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, mesh=Non
     last four in float32."""
     r, n = cfg.ssm_dt_rank, cfg.ssm_state
     proj = _row_parallel(x_c, p["x_proj"], mesh)
+    if mesh is not None:  # the whole sum, read by this rank's channels
+        proj = ad.copy_in(proj, mesh)
     dt_raw, B_ssm, C_ssm = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_w"]).float() + p["dt_b"].float())
     A = -torch.exp(p["A_log"].float())
@@ -118,16 +131,21 @@ def chunk_size(S: int, chunk: int = 256) -> int:
     return cs
 
 
-def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, chunk: int = 256, plan=None
-                ) -> Tuple[torch.Tensor, MambaCache]:
+def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, chunk: int = 256, plan=None,
+                sp: bool = False) -> Tuple[torch.Tensor, MambaCache]:
     """Full-sequence mamba1 block: (B, S, d) -> ((B, S, d), the final
-    (conv window, SSM state)). The conv window is the last cw - 1 inputs of
-    the conv (the pre-conv half of ``in_proj``), zeros where the sequence
-    is shorter; the state is float32. On a mesh both hold this rank's
+    (conv window, SSM state)), the sequence sharded over the model axis
+    under ``sp``. The conv window is the last cw - 1 inputs of the conv
+    (the pre-conv half of ``in_proj``), zeros where the sequence is
+    shorter; the state is float32. On a mesh both hold this rank's
     channels."""
+    mesh = _mesh(p, cfg, plan)
+    if mesh is not None:
+        x = parallel.tp_in(x, plan, sp)
+    elif parallel.on_mesh(plan):
+        x = parallel.whole_in(x, plan, sp)
     B, S, _ = x.shape
     di, n, cw = p["conv_w"].shape[-1], cfg.ssm_state, cfg.ssm_conv
-    mesh = _mesh(p, cfg, plan)
     x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     x_c = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
     conv = F.pad(x_in[:, -(cw - 1):], (0, 0, max(cw - 1 - S, 0), 0))
@@ -150,7 +168,9 @@ def mamba_mixer(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig, chunk: int
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y + xf * p["D"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return _row_parallel(y, p["out_proj"], mesh), MambaCache(conv=conv, ssm=h)
+    if mesh is None and parallel.on_mesh(plan):
+        return parallel.whole_out(y @ p["out_proj"], plan, sp), MambaCache(conv=conv, ssm=h)
+    return _row_parallel(y, p["out_proj"], mesh, plan, sp), MambaCache(conv=conv, ssm=h)
 
 
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None) -> MambaCache:

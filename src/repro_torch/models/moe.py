@@ -12,6 +12,22 @@ ShardingPlan (the HAP strategy of the Expert module):
 
 Shared experts run TP on a mesh (their d_ff sharded, one all-reduce).
 
+With a data axis (the plan's ``dp_axes``) each rank holds its data rows'
+tokens. TP routes over the global token order, as the reference's
+``_moe_tp`` does: the capacity is the global batch's, a data rank's
+positions in an expert start after the tokens the data ranks before it
+sent there (one all-gather of an (E,) count vector a layer), and the
+Switch aux takes its means over every data rank's tokens (two (E,)
+sums). EP splits the data rank's tokens over the EP axis when they divide
+(the reference's dp x ep split), else keeps them whole on every EP rank
+(its dp-only and replicated cases); the aux is the mean of every
+(data, ep) shard's, whose gradient the reference's is too (it reports
+data shard 0's: ROADMAP C).
+
+Under autograd the collectives are ``repro_torch.sharding.autograd``'s:
+the router, replicated but fed each EP rank's own tokens, takes its
+gradient summed over the EP axis.
+
 Dispatch is GShard-style with a static capacity
 ``C = ceil(T * top_k / E * capacity_factor)`` per expert (rounded up to a
 multiple of 8): tokens beyond an expert's capacity are dropped. Every
@@ -36,7 +52,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.sharding.specs import ExpertReplication
+from repro_torch.sharding import autograd as ad
+from repro_torch.sharding.specs import ExpertReplication, dp_axes, dp_index, dp_size
 
 from .common import activation_fn, glu_ffn
 
@@ -70,8 +87,10 @@ def pipeline_chunks(C_loc: int, ep_size: int, knob: int = 0) -> int:
     return 1
 
 
-def route(x_flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
-    """Top-k routing. x_flat: (T, d) -> gates (T,k), idx (T,k), aux_loss."""
+def route(x_flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, plan=None):
+    """Top-k routing. x_flat: (T, d) -> gates (T,k), idx (T,k), aux_loss.
+    With ``plan``'s data axes the aux's means run over every data rank's
+    tokens (the reference routes the global batch)."""
     logits = x_flat.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k's order: descending, and the lower expert index first among
@@ -82,10 +101,14 @@ def route(x_flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
     # Switch-style load-balance aux loss: E * sum(frac_tokens * frac_probs)
     E = cfg.n_routed_experts
-    me = probs.mean(dim=0)
-    ce = F.one_hot(idx[:, 0], E).float().mean(dim=0)
-    aux = E * torch.sum(me * ce)
-    return gates, idx, aux
+    top1 = F.one_hot(idx[:, 0], E).float()
+    axes = dp_axes(plan)
+    if not axes:
+        return gates, idx, E * torch.sum(probs.mean(dim=0) * top1.mean(dim=0))
+    n = x_flat.shape[0] * dp_size(plan)
+    me = ad.reduce_out(probs.sum(dim=0), plan.mesh, axes) / n
+    ce = plan.mesh.all_reduce(top1.sum(dim=0).detach(), axes) / n
+    return gates, idx, E * torch.sum(me * ce)
 
 
 def make_dispatch(idx: torch.Tensor, gates: torch.Tensor, E: int, C: int):
@@ -192,9 +215,10 @@ def serving_replication(plan) -> Optional[ExpertReplication]:
 
 
 def ep_token_split(plan, num_tokens: int) -> bool:
-    """Whether EP under ``plan`` splits ``num_tokens`` over the ranks (each
-    rank then routes, and reports the top-k of, its own share)."""
-    return _is_ep(plan) and num_tokens % plan.mesh.size == 0
+    """Whether EP under ``plan`` splits a data rank's ``num_tokens`` over
+    the EP axis (each rank then routes, and reports the top-k of, its own
+    share); else every EP rank routes them all."""
+    return _is_ep(plan) and num_tokens % plan.axis_size(plan.ep_axis) == 0
 
 
 def expert_ffn(buf, wi_gate, wi_up, wo, act_name: str, backend=None, axes=None) -> torch.Tensor:
@@ -202,23 +226,44 @@ def expert_ffn(buf, wi_gate, wi_up, wo, act_name: str, backend=None, axes=None) 
     grouped-matmul seam. ``axes`` (a TP plan's ``expert_kernel_axes``)
     runs wi_gate/wi_up column-parallel and wo row-parallel, all-reduced."""
     act = activation_fn(act_name)
+    if axes is not None:
+        buf = ad.copy_in(buf, axes.mesh, axes.axis)
     gate = kernel_ops.grouped_matmul(buf, wi_gate, shard_axes=axes, sharded_dim="out", backend=backend)
     up = kernel_ops.grouped_matmul(buf, wi_up, shard_axes=axes, sharded_dim="out", backend=backend)
     return kernel_ops.grouped_matmul(act(gate) * up, wo, shard_axes=axes, sharded_dim="in", backend=backend)
 
 
-def _moe_local(x_flat, moe_p, cfg: ModelConfig, backend=None, axes=None, rep=None):
+def _global_positions(fe, pe, E: int, plan):
+    """Each entry's position in its expert in the global token order: this
+    data rank's ``pe`` after the tokens every data rank before it sent to
+    the expert."""
+    axes = dp_axes(plan)
+    if not axes:
+        return pe
+    counts = torch.bincount(fe, minlength=E)[None]
+    before = plan.mesh.all_gather(counts, dim=0, axis=axes)[:dp_index(plan)].sum(dim=0)
+    return pe + before[fe]
+
+
+def _moe_local(x_flat, moe_p, cfg: ModelConfig, backend=None, axes=None, rep=None, plan=None, want_aux=True):
     """One device (the reference's ``_moe_local``), or TP with ``axes`` (a
     TP plan's ``expert_kernel_axes``: column-parallel wi, row-parallel wo
     with one all-reduce; None where the d_ff does not divide the axis, the
     experts then whole on every rank; the reference's ``_moe_tp``): every
     token of every expert on this rank's d_ff columns. ``rep``: the replica
-    set the slot-layout leaves hold."""
+    set the slot-layout leaves hold. With ``plan``'s data axes the tokens
+    are this data rank's, routed in the global order: the capacity is the
+    global batch's, and the buffer holds this rank's tokens at their global
+    positions. ``want_aux`` False: no aux (None), and none of its
+    collectives."""
     T = x_flat.shape[0]
     E = cfg.n_routed_experts
-    C = capacity(T, cfg)
-    gates, idx, aux = route(x_flat, moe_p["router"], cfg)
+    C = capacity(T * dp_size(plan), cfg)
+    gates, idx, aux = route(x_flat, moe_p["router"], cfg, plan if want_aux else None)
+    aux = aux if want_aux else None
     fe, pe, keep, fg = make_dispatch(idx, gates, E, C)
+    pe = _global_positions(fe, pe, E, plan)
+    keep = pe < C
     if rep is not None:
         fe, pe = replica_coords(fe, pe, rep)
         keep = pe < C  # per-SLOT capacity: hot experts hold degree*C
@@ -229,28 +274,32 @@ def _moe_local(x_flat, moe_p, cfg: ModelConfig, backend=None, axes=None, rep=Non
     return y, aux, idx
 
 
-def _moe_ep(x_flat, moe_p, cfg: ModelConfig, plan, backend=None):
+def _moe_ep(x_flat, moe_p, cfg: ModelConfig, plan, backend=None, want_aux=True):
     """EP (the reference's ``_moe_ep_shardmap``): the experts sharded over
-    the ranks, tokens exchanged with all-to-all. The tokens are split over
-    the ranks when they divide (each rank routes T/ep of them, with the
-    capacity of its own share) and replicated otherwise; each rank's
-    outputs are gathered back, and the aux loss is averaged over ranks.
-    ``route_idx`` holds this rank's tokens' choices.
+    the EP axis, tokens exchanged with all-to-all. A data rank's tokens
+    are split over the EP axis when they divide (each rank routes T/ep of
+    them, with the capacity of its own share) and whole on every EP rank
+    otherwise; each rank's outputs are gathered back, and the aux loss is
+    the mean over every (data, ep) shard's. ``route_idx`` holds this
+    rank's tokens' choices.
 
     With a replica set (``serving_replication``) the slot axis is what the
     ranks shard: rank r holds slots [r*S/n, (r+1)*S/n), so a hot expert
     owns replica slots on several ranks."""
     mesh = plan.mesh
-    n = mesh.size
+    ep = plan.ep_axis
+    n = plan.axis_size(ep)
     E = cfg.n_routed_experts
     T = x_flat.shape[0]
     split = ep_token_split(plan, T)
-    xl = x_flat[mesh.rank * (T // n):(mesh.rank + 1) * (T // n)] if split else x_flat
+    # the router sees this rank's tokens: its gradient is summed over the EP axis
+    router = ad.copy_in(moe_p["router"], mesh, ep)
+    xl = ad.scatter_in(x_flat, mesh, 0, ep) if split else ad.copy_in(x_flat, mesh, ep)
     rep = serving_replication(plan)
     n_slots = rep.total_slots if rep is not None else E
     T_loc = xl.shape[0]
     C_loc = capacity(T_loc, cfg)
-    gates, idx, aux = route(xl, moe_p["router"], cfg)
+    gates, idx, aux = route(xl, router, cfg)
     fe, pe, keep, fg = make_dispatch(idx, gates, E, C_loc)
     if rep is not None:
         fe, pe = replica_coords(fe, pe, rep)
@@ -261,23 +310,28 @@ def _moe_ep(x_flat, moe_p, cfg: ModelConfig, plan, backend=None):
         buf, lambda b: expert_ffn(b, moe_p["wi_gate"], moe_p["wi_up"], moe_p["wo"], cfg.activation, backend=backend),
         mesh=mesh, chunks=K)
     y = combine(y_buf, fe, pe, keep, fg, T_loc)
-    aux = mesh.all_reduce(aux.reshape(1)).reshape(()) / n
-    if split:
-        y = mesh.all_gather(y, dim=0)
+    shards = tuple(dp_axes(plan)) + (ep,)
+    if want_aux:
+        aux = ad.reduce_out(aux.reshape(1), mesh, shards).reshape(()) / plan.axis_size(shards)
+    y = ad.gather_out(y, mesh, 0, ep) if split else ad.shared_out(y, mesh, ep)
     return y, aux, idx
 
 
 def _shared_ffn(x_flat, moe_p, cfg: ModelConfig, plan):
     """The shared experts: one GLU FFN, its d_ff sharded on a mesh."""
+    tp = plan is not None and plan.divides(cfg.shared_d_ff * cfg.n_shared_experts)
+    if tp:
+        x_flat = ad.copy_in(x_flat, plan.mesh, plan.ffn_tp_axis)
     y = glu_ffn(x_flat, moe_p["shared_wi_gate"], moe_p["shared_wi_up"], moe_p["shared_wo"], cfg.activation)
-    if plan is not None and plan.divides(cfg.shared_d_ff * cfg.n_shared_experts):
-        plan.mesh.all_reduce(y)
-    return y
+    return ad.reduce_out(y, plan.mesh, plan.ffn_tp_axis) if tp else y
 
 
-def apply_moe(x: torch.Tensor, moe_p: Dict[str, Any], cfg: ModelConfig, backend=None, plan=None) -> MoEOut:
+def apply_moe(x: torch.Tensor, moe_p: Dict[str, Any], cfg: ModelConfig, backend=None, plan=None,
+              want_aux: bool = True) -> MoEOut:
     """x: (B, S, d) -> MoEOut. Routed experts + optional shared experts,
-    in the mode ``plan`` selects (None: local).
+    in the mode ``plan`` selects (None: local). ``want_aux`` False (prefill
+    and decode, which drop it) leaves the aux loss None and skips its
+    collectives on a mesh.
 
     When the plan carries an ``ExpertReplication``, token copies are routed
     to replica slots (round-robin over each expert's replicas): the same
@@ -286,12 +340,13 @@ def apply_moe(x: torch.Tensor, moe_p: Dict[str, Any], cfg: ModelConfig, backend=
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
     if plan is None or plan.is_null:
-        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend, rep=_active_replication(plan))
+        y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend, rep=_active_replication(plan),
+                                 want_aux=want_aux)
     elif _is_ep(plan):
-        y, aux, idx = _moe_ep(x_flat, moe_p, cfg, plan, backend=backend)
+        y, aux, idx = _moe_ep(x_flat, moe_p, cfg, plan, backend=backend, want_aux=want_aux)
     else:
         y, aux, idx = _moe_local(x_flat, moe_p, cfg, backend=backend, axes=plan.expert_kernel_axes(cfg.moe_d_ff),
-                                 rep=_active_replication(plan))
+                                 rep=_active_replication(plan), plan=plan, want_aux=want_aux)
     if cfg.n_shared_experts:
         y = y + _shared_ffn(x_flat, moe_p, cfg, plan if plan is not None and not plan.is_null else None)
-    return MoEOut(y.reshape(B, S, d), aux * cfg.router_aux_loss_coef, idx)
+    return MoEOut(y.reshape(B, S, d), aux * cfg.router_aux_loss_coef if want_aux else None, idx)

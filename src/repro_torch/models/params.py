@@ -12,7 +12,7 @@ shard=(plan, rank))`` draws it directly.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,10 +98,36 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes
 
 
+def fsdp_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
+    """ZeRO-3 (the reference's ``fsdp_pspecs`` as written): each leaf's
+    largest dimension that divides the whole mesh is sharded over all its
+    axes (indexed by the global rank), the rest replicated. Like the
+    reference's, it does not skip the stacked-layer dimension (its comment
+    says it does): a leaf can be sharded along L."""
+    axes = tuple(plan.mesh.axis_names)
+    total = plan.axis_size(axes)
+
+    def spec_for(shape):
+        best, best_dim = None, 0
+        for i, dim in enumerate(shape):
+            if dim % total == 0 and dim > best_dim:
+                best, best_dim = i, dim
+        out = [None] * len(shape)
+        if best is not None:
+            out[best] = axes
+        return tuple(out)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else spec_for(v) for k, v in tree.items()}
+
+    return walk(param_shapes(cfg))
+
+
 def param_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
     """The spec of every leaf of ``param_shapes`` under a ShardingPlan (the
-    reference's ``param_pspecs``, without ``fsdp``): a tuple per leaf, an
-    axis name on each sharded dimension. The embedding is sharded over the
+    reference's ``param_pspecs``; ``fsdp_pspecs`` under ``plan.fsdp``): a
+    tuple per leaf, an axis name on each sharded dimension. Every leaf is
+    replicated over the data axis. The embedding is sharded over the
     vocabulary, ``lm_head`` over its vocabulary columns, attention over
     heads (k/v only when the kv heads divide), the dense FFN and the shared
     experts over d_ff, and the routed experts over E (EP) or d_ff (TP).
@@ -110,6 +136,8 @@ def param_pspecs(cfg: ModelConfig, plan) -> Dict[str, Any]:
     shard of ``in_proj``, whose columns are the x half and the z half, is
     a slice of each half (``SPLIT_LEAVES``), where the reference's
     contiguous slice is resharded by XLA after the split."""
+    if getattr(plan, "fsdp", False):
+        return fsdp_pspecs(cfg, plan)
     tp = plan.ffn_tp_axis
     at = plan.attn_tp_axis if plan.attn_mode == "tp_heads" else None
     kv_ok = at is not None and cfg.num_kv_heads % plan.axis_size(at) == 0
@@ -162,23 +190,41 @@ def _sanitize(shapes, specs, plan):
                  for dim, ax in zip(shapes, specs))
 
 
+def leaf_specs(cfg: ModelConfig, plan) -> Dict[str, Tuple]:
+    """``param_pspecs`` flat: {"layers/attn/wq": spec, ...}."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                out[f"{prefix}{k}"] = v
+
+    walk(param_pspecs(cfg, plan), "")
+    return out
+
+
 # leaves whose sharded last dimension is this many blocks, each sharded on
 # its own: a rank's ``in_proj`` holds its channels of x and of z
 SPLIT_LEAVES = {"in_proj": 2}
 
 
-def take_shard(x, spec: Spec, rank: int, sizes: Dict[str, int], parts: int = 1):
+def take_shard(x, spec: Spec, rank, sizes: Dict[str, int], parts: int = 1):
     """``rank``'s shard of ``x`` (numpy or torch; a ``QuantizedExpert``
     takes ``spec`` as its dense spec) under ``spec``; ``parts`` as in
-    ``SPLIT_LEAVES``."""
+    ``SPLIT_LEAVES``. ``rank``: the rank's mesh coordinates
+    ({"data": i, "model": j}, ``RankMesh.coords``), or an int, its index
+    along the axis the spec names."""
     if isinstance(x, QuantizedExpert) or _is_quantized(x):
         qspec = packed_spec_for(spec, tuple(x.packed.shape), sizes)
         return QuantizedExpert(*(t[shard_slices(qspec, t.shape, rank, sizes)] for t in (x.packed, x.scales, x.zeros)))
     return take_slices(x, spec, rank, sizes, parts)
 
 
-def shard_params(params: Params, cfg: ModelConfig, plan, rank: int) -> Params:
-    """``rank``'s shard of a whole params tree (numpy arrays, as the JAX
+def shard_params(params: Params, cfg: ModelConfig, plan, rank) -> Params:
+    """``rank``'s shard (its coordinates, or its model-axis index, as in
+    ``take_shard``) of a whole params tree (numpy arrays, as the JAX
     pytree converts to, or tensors) under ``plan``; feed the result to
     ``params_from_numpy``."""
     sizes = dict(plan.mesh.shape)
@@ -190,6 +236,23 @@ def shard_params(params: Params, cfg: ModelConfig, plan, rank: int) -> Params:
                 for k, v in tree.items()}
 
     return walk(params, specs)
+
+
+def gather_leaf(x: torch.Tensor, spec: Spec, mesh, parts: int = 1) -> torch.Tensor:
+    """The whole leaf from every rank's shard ``x`` under ``spec`` (the
+    inverse of ``take_shard``), on every rank: one all-gather per sharded
+    dimension, over its axis or axes, outside autograd."""
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        n = mesh.axis_size(ax)
+        whole = mesh.all_gather(x, dim, ax)
+        if parts > 1 and n > 1:  # [x_0 z_0 | x_1 z_1] -> [x_0 x_1 | z_0 z_1]
+            w = x.shape[dim] // parts
+            blocks = whole.split(w, dim=dim)
+            whole = torch.cat([blocks[r * parts + p] for p in range(parts) for r in range(n)], dim=dim)
+        x = whole
+    return x
 
 
 def _array(v):
@@ -230,8 +293,13 @@ def _init_leaf(name: str, shape, stacked: bool, generator, device, dt, index=Non
     whole = torch.empty(shape[1:] if stacked else shape, dtype=dt, device=device)
     cut = index[1:] if stacked else index
     parts = SPLIT_LEAVES.get(name, 1)
-    for piece in out if stacked else (out,):
+    # a leaf sharded along L (FSDP) keeps the layers of its slice of L
+    layers = range(shape[0])[index[0]] if stacked else range(1)
+    for layer in range(shape[0]) if stacked else range(1):
         drawn = whole.normal_(0.0, std, generator=generator)
+        if layer not in layers:
+            continue
+        piece = out[layer - layers.start] if stacked else out
         if parts == 1:
             piece.copy_(drawn[cut])
         else:

@@ -34,8 +34,18 @@ so every rank holds the whole logits. A mamba mixer runs tensor-parallel
 over d_inner (``mamba``), its conv window and SSM state per rank. The
 contiguous KV cache follows the plan's ``kv_shard``: a rank's kv heads,
 or under ``seq`` its ``ceil(max_len / n)`` positions of every kv head
-(``attention.cache_layout``). Training has no layout on a mesh yet
-(ROADMAP A.9).
+(``attention.cache_layout``).
+
+The mesh is ``(data, model)``: each rank holds its data rows of the batch
+(the plan's ``dp_axes``; ``specs.dp_index``), and the model axis shards
+the layers as above. Training runs the same layer body under autograd,
+every collective one of ``repro_torch.sharding.autograd``'s, so each
+rank's gradients are those of the one global loss: the cross entropy is
+vocab-parallel and its mean the global one (``common.cross_entropy_loss``).
+Under ``seq_shard_acts`` the residual stream is sequence-sharded over the
+model axis between sublayers (``parallel``); under ``fsdp`` each rank holds
+its shard of every leaf, gathered per layer (its gradient
+reduce-scattered).
 """
 
 from __future__ import annotations
@@ -48,13 +58,15 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.specs import seq_positions
+from repro_torch.sharding import autograd as ad
+from repro_torch.sharding.specs import seq_positions, seq_shards, sp_active
 
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
+from . import parallel
 from .common import cross_entropy_loss, glu_ffn, plain_ffn, rms_norm, softcap
-from .params import layer_slice, layer_slices, torch_dtype
+from .params import layer_slice, layer_slices, param_shapes, torch_dtype
 
 
 @dataclasses.dataclass
@@ -121,7 +133,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, plan=None) -> t
         local = tokens - plan.mesh.rank * rows
         mine = (local >= 0) & (local < rows)
         x = params["embed"][torch.where(mine, local, 0)] * mine[..., None].to(params["embed"].dtype)
-        plan.mesh.all_reduce(x)
+        x = ad.reduce_out(x, plan.mesh, plan.ffn_tp_axis)
     else:
         x = params["embed"][tokens]
     if cfg.scale_embeddings:
@@ -135,14 +147,17 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], plan=
     """The (B, S, d) input sequence of any modality: audio frames
     (``features`` @ ``frontend_proj``), image patches (``patches`` @
     ``frontend_proj``) ahead of the text's token embeddings, or tokens.
-    Frame and patch inputs are cast to the embedding's dtype first."""
+    Frame and patch inputs are cast to the embedding's dtype first. Under
+    ``seq_shard_acts`` this rank's block of the sequence."""
     dt = params["embed"].dtype
     if cfg.frontend == "audio":
-        return batch["features"].to(dt) @ params["frontend_proj"]
-    if cfg.frontend == "vision":
+        x = batch["features"].to(dt) @ params["frontend_proj"]
+    elif cfg.frontend == "vision":
         patches = batch["patches"].to(dt) @ params["frontend_proj"]
-        return torch.cat([patches, embed_tokens(params, cfg, batch["tokens"], plan)], dim=1)
-    return embed_tokens(params, cfg, batch["tokens"], plan)
+        x = torch.cat([patches, embed_tokens(params, cfg, batch["tokens"], plan)], dim=1)
+    else:
+        x = embed_tokens(params, cfg, batch["tokens"], plan)
+    return parallel.whole_out(x, plan, True) if sp_active(plan) else x
 
 
 def unembed(params, cfg: ModelConfig, hidden: torch.Tensor, plan=None) -> torch.Tensor:
@@ -152,74 +167,140 @@ def unembed(params, cfg: ModelConfig, hidden: torch.Tensor, plan=None) -> torch.
     else:
         logits = h @ params["lm_head"]
     if plan is not None and plan.divides(cfg.vocab_size):
-        logits = plan.mesh.all_gather(logits, dim=-1)
+        logits = ad.gather_out(logits, plan.mesh, -1, plan.ffn_tp_axis)
     if cfg.final_logit_softcap > 0:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits
 
 
-def _ffn(x, lp, cfg: ModelConfig, backend=None, plan=None, routes=None):
+def _ffn(x, lp, cfg: ModelConfig, backend=None, plan=None, routes=None, sp: bool = False, want_aux: bool = True):
     """FFN / MoE sublayer on the residual stream: (out, MoE aux loss), out
     None for a model without one (``ffn_type="none"``, whose reference
     adds zeros) and aux None without MoE; a dense FFN runs TP on a mesh
-    (its d_ff sharded, one all-reduce). ``routes``, a list, collects the
-    MoE router's top-k ids."""
+    (its d_ff sharded, one all-reduce; under ``sp`` a reduce-scatter). The
+    MoE takes the whole sequence (``parallel.whole_in``). ``routes``, a
+    list, collects the MoE router's top-k ids; ``want_aux`` False skips
+    the aux (``moe.apply_moe``)."""
     if cfg.ffn_type == "none":
         return None, None
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    mesh = parallel.on_mesh(plan)
+    h = rms_norm(x, parallel.norm_weight(lp["ln2"], plan, sp), cfg.norm_eps)
     aux = None
     if cfg.ffn_type == "dense":
+        tp = mesh and plan.divides(cfg.d_ff)
+        if mesh:
+            h = parallel.tp_in(h, plan, sp) if tp else parallel.whole_in(h, plan, sp)
         if cfg.activation in ("silu", "gelu"):
             out = glu_ffn(h, lp["ffn"]["wi_gate"], lp["ffn"]["wi_up"], lp["ffn"]["wo"], cfg.activation)
         else:
             out = plain_ffn(h, lp["ffn"]["wi"], lp["ffn"]["wo"], cfg.activation)
-        if plan is not None and plan.divides(cfg.d_ff):
-            plan.mesh.all_reduce(out)
+        if mesh:
+            out = parallel.tp_out(out, plan, sp) if tp else parallel.whole_out(out, plan, sp)
     else:
-        moe_out = moe_mod.apply_moe(h, lp["moe"], cfg, backend=backend, plan=plan)
+        moe_out = moe_mod.apply_moe(parallel.whole_in(h, plan, sp) if mesh else h, lp["moe"], cfg, backend=backend,
+                                    plan=plan, want_aux=want_aux)
         out, aux = moe_out.y, moe_out.aux_loss
+        if mesh:
+            out = parallel.whole_out(out, plan, sp)
         if routes is not None:
             routes.append(moe_out.route_idx)
     if cfg.use_post_norm:
-        out = rms_norm(out, lp["ln2_post"], cfg.norm_eps)
+        out = rms_norm(out, parallel.norm_weight(lp["ln2_post"], plan, sp), cfg.norm_eps)
     return out, aux
 
 
-def _fuse(a_out, m_out, lp, cfg: ModelConfig) -> torch.Tensor:
+def _fuse(a_out, m_out, lp, cfg: ModelConfig, plan=None, sp: bool = False) -> torch.Tensor:
     """A hybrid layer's parallel attention and mamba heads, each normed."""
-    return 0.5 * (rms_norm(a_out, lp["fuse_norm_attn"], cfg.norm_eps)
-                  + rms_norm(m_out, lp["fuse_norm_mamba"], cfg.norm_eps))
+    wa, wm = (parallel.norm_weight(lp[k], plan, sp) for k in ("fuse_norm_attn", "fuse_norm_mamba"))
+    return 0.5 * (rms_norm(a_out, wa, cfg.norm_eps) + rms_norm(m_out, wm, cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
 # one layer over the whole sequence (prefill and training)
 # ---------------------------------------------------------------------------
-def layer_full(x, lp, flag, cfg: ModelConfig, plan=None, collect_kv: bool = False, backend=None):
+def layer_full(x, lp, flag, cfg: ModelConfig, plan=None, collect_kv: bool = False, backend=None,
+               want_aux: bool = True):
     """One layer over the whole sequence: (x, its cache entries or None,
     its MoE aux loss or None). With ``collect_kv`` the entries are a dict:
     the rope'd ``k``/``v`` of an attention mixer, the final ``conv``
     window and ``ssm`` state of a mamba one. Nothing is written in place,
     so autograd can differentiate it; prefill writes the entries into its
-    cache."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    cache. Under ``seq_shard_acts`` x is this rank's block of the sequence
+    (the entries cover all of it). ``want_aux`` False: no aux (prefill)."""
+    sp = sp_active(plan)
+    h = rms_norm(x, parallel.norm_weight(lp["ln1"], plan, sp), cfg.norm_eps)
     kv = {} if collect_kv else None
     if cfg.has_attention:
         a_out = attn_mod.attention_block(h, attn_mod.AttnTemps(**lp["attn"]), cfg, flag, return_kv=collect_kv,
-                                         backend=backend, plan=plan)
+                                         backend=backend, plan=plan, sp=sp)
         if collect_kv:
             a_out, (kv["k"], kv["v"]) = a_out
     if cfg.has_mamba:
-        m_out, state = mamba_mod.mamba_mixer(h, lp["mamba"], cfg, plan=plan)
+        m_out, state = mamba_mod.mamba_mixer(h, lp["mamba"], cfg, plan=plan, sp=sp)
         if collect_kv:
             kv["conv"], kv["ssm"] = state.conv, state.ssm
-    out = _fuse(a_out, m_out, lp, cfg) if cfg.block_type == "hybrid" else a_out if cfg.has_attention else m_out
+    if cfg.block_type == "hybrid":
+        out = _fuse(a_out, m_out, lp, cfg, plan, sp)
+    else:
+        out = a_out if cfg.has_attention else m_out
     if cfg.use_post_norm:
-        out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
+        out = rms_norm(out, parallel.norm_weight(lp["ln1_post"], plan, sp), cfg.norm_eps)
     x = x + out
-    ffn, aux = _ffn(x, lp, cfg, backend, plan)
+    ffn, aux = _ffn(x, lp, cfg, backend, plan, sp=sp, want_aux=want_aux)
     if ffn is not None:
         x = x + ffn
     return x, kv, aux
+
+
+def _fsdp(plan) -> bool:
+    return plan is not None and not plan.is_null and getattr(plan, "fsdp", False)
+
+
+def _fsdp_whole(t: torch.Tensor, shape, plan, skip_first: bool = False) -> torch.Tensor:
+    """An FSDP leaf's shard ``t`` (global ``shape``) gathered whole over
+    every mesh axis along the dimension it is sharded on (``skip_first``:
+    a layer slice, whose leading L is gone); under autograd its gradient
+    comes back reduce-scattered."""
+    shape = tuple(shape[1:]) if skip_first else tuple(shape)
+    for dim, (have, want) in enumerate(zip(t.shape, shape)):
+        if have != want:
+            return ad.gather_in(t, plan.mesh, dim, tuple(plan.mesh.axis_names))
+    return t
+
+
+def _fsdp_outer(params, cfg: ModelConfig, plan):
+    """Under FSDP: the leaves outside the layers whole, and each layer
+    leaf sharded along L whole too (the rest stay shards, gathered a layer
+    at a time by ``_fsdp_layer``). Otherwise ``params``."""
+    if not _fsdp(plan):
+        return params
+    shapes = param_shapes(cfg)
+
+    def walk(tree, shp, top):
+        return {k: walk(v, shp[k], top and k != "layers") if isinstance(v, dict)
+                else _fsdp_whole(v, shp[k], plan) if top or v.shape[0] != shp[k][0] else v
+                for k, v in tree.items()}
+
+    return walk(params, shapes, True)
+
+
+def _fsdp_layer(lp, cfg: ModelConfig, plan):
+    """A layer's leaves whole (FSDP: each gathered from its shards)."""
+    if not _fsdp(plan):
+        return lp
+    shapes = param_shapes(cfg)["layers"]
+
+    def walk(tree, shp):
+        return {k: walk(v, shp[k]) if isinstance(v, dict) else _fsdp_whole(v, shp[k], plan, skip_first=True)
+                for k, v in tree.items()}
+
+    return walk(lp, shapes)
+
+
+def _layer(x, lp, flag, cfg: ModelConfig, plan, collect_kv: bool, backend, want_aux: bool = True):
+    """``layer_full`` on a layer's leaves as this rank holds them (FSDP:
+    its shards, gathered here, so that remat gathers them again)."""
+    return layer_full(x, _fsdp_layer(lp, cfg, plan), flag, cfg, plan, collect_kv, backend, want_aux)
 
 
 # the products ``remat="dots"`` keeps: the plain matmuls (a (B, S, d) @ (d,
@@ -250,21 +331,26 @@ def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, plan=None, collect
     fallback. ``remat=True`` recomputes each layer in the backward
     (``torch.utils.checkpoint``); ``remat="dots"`` keeps the plain matmuls'
     outputs and recomputes the rest, as the reference's
-    ``dots_with_no_batch_dims_saveable`` policy does."""
+    ``dots_with_no_batch_dims_saveable`` policy does.
+
+    On a mesh (``plan``) x holds this rank's data rows (and, under
+    ``seq_shard_acts``, its block of the sequence); every rank runs the
+    same layers in the same order, so the collectives a recomputed layer
+    runs again in the backward meet on every rank. Under ``fsdp`` each
+    layer's leaves are gathered inside the recomputed body."""
     _check_layers(cfg)
-    if plan is not None and not plan.is_null:
-        raise not_ported("training on a mesh", "A.9")
     if remat == "dots":
         context = functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, _dots_saveable)
-        run = functools.partial(torch_checkpoint.checkpoint, layer_full, use_reentrant=False, context_fn=context)
+        run = functools.partial(torch_checkpoint.checkpoint, _layer, use_reentrant=False, context_fn=context)
     elif remat:
-        run = functools.partial(torch_checkpoint.checkpoint, layer_full, use_reentrant=False)
+        run = functools.partial(torch_checkpoint.checkpoint, _layer, use_reentrant=False)
     else:
-        run = layer_full
+        run = _layer
     flags = cfg.global_layer_flags()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for layer, lp in enumerate(layer_slices(params["layers"], cfg.num_layers)):
+    layers = _fsdp_outer({"layers": params["layers"]}, cfg, plan)["layers"]
+    for layer, lp in enumerate(layer_slices(layers, cfg.num_layers)):
         x, kv, layer_aux = run(x, lp, flags[layer], cfg, plan, collect_kv, backend)
         if layer_aux is not None:
             aux = aux + layer_aux
@@ -280,12 +366,27 @@ def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], plan=
     {"ce", "aux"}). Decoders predict ``batch["labels"]`` (B, S); the
     encoder-only model (HuBERT) predicts a codebook label per frame; a
     vision batch's labels cover only the text, the patches being context.
-    ``batch["loss_mask"]``, when present, weights the positions."""
+    ``batch["loss_mask"]``, when present, weights the positions. On a mesh
+    the batch holds this rank's data rows (``data.pipeline.local_rows``),
+    the parameters its shards, and the loss is the global one on every
+    rank."""
+    params = _fsdp_outer(params, cfg, plan)
     x = embed_inputs(params, cfg, batch, plan)
     h, _, aux = forward_hidden(params, cfg, x, plan, remat=remat)
+    # the final norm on the rank's positions, the whole sequence gathered
+    # under seq_shard_acts, the logits vocab-parallel on a mesh
+    sp, vocab = sp_active(plan), plan is not None and plan.divides(cfg.vocab_size)
+    h = rms_norm(h, parallel.norm_weight(params["final_norm"], plan, sp), cfg.norm_eps)
+    if vocab:
+        h = parallel.tp_in(h, plan, sp)
+    elif sp:
+        h = parallel.whole_in(h, plan, sp)
     if cfg.frontend == "vision":
         h = h[:, -batch["tokens"].shape[1]:, :]
-    ce = cross_entropy_loss(unembed(params, cfg, h), batch["labels"], batch.get("loss_mask"))
+    logits = h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if cfg.final_logit_softcap > 0:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"), plan, vocab_parallel=vocab)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -304,7 +405,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     if cfg.has_attention:
         kv_dt = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else dtype
         if attn_mod.cache_layout(cfg, plan, paged=False) == "seq":
-            max_len = seq_positions(max_len, plan.mesh.size)
+            max_len = seq_positions(max_len, seq_shards(plan)[1])
         shape = (cfg.num_layers, batch, max_len, attn_mod.local_kv_heads(cfg, plan), cfg.head_dim)
         k = torch.zeros(shape, dtype=kv_dt, device=device)
         v = torch.zeros(shape, dtype=kv_dt, device=device)
@@ -352,24 +453,27 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
     decode reads none of them before writing it. Encoder-only models
     have no prefill."""
     _check_decoder(cfg)
+    params = _fsdp_outer(params, cfg, plan)
     x = embed_inputs(params, cfg, batch, plan)
-    B, S = x.shape[0], x.shape[1]
+    B = x.shape[0]
+    S = x.shape[1] * (plan.axis_size(plan.attn_tp_axis) if sp_active(plan) else 1)
     seq = attn_mod.cache_layout(cfg, plan, paged=False) == "seq"
     if cache is None:
         cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device, plan=plan)
     else:
         shape = tuple((cache.k if cache.k is not None else cache.conv).shape)
-        length = seq_positions(max_len, plan.mesh.size) if seq else max_len
+        length = seq_positions(max_len, seq_shards(plan)[1]) if seq else max_len
         if cache.block_tables is not None or shape[1] != B or (cache.k is not None and shape[2] != length):
             raise ValueError(f"prefill fills a contiguous cache of {B} rows x {max_len} positions, got {shape}")
     # the prompt positions [lo, hi) this rank's cache holds, from its offset
     lo, hi, off = 0, S, 0
     if seq:
-        off = plan.mesh.rank * seq_positions(max_len, plan.mesh.size)
+        index, n = seq_shards(plan)
+        off = index * seq_positions(max_len, n)
         lo, hi = min(off, S), min(off + cache.k.shape[2], S)
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
-        x, kv, _ = layer_full(x, layer_slice(params["layers"], layer), flags[layer], cfg, plan, True, backend)
+        x, kv, _ = _layer(x, layer_slice(params["layers"], layer), flags[layer], cfg, plan, True, backend, False)
         # in place, layer by layer: JAX wrote the stacked K/V in one update
         if cfg.has_attention:
             cache.k[layer, :, lo - off:hi - off] = kv["k"][:, lo:hi].to(cache.k.dtype)
@@ -379,6 +483,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], max_len: i
             cache.ssm[layer] = kv["ssm"]
         del kv
     cache.pos.fill_(S)
+    if sp_active(plan):  # the last position is on the last rank of the model axis
+        x = plan.mesh.all_gather(x[:, -1:, :], dim=1, axis=plan.attn_tp_axis)
     logits = unembed(params, cfg, x[:, -1:, :], plan)
     return logits[:, 0], cache
 
@@ -429,11 +535,12 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
     if C != 1 and cfg.has_mamba:
         raise ValueError(f"{cfg.name}: chunked append is attention-only (a mamba layer steps one token), got C={C}")
     routes = [] if collect_routing and cfg.ffn_type == "moe" else None
+    params = _fsdp_outer(params, cfg, plan)
     x = embed_tokens(params, cfg, token, plan)
     pos = torch.as_tensor(cache.pos, dtype=torch.int32, device=x.device)
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], layer)
+        lp = _fsdp_layer(layer_slice(params["layers"], layer), cfg, plan)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.has_attention:
             a_out, _, _ = attn_mod.decode_attention(
@@ -447,7 +554,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
         if cfg.use_post_norm:
             out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
         x = x + out
-        ffn, _ = _ffn(x, lp, cfg, backend, plan, routes)
+        ffn, _ = _ffn(x, lp, cfg, backend, plan, routes, want_aux=False)
         if ffn is not None:
             x = x + ffn
     logits = unembed(params, cfg, x[:, -1:, :], plan)

@@ -28,9 +28,17 @@ The decode-cache layouts are the reference's: ``heads``, ``seq`` (each
 rank holds ``ceil(max_len / n)`` positions of every kv head; only the
 contiguous cache takes it, a paged pool stays whole on every rank, as the
 reference constrains a pool only under ``heads``), ``seq_all`` (the
-sequence over every mesh axis: on the port's 1-D ``("model",)`` mesh the
-same partition as ``seq``) and ``none`` (whole). Data-parallel axes of
-size > 1, ``seq_shard_acts`` and ``fsdp`` are not ported yet (ROADMAP A.9).
+sequence over every mesh axis, ``seq_shards``: on a mesh with no data
+axis the same partition as ``seq``) and ``none`` (whole).
+
+The mesh is the reference's ``(data, model)``. Data-parallel axes
+(``dp_axes``) shard the batch rows: a rank holds the rows of its index
+along them (``dp_index``). ``seq_shard_acts`` (Megatron sequence
+parallelism) keeps the residual stream sequence-sharded on the model axis
+between sublayers; ``fsdp`` (ZeRO-3) shards every parameter over every
+mesh axis (``models.params.fsdp_pspecs``), gathered per layer. Both are
+training layouts: the serving engine takes neither, nor a data axis of
+size > 1 (``unported_layout``, ROADMAP A.9).
 
 Expert replication differs in one point: the reference gathers each slot's
 weights from the expert-layout leaves inside every step; here the engine
@@ -135,6 +143,15 @@ class ShardingPlan:
     ffn_tp_axis: Optional[str] = None
     ep_axis: Optional[str] = None
     seq_axis: Optional[str] = None
+    # Megatron-style sequence parallelism: residual-stream activations
+    # (B, S, d) live sequence-sharded on the TP axis between sublayers, so
+    # the per-sublayer all-reduce becomes reduce-scatter + all-gather. Off
+    # for decode (S = 1).
+    seq_shard_acts: bool = False
+    # FSDP / ZeRO-3: every parameter (and optimizer moment) sharded over
+    # ALL mesh axes; weights all-gathered per layer, gradients
+    # reduce-scattered: pure data-parallel compute.
+    fsdp: bool = False
     # Hot-expert replication: when set, MoE dispatch routes token copies
     # to replica *slots* (see ExpertReplication) instead of raw expert ids,
     # and the expert leaves are laid out in those slots. Part of the frozen
@@ -151,16 +168,22 @@ class ShardingPlan:
     def is_null(self) -> bool:
         return self.mesh is None
 
-    def axis_size(self, name: Optional[str]) -> int:
+    def axis_size(self, name) -> int:
+        """The size of mesh axis ``name`` (a tuple: the product)."""
         if self.mesh is None or name is None:
             return 1
-        return self.mesh.shape[name]
+        n = 1
+        for a in (name,) if isinstance(name, str) else name:
+            n *= self.mesh.shape[a]
+        return n
 
     def divides(self, n: int, axis: Optional[str] = None) -> bool:
         """Whether a dimension of extent ``n`` shards over ``axis`` (the
         model axis by default): the rule ``param_pspecs`` applies to every
-        weight."""
-        return self.mesh is not None and n % self.axis_size(axis or self.ffn_tp_axis) == 0
+        weight. A plan with no such axis (FSDP's, pure data parallelism)
+        shards nothing over it: False."""
+        axis = axis or self.ffn_tp_axis
+        return self.mesh is not None and axis is not None and n % self.axis_size(axis) == 0
 
     # -- kernel-seam axis resolution --------------------------------------
     def attn_kernel_axes(self, num_q_heads: int, num_kv_heads: int) -> Optional[KernelShardAxes]:
@@ -260,12 +283,13 @@ def make_plan(mesh, cfg, *, attn_override: str = "", expert_mode: str = "", kv_s
 
 
 def adapt_plan_for_batch(plan: ShardingPlan, cfg, batch: int, kind: str) -> ShardingPlan:
-    """Shape-aware fixup: a batch that does not divide the DP axes cannot
-    be data-sharded; drop DP and spread a decode cache's sequence over
-    every axis instead. (The reference also turns on ``seq_shard_acts``
-    for prefill, which is not ported: ROADMAP A.9.)"""
+    """Shape-aware fixups (the reference's rule): sequence-sharded
+    activations for ``train`` and ``prefill``; and a batch that does not
+    divide the DP axes cannot be data-sharded: drop DP and spread a decode
+    cache's sequence over every axis instead."""
     if plan.is_null:
         return plan
+    plan = dataclasses.replace(plan, seq_shard_acts=kind in ("train", "prefill"))
     dp_size = 1
     for a in plan.dp_axes:
         dp_size *= plan.axis_size(a)
@@ -276,9 +300,12 @@ def adapt_plan_for_batch(plan: ShardingPlan, cfg, batch: int, kind: str) -> Shar
 
 
 def unported_layout(plan: Optional[ShardingPlan]) -> Optional[str]:
-    """What of ``plan`` the port cannot execute yet (ROADMAP A.9), or None:
-    a data-parallel mesh axis of size > 1 (in the plan's ``dp_axes``, or
-    in its mesh, which a ``seq_all`` cache would span)."""
+    """What of ``plan`` the serving engine cannot execute yet (ROADMAP
+    A.9), or None: a data-parallel mesh axis of size > 1 (in the plan's
+    ``dp_axes``, or in its mesh, which a ``seq_all`` cache would span), and
+    the training layouts ``fsdp`` and ``seq_shard_acts``. The model-level
+    entry points (``loss_and_aux``, ``prefill``, ``decode_step``) run them
+    all."""
     if plan is None or plan.is_null:
         return None
     model = plan.ffn_tp_axis or plan.attn_tp_axis or "model"
@@ -286,12 +313,54 @@ def unported_layout(plan: Optional[ShardingPlan]) -> Optional[str]:
     big = sorted(a for a in axes if plan.axis_size(a) > 1)
     if big:
         return f"data-parallel mesh axes {big} of size > 1"
+    if plan.fsdp or plan.seq_shard_acts:
+        return "the training layouts fsdp and seq_shard_acts"
     return None
+
+
+def dp_axes(plan: Optional[ShardingPlan]) -> Tuple[str, ...]:
+    """The plan's data-parallel axes of size > 1: the batch rows are
+    sharded over them."""
+    if plan is None or plan.is_null:
+        return ()
+    return tuple(a for a in plan.dp_axes if plan.axis_size(a) > 1)
+
+
+def dp_size(plan: Optional[ShardingPlan]) -> int:
+    n = 1
+    for a in dp_axes(plan):
+        n *= plan.axis_size(a)
+    return n
+
+
+def dp_index(plan: Optional[ShardingPlan]) -> int:
+    """This rank's index along the data-parallel axes (row-major over
+    them): it holds rows ``[i * B / n, (i + 1) * B / n)`` of a batch of B."""
+    axes = dp_axes(plan)
+    return plan.mesh.axis_index(axes) if axes else 0
+
+
+def sp_active(plan: Optional[ShardingPlan]) -> bool:
+    """Whether the residual stream is sequence-sharded under ``plan``:
+    ``seq_shard_acts`` with a TP axis of more than one rank."""
+    return (plan is not None and not plan.is_null and plan.seq_shard_acts and plan.attn_tp_axis is not None
+            and plan.axis_size(plan.attn_tp_axis) > 1)
+
+
+def seq_shards(plan: ShardingPlan) -> Tuple[int, int]:
+    """(this rank's index, the number of shards) of a sequence-sharded
+    decode cache: over the TP axis under ``seq``, over every mesh axis
+    under ``seq_all`` (on a mesh with no data axis, the same)."""
+    mesh = plan.mesh
+    if plan.kv_shard == "seq_all" and plan.axis_size("data" if "data" in mesh.axis_names else None) > 1:
+        axes = tuple(mesh.axis_names)
+        return mesh.axis_index(axes), plan.axis_size(axes)
+    return mesh.rank, plan.axis_size(plan.attn_tp_axis or "model")
 
 
 def seq_sharded(plan: Optional[ShardingPlan]) -> bool:
     """Whether ``plan`` shards a contiguous decode cache over its positions
-    (``seq``, or ``seq_all``, the same partition on a 1-D mesh)."""
+    (``seq``, or ``seq_all``: ``seq_shards`` gives the partition)."""
     return plan is not None and not plan.is_null and plan.kv_shard in ("seq", "seq_all")
 
 
@@ -301,11 +370,12 @@ def seq_positions(max_len: int, n: int) -> int:
     return -(-max_len // n)
 
 
-def take_slices(x, spec: Spec, rank: int, sizes: Dict[str, int], parts: int = 1):
-    """``rank``'s shard of ``x`` (numpy or torch) laid out by ``spec``.
-    ``parts`` > 1: the sharded dimension is that many equal blocks, each
-    sharded on its own, and the shard is every block's slice, concatenated
-    (mamba's ``in_proj``, whose columns are the x half and the z half)."""
+def take_slices(x, spec: Spec, rank, sizes: Dict[str, int], parts: int = 1):
+    """``rank``'s shard of ``x`` (numpy or torch) laid out by ``spec``
+    (``rank`` as in ``shard_slices``). ``parts`` > 1: the sharded dimension
+    is that many equal blocks, each sharded on its own, and the shard is
+    every block's slice, concatenated (mamba's ``in_proj``, whose columns
+    are the x half and the z half)."""
     d = sharded_dim(spec)
     if parts == 1 or d is None:
         return x[shard_slices(spec, x.shape, rank, sizes)]
@@ -319,16 +389,44 @@ def take_slices(x, spec: Spec, rank: int, sizes: Dict[str, int], parts: int = 1)
     return torch.cat(pieces, dim=d)
 
 
-def shard_slices(spec: Spec, shape, rank: int, sizes: Dict[str, int]) -> Tuple[slice, ...]:
+def axis_coord(ax, rank, sizes: Dict[str, int]) -> Tuple[int, int]:
+    """(index, size) of a rank along a spec entry ``ax``: an axis name or a
+    tuple of them (FSDP's ``("data", "model")``: row-major, the global
+    rank). ``rank`` is the rank's coordinates ({axis: index}, as
+    ``RankMesh.coords``) or an int: its index along ``ax``."""
+    axes = (ax,) if isinstance(ax, str) else tuple(ax)
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    if not isinstance(rank, dict):
+        return rank, size
+    i = 0
+    for a in axes:
+        i = i * sizes[a] + rank[a]
+    return i, size
+
+
+def shard_slices(spec: Spec, shape, rank, sizes: Dict[str, int]) -> Tuple[slice, ...]:
     """The index of ``rank``'s shard of a tensor of global ``shape`` laid
-    out by ``spec``: one slice per dimension (``sizes``: axis -> size)."""
+    out by ``spec``: one slice per dimension (``sizes``: axis -> size;
+    ``rank`` as in ``axis_coord``)."""
     out = []
     for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
         if ax is None:
             out.append(slice(None))
         else:
-            step = dim // sizes[ax]
-            out.append(slice(rank * step, (rank + 1) * step))
+            i, n = axis_coord(ax, rank, sizes)
+            step = dim // n
+            out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` shards over."""
+    out = []
+    for ax in spec:
+        if ax is not None:
+            out.extend((ax,) if isinstance(ax, str) else ax)
     return tuple(out)
 
 
@@ -338,12 +436,12 @@ def packed_spec_for(spec: Spec, packed_shape, sizes: Dict[str, int]) -> Spec:
     the global ``packed_shape`` does not divide dropped, as the reference's
     ``_quantized_shardings`` does (DeepSeek's ``wi`` under TP2: 11 groups of
     128 do not split in two, so it stays whole on every rank)."""
-    return tuple(ax if ax is not None and dim % sizes[ax] == 0 else None
+    return tuple(ax if ax is not None and dim % axis_coord(ax, 0, sizes)[1] == 0 else None
                  for dim, ax in zip(packed_shape, quantized_pspec(spec)))
 
 
 def sharded_dim(spec: Spec) -> Optional[int]:
-    """The dimension ``spec`` shards (a 1-D mesh shards at most one), or
-    None."""
+    """The dimension ``spec`` shards (a weight's spec shards at most one),
+    or None."""
     dims = [i for i, ax in enumerate(spec) if ax is not None]
     return dims[0] if dims else None

@@ -52,14 +52,37 @@ def _slices(t: torch.Tensor):
     return t.unbind(0) if t.ndim >= 3 else (t,)
 
 
+def global_norm(flat_g, mesh=None, shard_axes=None) -> torch.Tensor:
+    """The global L2 norm of the gradient leaves ``flat_g``. On a mesh each
+    leaf is this rank's shard, sharded over ``shard_axes[i]`` (a tuple of
+    mesh axes, () where it is whole on every rank): each element counts
+    once, the squares of the leaves sharded alike summed over their axes
+    in one all-reduce."""
+    if mesh is None:
+        return torch.sqrt(sum(s.float().square().sum() for g in flat_g for s in _slices(g)))
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for i, g in enumerate(flat_g):
+        axes = tuple(shard_axes[i])
+        sq = sum(s.float().square().sum() for s in _slices(g))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    total = 0
+    for axes, sq in groups.items():
+        total = total + (mesh.all_reduce(sq, axes) if axes else sq)
+    return torch.sqrt(total)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, *, lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0) -> Tuple[Dict[str, Any], AdamWState, torch.Tensor]:
+                 weight_decay: float = 0.1, grad_clip: float = 1.0, mesh=None,
+                 shard_axes=None) -> Tuple[Dict[str, Any], AdamWState, torch.Tensor]:
     """One AdamW step with global-norm clipping: (params, new state, the
     gradient's global norm before clipping). ``params`` and the moments
-    are updated in place and returned; ``lr`` a float or a 0-dim tensor."""
+    are updated in place and returned; ``lr`` a float or a 0-dim tensor.
+    On a mesh the leaves are this rank's shards and the clip reads the
+    whole gradient's norm (``global_norm``, ``shard_axes`` in leaf order);
+    the update itself is elementwise, per shard."""
     flat_g = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(s.float().square().sum() for g in flat_g for s in _slices(g)))
+    gnorm = global_norm(flat_g, mesh, shard_axes)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     b1c = 1 - torch.pow(b1, step.float())

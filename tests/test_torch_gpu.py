@@ -1360,3 +1360,65 @@ def test_serve_launcher_on_the_card():
     assert [c.tokens for c in again.run()] == [c.tokens for c in done]
     eng.close()
     again.close()
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh (ROADMAP A.9's training half)
+# ---------------------------------------------------------------------------
+def _gpu_train_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-moe-16b").reduced(), dtype="float32", capacity_factor=8.0)
+
+
+def gloo_train_rank(mesh, steps: int, batch: int, seq: int):
+    """One rank of ``test_train_step_on_two_gloo_ranks_equals_one_rank``:
+    TP-heads attention and TP experts on the card, its shard of the seeded
+    state; returns the history and the gathered parameters (rank 0)."""
+    from repro_torch.data import synthetic_lm_data
+    from repro_torch.models.params import SPLIT_LEAVES, gather_leaf, leaf_specs
+    from repro_torch.sharding.specs import make_plan
+    from repro_torch.training.train_loop import init_train_state, train_loop
+    from repro_torch.training.tree import tree_items
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _gpu_train_config()
+    plan = make_plan(mesh, cfg, expert_mode="tp")
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda", plan=plan)
+    hist = []
+    state = train_loop(cfg, synthetic_lm_data(cfg, batch, seq, plan=plan), steps, plan=plan, state=state,
+                       log_every=0, history=hist)
+    specs = leaf_specs(cfg, plan)
+    params = {n: gather_leaf(t.detach(), specs[n], mesh, SPLIT_LEAVES.get(n.rsplit("/", 1)[-1], 1)).cpu()
+              for n, t in tree_items(state.params)}
+    return {"history": hist, "params": params if mesh.index == 0 else None}
+
+
+def test_train_step_on_two_gloo_ranks_equals_one_rank(tmp_path):
+    """Reduced DeepSeekMoE-16B in float32, two train steps: two gloo ranks
+    sharing the card (TP2 heads, TP2 experts, each rank its shard) give one
+    rank's losses (1e-5), grad norms (1e-4) and parameters (rel L2 1e-4)."""
+    import os
+
+    from repro_torch.data import synthetic_lm_data
+    from repro_torch.sharding.launch import spawn
+    from repro_torch.training.train_loop import train_loop
+    from repro_torch.training.tree import tree_items
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _gpu_train_config()
+    steps, batch, seq = 2, 2, 32
+    hist = []
+    state = train_loop(cfg, synthetic_lm_data(cfg, batch, seq), steps, log_every=0, device=dev, history=hist)
+    ranks = spawn("test_torch_gpu:gloo_train_rank", 2, backend="gloo", args={"steps": steps, "batch": batch,
+                                                                          "seq": seq},
+                  workdir=str(tmp_path), timeout=600, pythonpath=(os.path.dirname(os.path.abspath(__file__)),))
+    for r in ranks:
+        for got, want in zip(r["history"], hist):
+            assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+            assert got["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-4)
+    for name, t in tree_items(state.params):
+        got, want = ranks[0]["params"][name].double(), t.detach().cpu().double()
+        assert float((got - want).norm() / want.norm()) < 1e-4, name

@@ -197,3 +197,67 @@ def test_gmm_plan_covers_the_sharded_shapes(shape, dtype):
     assert (plan.f_tiles - 1) * plan.bm < f <= plan.f_tiles * plan.bm  # 704 = 5.5 tiles of 128
     assert (plan.passes - 1) * plan.n < C <= plan.passes * plan.n
     assert plan.variant == ("wgmma" if dtype == torch.bfloat16 else "simt")
+
+
+# the (data, model) meshes training runs on
+MESHES_2D = [(1, 2), (2, 2), (4, 1)]
+
+
+def _fsdp_plan(mod, mesh):
+    """The reference dry run's FSDP plan (``repro/launch/dryrun.py:265``)."""
+    return mod.ShardingPlan(mesh=mesh, dp_axes=tuple(mesh.axis_names), attn_mode="replicated", kv_shard="none",
+                            ffn_mode="tp", ffn_tp_axis=None, ep_axis=None, fsdp=True)
+
+
+@pytest.mark.parametrize("dm", MESHES_2D, ids=lambda dm: "{}x{}".format(*dm))
+@pytest.mark.parametrize("name", list_configs())
+def test_2d_plans_and_specs_equal_reference(name, dm):
+    """On a (data, model) mesh: the resolver's plans (default, TP experts,
+    and the FSDP plan), ``adapt_plan_for_batch`` for train, prefill and
+    decode at batches that do and do not divide the data axis (its
+    ``seq_shard_acts`` included), and ``param_pspecs`` (FSDP's tuple of
+    axes included), all the reference's."""
+    cfg, jcfg = get_config(name), jget_config(name)
+    mesh = _mesh(dm[1], dp=dm[0])
+    fields = FIELDS + ("kv_shard", "seq_shard_acts", "fsdp")
+    for mode in ("", "tp"):
+        got, want = specs.make_plan(mesh, cfg, expert_mode=mode), jspecs.make_plan(mesh, jcfg, expert_mode=mode)
+        assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}
+        for batch in (1, 3, 4):
+            for kind in ("train", "prefill", "decode"):
+                a = specs.adapt_plan_for_batch(got, cfg, batch, kind)
+                b = jspecs.adapt_plan_for_batch(want, jcfg, batch, kind)
+                assert {f: getattr(a, f) for f in fields} == {f: getattr(b, f) for f in fields}, (batch, kind)
+    for got, want in ((specs.make_plan(mesh, cfg), jspecs.make_plan(mesh, jcfg)),
+                      (_fsdp_plan(specs, mesh), _fsdp_plan(jspecs, mesh))):
+        shapes = param_shapes(cfg)
+        jtree = _spec_tree(jparam_pspecs(jcfg, want))
+
+        def pad(t, shape):
+            return {k: pad(v, shape[k]) if isinstance(v, dict) else tuple(v) + (None,) * (len(shape[k]) - len(v))
+                    for k, v in t.items()}
+
+        assert param_pspecs(cfg, got) == pad(jtree, shapes)
+
+
+def test_divides_needs_a_model_axis():
+    """A plan with no model axis (FSDP's, whose ``ffn_tp_axis`` is None)
+    shards no dimension over it: ``divides`` is False, so no replicated
+    product is all-reduced over the ranks."""
+    cfg = get_config("deepseek-moe-16b")
+    mesh = _mesh(2, dp=2)
+    fsdp = _fsdp_plan(specs, mesh)
+    assert not fsdp.divides(cfg.vocab_size) and not fsdp.divides(cfg.d_model)
+    assert specs.make_plan(mesh, cfg).divides(cfg.vocab_size)
+    assert not specs.NULL_PLAN.divides(cfg.vocab_size)
+
+
+def test_shard_slices_index_a_tuple_of_axes_by_the_global_rank():
+    """FSDP's ``("data", "model")`` entry: rank (i, j) of a (2, 2) mesh
+    holds block i * 2 + j; a single axis takes that axis's index."""
+    sizes = {"data": 2, "model": 2}
+    got = [specs.shard_slices((("data", "model"), None), (8, 3), {"data": i, "model": j}, sizes)[0]
+           for i in range(2) for j in range(2)]
+    assert got == [slice(0, 2), slice(2, 4), slice(4, 6), slice(6, 8)]
+    assert specs.shard_slices(("model",), (8,), {"data": 1, "model": 1}, sizes) == (slice(4, 8),)
+    assert specs.shard_slices(("model",), (8,), 1, sizes) == (slice(4, 8),)

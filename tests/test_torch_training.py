@@ -22,7 +22,6 @@ import dataclasses
 import os
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -342,17 +341,35 @@ def test_train_loop_runs_with_checkpointing(tmp_path):
     assert all(np.isfinite(h["loss"]) for h in hist)
 
 
-def test_training_on_a_mesh_is_not_ported():
-    """``forward_hidden`` refuses a plan, so its callers (the loss and the
-    train step) do too."""
+def test_training_on_a_mesh_is_not_ported(tmp_path):
+    """Named for what it once checked: training on a mesh is ported now.
+    The same calls (the loss and the train step) under a plan on a
+    one-rank ``(1, 1)`` mesh, whose collectives are all the identity, give
+    the one-device values; ``tests/test_torch_sharded_train.py`` holds
+    four ranks to the reference."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.mesh import RankMesh
+    from repro_torch.sharding.specs import make_plan
+
     cfg_j, cfg, jparams, batch = _setup("deepseek-moe-16b")
-    mesh_plan = types.SimpleNamespace(is_null=False, divides=lambda n: False)
-    params = params_from_numpy(jparams, "cpu")
-    step = make_train_step(cfg, mesh_plan)
-    for call in (lambda: loss_and_aux(params, cfg, _torch_batch(batch), mesh_plan),
-                 lambda: step(TrainState(params, optimizer.adamw_init(params)), batch)):
-        with pytest.raises(NotImplementedError, match="training on a mesh is not ported.*A.9"):
-            call()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh_plan = make_plan(RankMesh(), cfg)
+        assert mesh_plan.ffn_mode == "ep" and mesh_plan.attn_mode == "tp_heads"
+        want, wm = loss_and_aux(params_from_numpy(jparams, "cpu"), cfg, _torch_batch(batch))
+        params = params_from_numpy(jparams, "cpu")
+        got, m = loss_and_aux(params, cfg, _torch_batch(batch), mesh_plan)
+        for g, w in ((got, want), (m["ce"], wm["ce"]), (m["aux"], wm["aux"])):
+            _close(g.detach(), w.detach())
+        one = params_from_numpy(jparams, "cpu")
+        _, m1 = make_train_step(cfg)(TrainState(one, optimizer.adamw_init(one)), batch)
+        _, m2 = make_train_step(cfg, mesh_plan)(TrainState(params, optimizer.adamw_init(params)), batch)
+        _close(m2["grad_norm"], m1["grad_norm"])
+        for a, b in zip(tree_leaves(params), tree_leaves(one)):
+            _close(a.detach(), b.detach())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_launcher_runs(tmp_path):
@@ -362,6 +379,12 @@ def test_train_launcher_runs(tmp_path):
                          capture_output=True, text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "step     2 loss=" in res.stdout and checkpoint.latest_step(str(tmp_path)) == 3
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu"],
-                         capture_output=True, text=True, env=dict(env, WORLD_SIZE="2"), timeout=300)
-    assert res.returncode != 0 and "training on a mesh is not ported" in res.stderr
+    # two ranks from torchrun's environment: the launcher makes a gloo group
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+                          "--standalone", "-m", "repro_torch.launch.train", "--device", "cpu", "--steps", "2",
+                          "--seq", "16"], capture_output=True, text=True, env=dict(env, OMP_NUM_THREADS="1"),
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "process group: gloo, 2 ranks" in res.stdout
+    assert "mesh {'data': 1, 'model': 2} plan: attn=tp_heads ffn=tp" in res.stdout
+    assert res.stdout.count("step     1 loss=") == 1  # rank 0 alone logs

@@ -1,7 +1,8 @@
-"""Helpers of the port's two-rank tests (``tests/test_torch_sharded_*.py``):
-the JAX reference runs in one subprocess on two forced host devices, the
-port in two gloo ranks started by ``repro_torch.sharding.launch.spawn``,
-and the two sides meet through npz files in the test's ``tmp_path``."""
+"""Helpers of the port's multi-rank tests (``tests/test_torch_sharded_*.py``):
+the JAX reference runs in one subprocess on forced host devices (two by
+default), the port in as many gloo ranks started by
+``repro_torch.sharding.launch.spawn``, and the two sides meet through npz
+files in the test's ``tmp_path``."""
 
 import os
 import subprocess
@@ -15,10 +16,11 @@ ROOT = os.path.dirname(TESTS)
 SRC = os.path.join(ROOT, "src")
 
 
-def run_jax(code: str, *argv: str, timeout: float = 600) -> str:
-    """Run ``code`` (with ``argv``) in a subprocess whose JAX sees two CPU
-    devices; returns its stdout, raising with its output if it fails."""
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2", JAX_PLATFORMS="cpu",
+def run_jax(code: str, *argv: str, timeout: float = 600, devices: int = 2) -> str:
+    """Run ``code`` (with ``argv``) in a subprocess whose JAX sees
+    ``devices`` CPU devices; returns its stdout, raising with its output if
+    it fails."""
+    env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([SRC, TESTS]))
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(code), *argv], capture_output=True, text=True,
                        env=env, timeout=timeout)
@@ -27,12 +29,13 @@ def run_jax(code: str, *argv: str, timeout: float = 600) -> str:
     return r.stdout
 
 
-def run_ranks(target: str, workdir, timeout: float = 600, **args):
-    """``target`` ("module:function", a module of ``tests/``) on two gloo
-    ranks over the CPU; returns both ranks' results."""
+def run_ranks(target: str, workdir, timeout: float = 600, world_size: int = 2, **args):
+    """``target`` ("module:function", a module of ``tests/``) on
+    ``world_size`` gloo ranks over the CPU (two by default); returns every
+    rank's result."""
     from repro_torch.sharding.launch import spawn
 
-    return spawn(target, 2, backend="gloo", args=args, timeout=timeout, workdir=str(workdir),
+    return spawn(target, world_size, backend="gloo", args=args, timeout=timeout, workdir=str(workdir),
                  env={"OMP_NUM_THREADS": "1"}, pythonpath=(TESTS,))
 
 
