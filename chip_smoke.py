@@ -186,6 +186,20 @@ printing one JSON line:
              hopper kernels, heads and seq caches, against one rank routing
              each quarter of the tokens alone (the sharded bounds), launches
              exact; the reduced train launcher on the four ranks against one
+             rank. Then, in the same four ranks, ``sharded_data``: the
+             serving engine on (2, 2), each data rank serving its rows or
+             slots, DeepSeekMoE-16B at full width, 4 of 28 layers, bf16:
+             ``run()`` under TP2/EP2 on the serve traffic's 8 requests
+             (8 new, 2 rows a data rank) and a batch of 3 (the data axis
+             dropped), the switching INT4 plan from resident experts, the
+             prefix-cache continuous traffic (8 requests of 256 tokens
+             sharing 192, 4 slots, 16-token blocks, 64-token chunks) and
+             the TP2 -> DP2 -> TP2 re-plan with live requests; the four
+             ranks' tokens equal, teacher-forced logits of each data rank's
+             rows through the engine's own steps against one card's engine
+             (the sharded bounds), float32 at 1 layer token for token
+             against one card's engine, every rank's launches equal to the
+             counts worked out from the traffic (``SD_LAUNCHES``)
 
 Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
 default on the card; ``repro_torch.serving.step_cache``). The serve phase,
@@ -291,7 +305,10 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # a whole run on a slower host took 1,283 s: Falcon-Mamba's ssm phase went
 # to 16 layers, the sharded switch runs to 4 and its continuous run to 7,
 # the two-rank mamba runs to 4 (Falcon-Mamba) and 16 (Hymba) layers, and
-# sharded_train's own runs to 1 (training) and 4 (serving) layers.
+# sharded_train's own runs to 1 (training) and 4 (serving) layers. Its
+# sharded_data part (~20-30 s) took a whole run to 1,164 s on a slower
+# host: the sharded phase's four static runs and its NCCL run went to 7 of
+# 28 layers.
 # The agree bounds with each path routing on its own sit 2-4x above what
 # the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
 # 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
@@ -1040,9 +1057,9 @@ def logits_ab(phase: str, name: str, make, serve, tokens) -> dict:
     for capture in (False, True):
         seen = []
 
-        def keep(lg, params, generator=None, seen=seen):  # every logits tensor the engine samples from
-            seen.append(lg.clone())
-            return sample(lg, params, generator)
+        def keep(lg, params, generator=None, rows=None, seen=seen):
+            seen.append(lg.clone())  # every logits tensor the engine samples from
+            return sample(lg, params, generator, rows)
 
         def keep_rows(self, toks, active, step_ms, seen=seen):
             # a continuous step's rows whose tokens are used: an empty or
@@ -3337,8 +3354,11 @@ SHARDED_LOGITS = ("tp2_tp2", "tp2_ep2_serial", "tp2_ep2_k2", "dp2_ep2")  # teach
 # ~30 s each at full depth over gloo, and the INT4 runs restore every leaf
 # as often; their gates (bytes moved, dequant launches, budgets) hold at any
 # depth. No one-rank run of these depths exists, so their tokens are not
-# compared
-SHARDED_CUT = {"switch_reshard": 4, "switch_int4": 4, "switch_int4_resident": 4, "continuous_tp2_ep2": 7}
+# compared. The static runs of the four plans (and the NCCL rank's) serve 7
+# layers since the sharded_data part joined sharded_train: their teacher-forced
+# logits, against the one-rank run, stay at full depth
+SHARDED_CUT = {"tp2_tp2": 7, "tp2_ep2_serial": 7, "tp2_ep2_k2": 7, "dp2_ep2": 7, "switch_reshard": 4,
+               "switch_int4": 4, "switch_int4_resident": 4, "continuous_tp2_ep2": 7}
 # the mamba families on two ranks (model, layers kept or None for all): the
 # mixer tensor-parallel over d_inner; Hymba's 25 heads do not divide two, so
 # its attention is replicated and its contiguous cache sequence-sharded.
@@ -3905,8 +3925,10 @@ def phase_sharded(serve, cont, agree_ref, repl, replan) -> dict:
     if cap["launches"] != eag["launches"]:
         raise AssertionError(f"sharded (nccl): launches differ, captured {cap['launches']} against {eag['launches']}")
     emit({"phase": "sharded", "run": "nccl_one_rank_tp2_ep2_serial", "captured_equals_eager": True,
-          "tokens_equal_one_rank": cap["tokens"] == serve["tokens"],
-          "token_agreement_with_one_rank": _agreement(cap["tokens"], serve["tokens"]),
+          # at SHARDED_CUT's depth no one-rank run exists
+          "tokens_equal_one_rank": None if "tp2_ep2_serial" in SHARDED_CUT else cap["tokens"] == serve["tokens"],
+          "token_agreement_with_one_rank": None if "tp2_ep2_serial" in SHARDED_CUT else _agreement(
+              cap["tokens"], serve["tokens"]),
           "steps": cap["steps"], "launches": cap["launches"], "seconds": time.perf_counter() - t0,
           **{k: [cap[k], eag[k]] for k in ("wall_s", "decode_ms_per_step", "prefill_ms", "max_memory_allocated")}})
     for path in (ref_path, rep_ref_path, ssm_ref_path):
@@ -3922,7 +3944,7 @@ def _check_seq_run(name: str, cfg, run, other) -> None:
     cache holds ceil(max_len / 2) of its max_len positions on each rank, and
     every decode step of it went through the seq decode; a heads-sharded
     run ran none; the re-plan runs moved their live cache twice."""
-    L = cfg.num_layers
+    L = run.get("layers", cfg.num_layers)
     if name == "dp2_ep2":
         k = run["cache"]["k"]["shape"]
         max_len = 128 + MAX_NEW + 1  # the serve traffic's bucket, its new tokens, one more
@@ -4249,6 +4271,9 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
         del params
         _free()
 
+    # 5. the serving engine on the (2, 2) mesh
+    out["sharded_data"] = sharded_data_rank(grid, device, small)
+
     # 4. the train launcher on the four ranks
     if launcher:
         from repro_torch.launch import train as launch_train
@@ -4285,6 +4310,335 @@ def _st_expect(cfg, kv: str, steps: int) -> dict:
     if kv == "heads":
         out["paged_attention"] = L * steps
     return out
+
+
+SD_LAYERS = 4
+SD_NEW = 8  # new tokens a request: 7 decode steps a batch
+SD_ODD = 3  # the last static batch: three rows, which do not split over the data axis
+SD_CONT = (8, 256, 192, 4, 16, 64)  # requests, prompt tokens, shared, slots, block, chunk
+SD_RELAYOUTS = 2  # the re-plan traffic's two attention switches, each moving the live cache
+
+
+def sd_requests(cfg):
+    """The serve traffic's 8 requests (100-128 tokens, 2 rows a data rank
+    in batches of 4), then its first 3 again: a batch of 3 rows."""
+    p = prompts(cfg)
+    return [(q, SD_NEW) for q in p + p[:SD_ODD]]
+
+
+def sd_cont_requests(cfg):
+    """The prefix-cache traffic: ``SD_CONT[0]`` prompts of ``SD_CONT[1]``
+    tokens, the first ``SD_CONT[2]`` shared."""
+    import numpy as np
+
+    n, total, shared = SD_CONT[:3]
+    rng = np.random.default_rng(SEED + 7)
+    head = rng.integers(1, cfg.vocab_size, shared).tolist()
+    return [(head + rng.integers(1, cfg.vocab_size, total - shared).tolist(), SD_NEW) for _ in range(n)]
+
+
+def _sd_first_batch(cfg):
+    """The engine's first static batch of ``sd_requests``, padded as its
+    scheduler pads it (64-token bucket): (4, 128) token ids."""
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    sch = ContinuousScheduler(max_batch=MAX_BATCH, bucket=64, coalesce_buckets=True)
+    for q, g in sd_requests(cfg):
+        sch.submit(q, g)
+    return sch.pad_batch(sch.next_batch())[0]
+
+
+# Each rank's launches in each sharded_data run, worked out from the traffic
+# beforehand (L layers; a static batch is a prefill and SD_NEW - 1 = 7 decode
+# steps; each MoE call launches the 3 expert matmuls once a capacity slab
+# (``moe.pipeline_chunks``): 2 slabs in a bf16 EP prefill of a rank's 256
+# tokens (2 rows of 128) or 96 (3 rows over data x ep), 4 at the float32
+# run's capacity 11, 1 in a decode step, a 64-token chunk or under TP
+# experts; resident experts add one dequant a matmul). On the CPU rehearsal
+# (reduced widths, the plain path) they are not gated.
+SD_LAUNCHES = {
+    # batches of 4, 4, 3 rows at 1 layer: flash a prefill, paged a decode step
+    "f32_tp2_ep2": {"flash_attention": 3, "paged_attention": 3 * 7, "grouped_matmul": 3 * 3 * (4 + 7)},
+    "run_tp2_ep2": {"flash_attention": 3 * 4, "paged_attention": 3 * 7 * 4, "grouped_matmul": 3 * 3 * 4 * (2 + 7)},
+    # 20 chunks (the first four prompts whole, 4 each; the last four after
+    # their 192 shared tokens hit, 1 each) and 23 decode steps, 9 of them
+    # fused with a chunk: paged a chunk, the prefix kernel a decode step
+    "continuous_prefix": {"paged_attention": 20 * 4, "prefix_paged_attention": 23 * 4,
+                          "grouped_matmul": 3 * 4 * (20 + 23)},
+    # one batch of 4: an EP2 prefill, 7 TP2 decode steps, from INT4 experts
+    "switch_int4_resident": {"flash_attention": 4, "paged_attention": 7 * 4, "grouped_matmul": 3 * 4 * (2 + 7),
+                             "int4_dequant": 3 * 4 * (2 + 7)},
+    # 5 chunks and 11 decode steps over the TP2 <-> DP2 re-plans
+    "replan": {"paged_attention": (5 + 11) * 4, "grouped_matmul": 3 * 4 * (5 + 11)},
+}
+
+
+def _sd_steps(eng, toks, fed, forced=None, parts: int = 0, feed: bool = False) -> tuple:
+    """The engine's own static steps, teacher-forced: the prefill of the
+    padded batch ``toks`` (B, S) and a decode step per column of ``fed``
+    (B, n), under the plan it activates for the batch as ``run()`` does:
+    (this rank's rows' logits at every step on the host, the expert
+    choices of each layer and step). ``feed``: fill ``fed`` with the greedy
+    tokens as it goes (one card, every row); ``forced``, ``parts``: as
+    ``_st_serve``'s."""
+    import torch
+
+    from repro_torch.core.flops import Workload
+
+    B, S = toks.shape
+    max_len = S + SD_NEW + 1
+    seen = []
+    split = _ep_halves(seen, n=parts) if parts else contextlib.nullcontext()
+    with torch.inference_mode(), _routing(seen, forced), split:
+        eng._activate_plan(Workload(batch=B, prompt=S, gen=SD_NEW))
+        out = [eng._prefill_step(toks, max_len).float().cpu()]
+        for step in range(fed.shape[1]):
+            if feed:
+                fed[:, step] = out[-1].argmax(-1).numpy()
+            lg, _ = eng._decode_step_static(fed[:, step], S + step, max_len)
+            out.append(lg.float().cpu())
+    return out, [e.cpu() for e in seen]
+
+
+# the plain path's dispatches of each kernel's seam (a CPU rehearsal's launches;
+# its prefill attention is the model's own chunked path, which no seam counts)
+SD_REF_SEAMS = {"paged_attention": ("decode.ref_paged", "decode.ref_append"),
+                "prefix_paged_attention": ("decode.ref_prefix",), "int4_dequant": ("int4_dequant.ref",),
+                "grouped_matmul": ("gmm.ref", "gmm.ref_shard_in", "gmm.ref_shard_out")}
+
+
+def _sd_serve(eng, cfg, reqs, continuous: bool) -> dict:
+    """Serve ``reqs`` on this rank's engine: tokens, times, the rank's
+    launches (counts zeroed just before), launches by shape, collectives a
+    step and the rank's KV bytes. On the card it raises if a ``ref`` op
+    ran; on the CPU (the rehearsal, on the plain path) the launches are the
+    dispatches of each kernel's seam."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+
+    card = eng.device.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    for q, g in reqs:
+        eng.submit(Request(prompt=q, max_new_tokens=g))
+    caches, end = [], eng._end_live_batch
+
+    def end_live_batch():  # a live batch's cache, before the engine releases it
+        if eng._live is not None:
+            caches.append(_cache_bytes(eng._live.cache))
+        end()
+
+    eng._end_live_batch = end_live_batch
+    calls = collections.Counter(eng.mesh.calls)
+    sync()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    comps = eng.serve_continuous() if continuous else eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches, dispatch, st = dict(ops.LAUNCH_COUNTS), dict(ops.DISPATCH_COUNTS), eng.stats
+    if card:
+        refs = ref_ops(dispatch)
+        if refs:
+            raise AssertionError(f"sharded_data: ref ops ran on the path: {refs}")
+        if cfg.dtype == "bfloat16":
+            check_variants("sharded_data", launches)
+    else:
+        launches = {k: sum(dispatch.get(d, 0) for d in seams) for k, seams in SD_REF_SEAMS.items()}
+    no_fallback("sharded_data", dataclasses.asdict(st))
+    steps = st.decode_steps if continuous else st.batches * SD_NEW  # a static batch: a prefill, 7 decode steps
+    done = collections.Counter(eng.mesh.calls)
+    done.subtract(calls)
+    res = {"wall_s": wall, "tokens_per_s": sum(len(c.tokens) for c in comps) / wall, "launches": launches,
+           "shapes": launch_shapes(),
+           "tokens": [c.tokens for c in comps], "transition_ms_total": st.transition_ms_total,
+           "collectives_per_step": {k: n / steps for k, n in done.items() if n},
+           "kv": _cache_bytes(eng._static[1]) if eng._static is not None else caches[-1] if caches else {}}
+    if continuous:
+        res.update(decode_steps=st.decode_steps, fused_steps=st.fused_steps, prefill_chunks=st.prefill_chunks,
+                   decode_step_ms_mean=st.decode_step_ms_sum / max(st.decode_steps, 1),
+                   prefix_hit_blocks=st.prefix_hit_blocks, plan_switches=st.plan_switches,
+                   relayouts=len(eng.kv_relayout_ms), relayout_ms=list(eng.kv_relayout_ms))
+    else:
+        first = comps[::MAX_BATCH]
+        res.update(batches=st.batches, prefill_ms=[c.prefill_ms for c in first],
+                   decode_ms_per_step=[c.decode_ms / (SD_NEW - 1) for c in first])
+    return res
+
+
+def sharded_data_rank(grid, device: str, small: bool) -> dict:
+    """The sharded_data phase on one of the four ranks of
+    ``sharded_train_rank`` (``grid`` the (2, 2) ``RankMesh``): float32 at 1
+    layer against one card's engine, then the bf16 runs at ``SD_LAYERS``
+    layers, each rank from its TP2/EP2 shard of the seeded weights."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import HAPSession
+    from repro_torch.models import init_params
+
+    me, t_start = grid.index, time.perf_counter()
+    backend = "hopper" if device == "cuda" else "ref"
+    out = {"runs": {}}
+
+    def engine(cfg, params, plan, **kw):
+        session = HAPSession(cfg, "h100", 4, source=plan if not isinstance(plan, tuple) else _hap(plan), mesh=grid,
+                             prompt_bucket=64)
+        session.transition_between = lambda old, new, w: ("reshard", 0.0)  # Eq. 6 pinned: no model to fit
+        return session.engine(params, device=device, capture_steps=False, kernel_backend=backend, **kw)
+
+    def draw(cfg, plan):
+        splan = _hap(plan).to_sharding_plan(grid, cfg, phase="prefill")
+        return init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device, shard=(splan, grid.coords))
+
+    def one_card(cfg):  # rank 0 alone: one card's engine on the whole seeded weights
+        from repro_torch.core import fixed_plan
+
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+        return HAPSession(cfg, "h100", 1, source=fixed_plan("TP1", "TP1"), prompt_bucket=64).engine(
+            params, device=device, max_batch=MAX_BATCH, capture_steps=False, kernel_backend=backend)
+
+    # 1. float32, 1 layer, nothing dropped, no aux: the one card's engine, then (2, 2)
+    tp2_ep2 = ("TP2", "EP2", "", "reshard")
+    cfg = _st_config(1, "float32", small, **ST_F32)
+    one = [None]
+    if me == 0:
+        from repro_torch.serving import Request
+
+        eng = one_card(cfg)
+        for q, g in sd_requests(cfg):
+            eng.submit(Request(prompt=q, max_new_tokens=g))
+        one[0] = [c.tokens for c in eng.run()]
+        eng.close()
+        del eng
+        _free()
+    dist.broadcast_object_list(one, src=0)
+    eng = engine(cfg, draw(cfg, tp2_ep2), tp2_ep2, max_batch=MAX_BATCH)
+    run = _sd_serve(eng, cfg, sd_requests(cfg), False)
+    run["one_card_tokens"] = one[0]
+    out["runs"]["f32_tp2_ep2"] = run
+    eng.close()
+    del eng
+    _free()
+
+    # 2. bf16 at SD_LAYERS layers, teacher-forced on the first batch through
+    # the engines' own steps: one card's, routing in quarters (the function
+    # EP over data x ep computes), fed its greedy tokens; then each rank's
+    # rows on (2, 2), with their own routing and with one card's choices
+    cfg = _st_config(SD_LAYERS if not small else 2, "float32" if small else "bfloat16", small)
+    toks = _sd_first_batch(cfg)
+    ref = [None]
+    if me == 0:
+        eng = one_card(cfg)
+        fed = np.zeros((toks.shape[0], SD_NEW - 1), dtype=np.int64)
+        logits, seen = _sd_steps(eng, toks, fed, parts=4, feed=True)
+        ref[0] = {"logits": logits, "experts": seen, "fed": fed}
+        eng.close()
+        del eng
+        _free()
+    dist.broadcast_object_list(ref, src=0)
+    ref = ref[0]
+    params = draw(cfg, tp2_ep2)
+
+    def quarter(e):  # this rank's share of a layer's routed tokens (EP over data x model)
+        k = e.shape[0] // 4
+        return e[grid.index * k:(grid.index + 1) * k]
+
+    eng = engine(cfg, params, tp2_ep2, max_batch=MAX_BATCH)
+    got, _ = _sd_steps(eng, toks, ref["fed"])
+    _, lo, hi = eng._rows("decode", toks.shape[0])
+    cache_rows = eng._static[1].k.shape[1]
+    same, _ = _sd_steps(eng, toks, ref["fed"], forced=[quarter(e).to(device) for e in ref["experts"]])
+    eng.close()
+    del eng
+    want = [w[lo:hi] for w in ref["logits"]]
+    out["teacher_forced"] = {"rows": [lo, hi], "cache_rows": cache_rows,
+                             "rel_l2_err_per_step": [_rel_l2(g, w) for g, w in zip(got, want)],
+                             "same_experts_rel_l2_err_per_step": [_rel_l2(g, w) for g, w in zip(same, want)],
+                             "finite": all(bool(torch.isfinite(g).all()) for g in got + same)}
+    del got, same
+    _free()
+
+    # the engine runs: run() TP2/EP2, the prefix-cache continuous traffic,
+    # the switching INT4 plan from resident experts, then the re-plan
+    # traffic, whose engine takes the weights (its attention leaves move)
+    eng = engine(cfg, params, tp2_ep2, max_batch=MAX_BATCH)
+    out["runs"]["run_tp2_ep2"] = _sd_serve(eng, cfg, sd_requests(cfg), False)
+    eng.close()
+    del eng
+    _free()
+    n, _, _, slots, block, chunk = SD_CONT
+    eng = engine(cfg, params, tp2_ep2, max_batch=slots, kv_block_size=block, prefill_chunk=chunk, prefix_cache=True)
+    out["runs"]["continuous_prefix"] = _sd_serve(eng, cfg, sd_cont_requests(cfg), True)
+    eng.close()
+    del eng
+    _free()
+    switch = ("TP2", "EP2", "TP2", "int4_upload")
+    eng = engine(cfg, params, switch, max_batch=MAX_BATCH, use_int4_transition=True, resident_int4=True,
+                 params_plan=_hap(tp2_ep2).to_sharding_plan(grid, cfg, phase="prefill"))
+    out["runs"]["switch_int4_resident"] = _sd_serve(eng, cfg, sd_requests(cfg)[:MAX_BATCH], False)
+    eng.close()
+    del eng
+    _free()
+    eng = engine(cfg, params, ReplanSource(), max_batch=REPLAN_MAX_BATCH,
+                 params_plan=_hap(tp2_ep2).to_sharding_plan(grid, cfg, phase="prefill"))
+    del params
+    out["runs"]["replan"] = _sd_serve(eng, cfg, replan_requests(cfg), True)
+    eng.close()
+    del eng
+    _free()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _sd_gates(ranks, card: str, small: bool) -> tuple:
+    """The sharded_data phase's lines and failures from the four ranks'
+    results: tokens equal on every rank (and in float32 to one card's),
+    teacher-forced rows and logits within the sharded bounds, every rank's
+    launches equal to ``SD_LAUNCHES`` (on the card). Returns (failures,
+    {run: per-rank launches}, {kernel: {shape: {run: per-rank launches}}})."""
+    fails, launches, shapes = [], {}, {}
+    per = [r["sharded_data"] for r in ranks]
+    for name, run in per[0]["runs"].items():
+        runs = [p["runs"][name] for p in per]
+        key = f"sharded_data_{name}"
+        launches[key] = [r["launches"] for r in runs]
+        for r in runs:
+            for kernel, by_shape in r["shapes"].items():
+                for shape, k in by_shape.items():
+                    shapes.setdefault(kernel, {}).setdefault(shape, {}).setdefault(key, []).append(k)
+        equal = all(r["tokens"] == run["tokens"] for r in runs)
+        exact = None if small else all({k: v for k, v in r["launches"].items() if v} == SD_LAUNCHES[name] for r in runs)
+        res = {"phase": "sharded_data", "run": name, "card": card, "ranks_tokens_equal": equal,
+               "launches_exact": exact, "launches_per_rank": [r["launches"] for r in runs],
+               "expect": SD_LAUNCHES[name],
+               **{k: v for k, v in run.items() if k not in ("tokens", "launches", "shapes", "one_card_tokens")},
+               "wall_s_per_rank": [r["wall_s"] for r in runs]}
+        if "one_card_tokens" in run:
+            res["one_card_tokens_equal"] = run["tokens"] == run["one_card_tokens"]
+            equal = equal and res["one_card_tokens_equal"]
+        emit(res)
+        if not equal or exact is False:
+            fails.append(f"sharded_data {name}: tokens equal {equal}, launches exact {exact}")
+        if name == "replan" and (run["plan_switches"] != SD_RELAYOUTS or run["relayouts"] != SD_RELAYOUTS):
+            fails.append(f"sharded_data replan: {run['plan_switches']} switches, {run['relayouts']} relayouts")
+    tf = [p["teacher_forced"] for p in per]
+    worst = max(max(t["rel_l2_err_per_step"]) for t in tf)
+    worst_same = max(max(t["same_experts_rel_l2_err_per_step"]) for t in tf)
+    rows = [t["rows"] for t in tf]
+    cache_rows = [t["cache_rows"] for t in tf]
+    emit({"phase": "sharded_data", "step": "teacher_forced", "card": card, "rows_per_rank": rows,
+          "cache_rows_per_rank": cache_rows, "rel_l2_err_worst": worst, "same_experts_rel_l2_err_worst": worst_same,
+          "tol": [AGREE_TOL[0], AGREE_SAME_EXPERTS_TOL]})
+    # the (2, 2) ranks in group order: data rank 0 holds rows [0, 2) of the batch of 4, data rank 1 [2, 4)
+    if rows != [[0, 2], [0, 2], [2, 4], [2, 4]] or cache_rows != [2] * 4:
+        fails.append(f"sharded_data teacher-forced: rows {rows}, cache rows {cache_rows}")
+    if not small and (not all(t["finite"] for t in tf) or worst > AGREE_TOL[0] or worst_same > AGREE_SAME_EXPERTS_TOL):
+        fails.append(f"sharded_data teacher-forced: {worst}, same experts {worst_same}")
+    emit({"phase": "sharded_data", "seconds": per[0]["seconds"]})
+    return fails, launches, shapes
 
 
 def phase_sharded_train(small: bool = False) -> dict:
@@ -4371,6 +4725,14 @@ def phase_sharded_train(small: bool = False) -> dict:
         if not all(p["finite"] for p in per) or worst > AGREE_TOL[0] or worst_same > AGREE_SAME_EXPERTS_TOL \
                 or not exact:
             fails.append(f"serve {kv}: {res}")
+
+    # 5. the serving engine on (2, 2)
+    sd_fails, sd_launches, sd_shapes = _sd_gates(ranks, card, small)
+    fails += sd_fails
+    launches.update(sd_launches)
+    for kernel, by_shape in sd_shapes.items():
+        for shape, per_run in by_shape.items():
+            shapes.setdefault(kernel, {}).setdefault(shape, {}).update(per_run)
 
     # 4. the launcher on four ranks against one
     four = r0["launcher"]

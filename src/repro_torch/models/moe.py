@@ -22,7 +22,11 @@ sums). EP splits the data rank's tokens over the EP axis when they divide
 (the reference's dp x ep split), else keeps them whole on every EP rank
 (its dp-only and replicated cases); the aux is the mean of every
 (data, ep) shard's, whose gradient the reference's is too (it reports
-data shard 0's: ROADMAP C).
+data shard 0's: ROADMAP C). Where every data rank holds every row (a
+batch the serving engine does not split, or a prefill chunk's one row),
+EP splits the tokens over the data and EP axes as the reference's
+``shard_map`` does on the global tokens (``ep_token_axes``), each block
+with the capacity of its own tokens.
 
 Under autograd the collectives are ``repro_torch.sharding.autograd``'s:
 the router, replicated but fed each EP rank's own tokens, takes its
@@ -214,11 +218,35 @@ def serving_replication(plan) -> Optional[ExpertReplication]:
     return rep
 
 
-def ep_token_split(plan, num_tokens: int) -> bool:
-    """Whether EP under ``plan`` splits a data rank's ``num_tokens`` over
-    the EP axis (each rank then routes, and reports the top-k of, its own
-    share); else every EP rank routes them all."""
-    return _is_ep(plan) and num_tokens % plan.axis_size(plan.ep_axis) == 0
+def ep_token_axes(plan, num_tokens: int) -> Tuple[str, ...]:
+    """The mesh axes EP under ``plan`` splits a rank's ``num_tokens`` over
+    (each rank then routes, and reports the top-k of, its own block), by
+    the reference's rule on the tokens the rank's data axes hold alike:
+    its data rows' tokens (the data axes in the plan's ``dp_axes``), or
+    every row's, replicated over a data axis the plan dropped. With ``r``
+    ranks on such replicated axes: over them and the EP axis when the
+    tokens divide ``r * ep``, over them alone when they divide ``r``,
+    else not at all (every rank routes them all)."""
+    if not _is_ep(plan):
+        return ()
+    ep, held = plan.ep_axis, dp_axes(plan)
+    same = tuple(a for a in plan.mesh.axis_names if a != ep and a not in held and plan.axis_size(a) > 1)
+    r = plan.axis_size(same) if same else 1
+    if num_tokens % (r * plan.axis_size(ep)) == 0:
+        return same + (ep,)
+    if same and num_tokens % r == 0:
+        return same
+    return ()
+
+
+def route_axes(plan, num_tokens: int) -> Tuple[str, ...]:
+    """The mesh axes over which a step's ``num_tokens`` (a rank's) router
+    choices are split, in mesh order: all-gathered over them, every rank
+    holds the whole batch's, in the global token order."""
+    if plan is None or plan.is_null:
+        return ()
+    axes = set(dp_axes(plan)) | set(ep_token_axes(plan, num_tokens))
+    return tuple(a for a in plan.mesh.axis_names if a in axes)
 
 
 def expert_ffn(buf, wi_gate, wi_up, wo, act_name: str, backend=None, axes=None) -> torch.Tensor:
@@ -291,10 +319,14 @@ def _moe_ep(x_flat, moe_p, cfg: ModelConfig, plan, backend=None, want_aux=True):
     n = plan.axis_size(ep)
     E = cfg.n_routed_experts
     T = x_flat.shape[0]
-    split = ep_token_split(plan, T)
-    # the router sees this rank's tokens: its gradient is summed over the EP axis
-    router = ad.copy_in(moe_p["router"], mesh, ep)
-    xl = ad.scatter_in(x_flat, mesh, 0, ep) if split else ad.copy_in(x_flat, mesh, ep)
+    split = ep_token_axes(plan, T)
+    whole = ep not in split  # every EP rank routes this block
+    # the router sees this rank's tokens: its gradient is summed over the
+    # axes they are split over and the EP axis
+    router = ad.copy_in(moe_p["router"], mesh, split + (ep,) if whole else split)
+    xl = ad.scatter_in(x_flat, mesh, 0, split) if split else x_flat
+    if whole:
+        xl = ad.copy_in(xl, mesh, ep)
     rep = serving_replication(plan)
     n_slots = rep.total_slots if rep is not None else E
     T_loc = xl.shape[0]
@@ -310,10 +342,13 @@ def _moe_ep(x_flat, moe_p, cfg: ModelConfig, plan, backend=None, want_aux=True):
         buf, lambda b: expert_ffn(b, moe_p["wi_gate"], moe_p["wi_up"], moe_p["wo"], cfg.activation, backend=backend),
         mesh=mesh, chunks=K)
     y = combine(y_buf, fe, pe, keep, fg, T_loc)
-    shards = tuple(dp_axes(plan)) + (ep,)
+    shards = tuple(a for a in mesh.axis_names if a in set(dp_axes(plan)) | set(split) | {ep})
     if want_aux:
         aux = ad.reduce_out(aux.reshape(1), mesh, shards).reshape(()) / plan.axis_size(shards)
-    y = ad.gather_out(y, mesh, 0, ep) if split else ad.shared_out(y, mesh, ep)
+    if whole:
+        y = ad.shared_out(y, mesh, ep)
+    if split:
+        y = ad.gather_out(y, mesh, 0, split)
     return y, aux, idx
 
 

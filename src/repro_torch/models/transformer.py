@@ -101,10 +101,6 @@ class DecodeCache:
     ssm: Optional[torch.Tensor] = None
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
-
-
 def _check_layers(cfg: ModelConfig) -> None:
     if cfg.block_type not in ("attention", "mamba", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: block_type {cfg.block_type!r} is unknown")
@@ -527,9 +523,10 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
 
     ``collect_routing`` (MoE only) stacks every layer's router top-k ids
     and returns them on the new cache's ``route_topk``, (L, B*C, k) int32,
-    for the engine's routing tracker. Under EP with the tokens split over
-    the ranks, the ranks' shares are all-gathered (once per step), so every
-    rank sees every token's choice."""
+    for the engine's routing tracker. Where the tokens are split over the
+    ranks (the data axes' rows, EP's blocks), the ranks' shares are
+    all-gathered (once per step), so every rank sees every token's choice
+    of the whole batch, in its order."""
     _check_decoder(cfg)
     C = token.shape[1]
     if C != 1 and cfg.has_mamba:
@@ -561,6 +558,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
     route = None
     if routes is not None:
         route = torch.stack(routes).to(torch.int32)
-        if moe_mod.ep_token_split(plan, token.shape[0] * C):
-            route = plan.mesh.all_gather(route, dim=1)
+        axes = moe_mod.route_axes(plan, token.shape[0] * C)
+        if axes:
+            route = plan.mesh.all_gather(route, dim=1, axis=axes)
     return logits[:, 0], dataclasses.replace(cache, pos=cache.pos + C, route_topk=route)

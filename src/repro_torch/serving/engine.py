@@ -66,9 +66,27 @@ slices between the ranks, an INT4 restore uploads each rank's target shard
 from the whole-leaf host backup), the attention leaves by a reshard, and
 a live KV cache whose layout changes (heads, seq or whole) moves with the
 mesh's collectives (``_relayout_live``). A static ``plan`` (a
-``ShardingPlan`` over a ``RankMesh``) is served with no session. Mamba and
-hybrid models run their mixer tensor-parallel over d_inner. Data-parallel
-mesh axes of size > 1 raise (ROADMAP A.9).
+``ShardingPlan`` over a ``RankMesh``, ``fsdp`` and ``seq_shard_acts``
+included) is served with no session. Mamba and hybrid models run their
+mixer tensor-parallel over d_inner.
+
+On a mesh with a data axis (``RankMesh(group, data=d)``) each data rank
+computes its block of a static batch's rows, or of the continuous slots,
+and its model row runs the plan's TP/EP layout on them
+(``specs.serving_rows``: a row count that does not divide the data axes
+runs with them dropped, every rank computing every row; a prefill
+chunk's one row is such a batch). The static cache and the contiguous
+live cache hold the rank's rows; a paged pool is whole on every rank,
+each writing the pages of the rows it computes (a chunk's pages on every
+rank). The sampled tokens, and the router choices the routing tracker
+reads, are all-gathered over the data axes after every step, so every
+rank's host loop (scheduler, EOS, the block allocator, the prefix cache,
+preemption, the tracker) sees the whole batch and decides alike; the
+prefix kernel groups only rows of one data block, since it reads the
+group's shared pages through a row the rank computes. The Eq.-6 moves
+run within each model row; the data rows hold copies. Sampling at a
+temperature draws the whole batch's randoms on every rank and keeps those
+of its rows, so a row's tokens do not depend on the layout.
 
 With ``replicate_experts`` or ``prefetch`` a routing tracker follows the
 router's top-k ids, which every decode step returns through a static
@@ -124,8 +142,7 @@ from repro_torch.models import DecodeCache, decode_step, init_cache, init_paged_
 from repro_torch.models.attention import cache_layout
 from repro_torch.models.moe import serving_replication
 from repro_torch.models.params import param_pspecs, param_shapes
-from repro_torch.models.transformer import not_ported as _not_ported
-from repro_torch.sharding.specs import NULL_PLAN, ExpertReplication, seq_positions, sharded_dim, unported_layout
+from repro_torch.sharding.specs import NULL_PLAN, ExpertReplication, dp_axes, seq_positions, serving_rows, sharded_dim
 
 from .faults import FaultInjector
 from .kv_cache import TRASH_BLOCK, BlockAllocator, BlockTable, OutOfBlocks, blocks_for
@@ -347,9 +364,6 @@ class InferenceEngine:
         else:
             self.mesh = plan.mesh if plan is not None else None
         if self.mesh is not None:
-            big = [a for a in self.mesh.axis_names if a != "model" and self.mesh.shape[a] > 1]
-            if big:
-                raise _not_ported(f"a mesh with data-parallel axes {big} of size > 1", "A.9")
             if not hasattr(self.mesh, "rank"):
                 raise TypeError(f"the port serves on a repro_torch.sharding.RankMesh, got {type(self.mesh).__name__}")
         self.device = resolve_device(device)
@@ -503,13 +517,9 @@ class InferenceEngine:
 
     # -- layouts on a mesh ---------------------------------------------------
     def _checked(self, plan):
-        """``plan`` with the engine's EP pipeline knob, or a named error for
-        what the port cannot execute yet."""
+        """``plan`` with the engine's EP pipeline knob."""
         if plan is None:
             return None
-        why = unported_layout(plan)
-        if why is not None:
-            raise _not_ported(f"serving {why}", "A.9")
         if self.moe_pipeline and plan.moe_pipeline != self.moe_pipeline:
             plan = dataclasses.replace(plan, moe_pipeline=self.moe_pipeline)
         return plan
@@ -527,6 +537,12 @@ class InferenceEngine:
             return self._with_replication(
                 self._checked(self.hap_plan.to_sharding_plan(self.mesh, self.cfg, phase=phase)))
         return self._with_replication(self._checked(self.plan) if self.plan is not None else self._layout)
+
+    def _rows(self, phase: str, rows: int):
+        """``(plan, lo, hi)``: ``phase``'s layout for a batch of ``rows``
+        rows and the rows ``[lo, hi)`` this rank computes under it
+        (``specs.serving_rows``)."""
+        return serving_rows(self._sharding_for(phase), rows)
 
     def _with_replication(self, plan):
         base = plan if plan is not None else NULL_PLAN
@@ -548,7 +564,7 @@ class InferenceEngine:
         ``plan`` (None on one device)."""
         if plan is None or self.mesh is None:
             return None
-        return self._leaf_specs(plan)[key], self.mesh.rank, dict(self.mesh.shape)
+        return self._leaf_specs(plan)[key], self.mesh.coords, dict(self.mesh.shape)
 
     def _gather(self, key: str, w):
         """The whole layer ``l`` of leaf ``key`` from every rank's shard
@@ -1105,15 +1121,15 @@ class InferenceEngine:
         return False
 
     def _all_ranks(self, values: List[int]) -> List[List[int]]:
-        """Every rank's ``values`` in rank order (``[values]`` on one
-        device). The decisions a rank's own clock or thread could make
-        differently (a deadline, a cancel, the restore watchdog) are taken
-        from rank 0's, so every rank follows the same schedule. ``values``
-        has the same length on every rank."""
-        if self.mesh is None or self.mesh.size == 1 or not values:
+        """Every rank's ``values`` in group-rank order, over the whole mesh
+        (``[values]`` on one device). The decisions a rank's own clock or
+        thread could make differently (a deadline, a cancel, the restore
+        watchdog) are taken from rank 0's, so every rank follows the same
+        schedule. ``values`` has the same length on every rank."""
+        if self.mesh is None or self.mesh.world == 1 or not values:
             return [values]
         mine = torch.tensor(values, dtype=torch.int64, device=self.device).reshape(1, -1)
-        return self.mesh.all_gather(mine, dim=0).tolist()
+        return self.mesh.all_gather(mine, dim=0, axis=("data", "model")).tolist()
 
     def _sync(self) -> None:
         """Wait for the serving stream (the timers' end point). Not the whole
@@ -1122,15 +1138,17 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _sample(self, logits: torch.Tensor, sampling: SamplingParams, gen) -> torch.Tensor:
-        """Sample the step's tokens; on a mesh, all-gather every rank's and
-        raise unless they are equal (every rank runs the same schedule)."""
-        toks = sample(logits, sampling, gen)
-        if self.mesh is not None and self.mesh.size > 1:
-            seen = self.mesh.all_gather(toks.reshape(1, -1), dim=0)
-            if not bool((seen == seen[:1]).all()):
-                raise RuntimeError(f"rank {self.mesh.rank}: the ranks sampled different tokens: {seen.tolist()}")
-        return toks
+    def _sample(self, logits: torch.Tensor, sampling: SamplingParams, gen, phase: str, rows: int) -> np.ndarray:
+        """Sample the step's tokens of this rank's rows of a batch of
+        ``rows`` under ``phase``'s layout; returns the whole batch's on the
+        host. On a mesh every rank's are all-gathered (the step's one sync)
+        and the engine raises unless the ranks that computed the same rows
+        sampled the same tokens (every rank runs the same schedule)."""
+        plan, lo, hi = self._rows(phase, rows)
+        toks = sample(logits, sampling, gen, (lo, hi, rows))
+        if self.mesh is None:
+            return toks.cpu().numpy()
+        return self.mesh.gather_rows(toks, dp_axes(plan)).numpy()
 
     def _generator(self, sampling: SamplingParams) -> Optional[torch.Generator]:
         """One explicit generator per serving call (temperature > 0 only)."""
@@ -1163,46 +1181,49 @@ class InferenceEngine:
         return self.steps.run(g, may_capture=self._pending_restore is None)
 
     def _static_cache(self, B: int, max_len: int) -> DecodeCache:
-        """The contiguous cache of (B, max_len), kept across batches of that
-        shape: the static steps' graphs read its tensors. Only one is kept: a
-        batch of another shape releases it and drops its graphs first, so
-        varied output budgets do not pile up caches and graph pools."""
-        plan = self._sharding_for("decode")
+        """This rank's rows of the contiguous cache of (B, max_len), kept
+        across batches of that shape: the static steps' graphs read its
+        tensors. Only one is kept: a batch of another shape releases it and
+        drops its graphs first, so varied output budgets do not pile up
+        caches and graph pools."""
+        plan, lo, hi = self._rows("decode", B)
         # a plan of another cache layout needs another cache
         layout = cache_layout(self.cfg, plan, paged=False)
-        if self._static is None or self._static[0] != (B, max_len) or self._static[2] != layout:
+        if self._static is None or self._static[0] != (hi - lo, max_len) or self._static[2] != layout:
             self._static = None
             self.steps.new_cache("static")
-            cache = init_cache(self.cfg, B, max_len, dtype=self.params["embed"].dtype, device=self.device, plan=plan)
-            self._static = ((B, max_len), cache, layout)
+            cache = init_cache(self.cfg, hi - lo, max_len, dtype=self.params["embed"].dtype, device=self.device,
+                               plan=plan)
+            self._static = ((hi - lo, max_len), cache, layout)
         return self._static[1]
 
     def _prefill_step(self, toks: np.ndarray, max_len: int) -> torch.Tensor:
-        """Prefill the padded prompts ``toks`` (B, S) into the (B, max_len)
-        cache; returns the last position's logits (B, V)."""
+        """Prefill this rank's rows of the padded prompts ``toks`` (B, S)
+        into its rows of the (B, max_len) cache; returns their last
+        position's logits."""
         B, S = toks.shape
         cache = self._static_cache(B, max_len)
-        plan = self._sharding_for("prefill")
+        plan, lo, hi = self._rows("prefill", B)
 
         def body(g: StepGraph) -> torch.Tensor:
             logits, _ = prefill(self.params, self.cfg, {"tokens": g.bufs["tokens"]}, max_len,
                                 backend=self.kernel_backend, cache=cache, plan=plan)
             return logits
 
-        g = self.steps.graph(("prefill", plan, B, S, max_len),
-                             lambda: self.steps.buffers(tokens=((B, S), torch.long)), body, "static")
-        g.feed("tokens", toks)
+        g = self.steps.graph(("prefill", plan, hi - lo, S, max_len),
+                             lambda: self.steps.buffers(tokens=((hi - lo, S), torch.long)), body, "static")
+        g.feed("tokens", toks[lo:hi])
         return self._run_step(g)
 
-    def _decode_step_static(self, tok: torch.Tensor, pos: int, max_len: int):
-        """One lockstep decode step of the (B, max_len) cache: ``tok`` (B,)
-        written at ``pos``; returns the logits (B, V) and the read-back of
-        the router top-k ids (None with the tracker off). The position is
-        fed, not advanced inside the step, so the body stays a function of
-        its buffers."""
+    def _decode_step_static(self, tok: np.ndarray, pos: int, max_len: int):
+        """One lockstep decode step of the (B, max_len) cache: this rank's
+        rows of the batch's tokens ``tok`` (B,) written at ``pos``; returns
+        their logits and the read-back of the whole batch's router top-k
+        ids (None with the tracker off). The position is fed, not advanced
+        inside the step, so the body stays a function of its buffers."""
         B = tok.shape[0]
         cache = self._static_cache(B, max_len)
-        plan = self._sharding_for("decode")
+        plan, lo, hi = self._rows("decode", B)
 
         def body(g: StepGraph) -> torch.Tensor:
             logits, new = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
@@ -1211,10 +1232,10 @@ class InferenceEngine:
                 g.bufs["route"].copy_(new.route_topk)
             return logits
 
-        g = self.steps.graph(("decode", plan, B, max_len),
-                             lambda: dict(self.steps.buffers(tokens=((B, 1), torch.long), **self._route_spec(B)),
-                                          pos=cache.pos), body, "static")
-        g.feed("tokens", tok[:, None])
+        g = self.steps.graph(("decode", plan, hi - lo, max_len),
+                             lambda: dict(self.steps.buffers(tokens=((hi - lo, 1), torch.long),
+                                                             **self._route_spec(B)), pos=cache.pos), body, "static")
+        g.feed("tokens", tok[lo:hi, None])
         g.feed("pos", pos)
         return self._run_step(g), self._read_route(g)
 
@@ -1255,16 +1276,14 @@ class InferenceEngine:
 
             generated = np.zeros((B, max_new), np.int32)
             t1 = time.perf_counter()
-            next_tok = self._sample(logits, sampling, gen)
-            host_tok = next_tok.cpu().numpy()
+            host_tok = self._sample(logits, sampling, gen, "prefill", B)
             done = np.zeros((B,), bool)
             for step in range(max_new):
                 generated[:, step] = np.where(done, self.eos_id, host_tok)
                 if step == max_new - 1:
                     break
-                logits, route = self._decode_step_static(next_tok, S + step, max_len)
-                next_tok = self._sample(logits, sampling, gen)
-                host_tok = next_tok.cpu().numpy()  # the step's one sync
+                logits, route = self._decode_step_static(host_tok, S + step, max_len)
+                host_tok = self._sample(logits, sampling, gen, "decode", B)  # the step's one sync
                 self._observe_routing(route)
                 self._maybe_rebalance()
                 if self.eos_id >= 0:
@@ -1327,9 +1346,9 @@ class InferenceEngine:
         nslots = sch.max_batch
         if not self.paged:
             self._end_live_batch()
-            dt, plan = self.params["embed"].dtype, self._sharding_for("decode")
-            cache = init_cache(self.cfg, nslots, cap, dtype=dt, device=self.device, plan=plan)
-            cache.pos = torch.zeros((nslots,), dtype=torch.int32, device=self.device)
+            dt, (plan, lo, hi) = self.params["embed"].dtype, self._rows("decode", nslots)
+            cache = init_cache(self.cfg, hi - lo, cap, dtype=dt, device=self.device, plan=plan)
+            cache.pos = torch.zeros((hi - lo,), dtype=torch.int32, device=self.device)
             self._live = _LiveBatch(
                 kv_capacity=cap, slots=[None] * nslots, cache=cache, pos=np.zeros((nslots,), np.int32),
                 next_tok=np.zeros((nslots,), np.int32),
@@ -1415,10 +1434,12 @@ class InferenceEngine:
         self._sync()
         t0 = time.perf_counter()
         logits = self._admit_prefill(toks)
-        tok0 = int(self._sample(logits, sampling, gen).cpu()[0])
+        tok0 = int(self._sample(logits, sampling, gen, "prefill", 1)[0])
         slot.prefill_ms = (time.perf_counter() - t0) * 1e3
         slot.transition_ms = self._book_transition(inter_ms + self.transition_expert_layout())
-        merge_cache_rows(live.cache, live.sub, [i])
+        _, lo, hi = self._rows("decode", len(live.slots))
+        if lo <= i < hi:  # the slot's rows live on this rank
+            merge_cache_rows(live.cache, live.sub, [i - lo])
         live.pos[i] = slot.start
         live.next_tok[i] = tok0
         if r.max_new_tokens >= 1:
@@ -1432,7 +1453,7 @@ class InferenceEngine:
         runs after it, in place, so a join drops no graph."""
         live = self._live
         S, cap = toks.shape[1], live.kv_capacity
-        plan = self._sharding_for("prefill")
+        plan = self._rows("prefill", 1)[0]
 
         def body(g: StepGraph) -> torch.Tensor:
             logits, _ = prefill(self.params, self.cfg, {"tokens": g.bufs["tokens"]}, cap,
@@ -1613,76 +1634,72 @@ class InferenceEngine:
     def _prefix_group_arrays(self) -> np.ndarray:
         """The (2, nslots) prefix-group operand of the decode kernel: row 0
         maps every slot to its group representative (itself when unshared),
-        row 1 holds the leading shared-block count. Rows whose first
-        ``n_shared`` blocks are identical form one group. Only mirrored
+        row 1 holds the leading shared-block count. Rows of one data block
+        (``_rows``) whose first ``n_shared`` blocks are identical form one
+        group: the kernel reads the group's shared pages through its
+        representative's table, a row the same rank computes. Only mirrored
         slots take part: before its first chunk a row's mirror is all-trash
         and must not anchor or join a group."""
         live = self._live
         n = len(live.slots)
+        _, lo, hi = self._rows("decode", n)
         reps = np.arange(n, dtype=np.int32)
         nsh = np.zeros((n,), np.int32)
         first: Dict[tuple, int] = {}
         for i, s in enumerate(live.slots):
             if s is None or not s.mirrored or s.table.n_shared == 0:
                 continue
-            key = tuple(s.table.blocks[: s.table.n_shared])
+            key = (i // (hi - lo),) + tuple(s.table.blocks[: s.table.n_shared])
             rep = first.setdefault(key, i)
             if rep != i:
                 reps[i] = rep
                 nsh[i] = s.table.n_shared
         return np.stack([reps, nsh])
 
-    def _groups(self, decode: bool) -> Optional[np.ndarray]:
-        """The prefix-group operand to feed (None with the prefix cache off);
-        ``decode``: a decode step reads it (a lone chunk does not), and one
-        that reads a shared run through another row's table is counted."""
+    def _groups(self, decode: bool, lo: int, hi: int) -> Optional[np.ndarray]:
+        """The prefix-group operand to feed for this rank's rows ``[lo, hi)``
+        (None with the prefix cache off); ``decode``: a decode step reads
+        it (a lone chunk does not), and one where any row reads a shared
+        run through another row's table is counted."""
         if self._live.prefix is None:
             return None
         arrays = self._prefix_group_arrays()
         if decode and (arrays[0] != np.arange(arrays.shape[1])).any():
             self.stats.prefix_grouped_steps += 1
-        return arrays
+        return np.stack([arrays[0, lo:hi] - lo, arrays[1, lo:hi]])
 
-    def _chunk_half(self, g: StepGraph) -> torch.Tensor:
+    def _chunk_half(self, g: StepGraph, plan) -> torch.Tensor:
         """Append the (1, C) prompt chunk through the chunk row's own
-        position and table buffers; returns its last position's logits
-        (1, V). The row's table already holds any adopted blocks, so the
-        chunk takes no group indirection."""
+        position and table buffers under ``plan`` (a one-row batch's);
+        returns its last position's logits (1, V). The row's table already
+        holds any adopted blocks, so the chunk takes no group indirection."""
         sub = DecodeCache(k=self._live.cache.k, v=self._live.cache.v, pos=g.bufs["chunk_pos"],
                           block_tables=g.bufs["chunk_table"])
-        logits, _ = decode_step(self.params, self.cfg, g.bufs["chunk"], sub, backend=self.kernel_backend,
-                                plan=g.key[1])
+        logits, _ = decode_step(self.params, self.cfg, g.bufs["chunk"], sub, backend=self.kernel_backend, plan=plan)
         return logits
 
-    def _decode_half(self, g: StepGraph) -> torch.Tensor:
-        """A decode step over every slot through the step's position, table
-        and group buffers; returns the logits (nslots, V)."""
+    def _decode_half(self, g: StepGraph, plan) -> torch.Tensor:
+        """A decode step over this rank's slots through the step's
+        position, table and group buffers under ``plan``; returns their
+        logits."""
         cache = DecodeCache(k=self._live.cache.k, v=self._live.cache.v, pos=g.bufs["pos"],
                             block_tables=g.bufs["tables"], prefix_groups=g.bufs.get("groups"))
         logits, new = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
-                                  plan=g.key[1], collect_routing="route" in g.bufs)
+                                  plan=plan, collect_routing="route" in g.bufs)
         if "route" in g.bufs:
             g.bufs["route"].copy_(new.route_topk)
         return logits
 
-    def _contiguous_decode(self, g: StepGraph) -> torch.Tensor:
-        """A decode step over every slot of the contiguous live cache (K/V,
-        and each mamba layer's conv window and state) at the step's
-        position buffer; returns the logits (nslots, V)."""
+    def _contiguous_decode(self, g: StepGraph, plan) -> torch.Tensor:
+        """A decode step over this rank's slots of the contiguous live cache
+        (K/V, and each mamba layer's conv window and state) at the step's
+        position buffer under ``plan``; returns their logits."""
         cache = dataclasses.replace(self._live.cache, pos=g.bufs["pos"])
         logits, new = decode_step(self.params, self.cfg, g.bufs["tokens"], cache, backend=self.kernel_backend,
-                                  plan=g.key[1], collect_routing="route" in g.bufs)
+                                  plan=plan, collect_routing="route" in g.bufs)
         if "route" in g.bufs:
             g.bufs["route"].copy_(new.route_topk)
         return logits
-
-    def _fused_body(self, g: StepGraph) -> torch.Tensor:
-        """The chunk half, then the decode half, as one step (the
-        reference's ``_fused_fn`` is one jit). The two halves read two
-        position buffers: the chunk row's own, and every slot's with the
-        joiner already past its chunk."""
-        self._chunk_half(g)
-        return self._decode_half(g)
 
     def _relayout_live(self, plan) -> float:
         """Move the live cache into ``plan``'s layout when a re-plan changed
@@ -1718,30 +1735,40 @@ class InferenceEngine:
         """The live batch's step of ``kind`` ("chunk", "paged_decode" or
         "fused" on the paged pool; "decode" on the contiguous cache) for a
         C-token chunk, keyed as the reference's jit entries plus the shape
-        class."""
+        class: the decode half's rows this rank computes (``_rows``) and
+        the plans of both halves (the chunk is a one-row batch). The fused
+        step runs the chunk half, then the decode half (the reference's
+        ``_fused_fn`` is one jit), reading two position buffers: the chunk
+        row's own, and every slot's with the joiner already past its
+        chunk."""
         live = self._live
         n, mb, pfx = len(live.slots), live.max_blocks, live.prefix is not None
-        plan = self._sharding_for("decode")
+        plan, lo, hi = self._rows("decode", n)
+        nl, one = hi - lo, self._rows("decode", 1)[0]
         self._relayout_live(plan)
         if kind == "decode":
-            specs = dict(tokens=((n, 1), torch.long), pos=((n,), torch.int32), **self._route_spec(n))
-            return self.steps.graph(("decode", plan, n, live.kv_capacity), lambda: self.steps.buffers(**specs),
-                                    self._contiguous_decode, "live")
+            specs = dict(tokens=((nl, 1), torch.long), pos=((nl,), torch.int32), **self._route_spec(n))
+            return self.steps.graph(("decode", plan, nl, live.kv_capacity), lambda: self.steps.buffers(**specs),
+                                    lambda g: self._contiguous_decode(g, plan), "live")
         specs = {}
         if kind in ("chunk", "fused"):
             specs.update(chunk=((1, C), torch.long), chunk_pos=((1,), torch.int32),
                          chunk_table=((1, mb), torch.int32))
         if kind in ("paged_decode", "fused"):
-            specs.update(tokens=((n, 1), torch.long), pos=((n,), torch.int32), tables=((n, mb), torch.int32),
+            specs.update(tokens=((nl, 1), torch.long), pos=((nl,), torch.int32), tables=((nl, mb), torch.int32),
                          **self._route_spec(n))
             if pfx:
-                specs["groups"] = ((2, n), torch.int32)
+                specs["groups"] = ((2, nl), torch.int32)
         if kind == "chunk":
-            key, body = ("chunk", plan, C, n, mb), self._chunk_half
+            key, body = ("chunk", one, C, n, mb), lambda g: self._chunk_half(g, one)
         elif kind == "paged_decode":
-            key, body = ("paged_decode", plan, n, mb, pfx), self._decode_half
+            key, body = ("paged_decode", plan, nl, mb, pfx), lambda g: self._decode_half(g, plan)
         else:
-            key, body = ("fused", plan, C, n, mb, pfx), self._fused_body
+            key = ("fused", plan if one == plan else (one, plan), C, nl, mb, pfx)
+
+            def body(g: StepGraph) -> torch.Tensor:
+                self._chunk_half(g, one)
+                return self._decode_half(g, plan)
         return self.steps.graph(key, lambda: self.steps.buffers(**specs), body, "live")
 
     def _prefill_chunk_step(self, i: int, active: List[int], sampling: SamplingParams, gen) -> None:
@@ -1777,17 +1804,12 @@ class InferenceEngine:
         if fused:
             # the decode half sees the joiner past its chunk, as the
             # reference's fused step does; tables and groups are the chunk's
-            g.feed("tokens", live.next_tok[:, None])
-            g.feed("pos", live.pos)
-            g.feed("tables", live.tables)
-            groups = self._groups(decode=True)
-            if groups is not None:
-                g.feed("groups", groups)
+            self._feed_rows(g)
         t0 = time.perf_counter()
         if fused:
             logits = self._run_step(g)
             route = self._read_route(g)
-            toks = self._sample(logits, sampling, gen).cpu().numpy()
+            toks = self._sample(logits, sampling, gen, "decode", len(live.slots))
             step_ms = (time.perf_counter() - t0) * 1e3
             # booked once, as the live rows' decode step; the joiner's
             # prefill_ms counts only its unfused chunks
@@ -1799,7 +1821,7 @@ class InferenceEngine:
             return
         logits = self._run_step(g)
         if final:
-            tok0 = int(self._sample(logits, sampling, gen).cpu()[0])
+            tok0 = int(self._sample(logits, sampling, gen, "decode", 1)[0])
         else:
             self._sync()
         s.prefill_ms += (time.perf_counter() - t0) * 1e3
@@ -1811,6 +1833,20 @@ class InferenceEngine:
                 # index the completed prompt; the cache takes its own block
                 # references, so the run outlives this request until evicted
                 live.prefix.register(self.scheduler.pad_batch([s.req])[0][0], s.table.blocks)
+
+    def _feed_rows(self, g: StepGraph) -> None:
+        """Feed a decode step (or a fused step's decode half) this rank's
+        rows of the live slots: tokens, positions and, paged, block tables
+        and prefix groups."""
+        live = self._live
+        _, lo, hi = self._rows("decode", len(live.slots))
+        g.feed("tokens", live.next_tok[lo:hi, None])
+        g.feed("pos", live.pos[lo:hi])
+        if self.paged:
+            g.feed("tables", live.tables[lo:hi])
+            groups = self._groups(True, lo, hi)
+            if groups is not None:
+                g.feed("groups", groups)
 
     def _apply_sampled(self, toks: np.ndarray, active: List[int], step_ms: float) -> None:
         live = self._live
@@ -1842,17 +1878,11 @@ class InferenceEngine:
             if not active:
                 return  # every decode row was preempted to cover the pool
         g = self._live_step("paged_decode" if self.paged else "decode")
-        g.feed("tokens", live.next_tok[:, None])
-        g.feed("pos", live.pos)
-        if self.paged:
-            g.feed("tables", live.tables)
-            groups = self._groups(decode=True)
-            if groups is not None:
-                g.feed("groups", groups)
+        self._feed_rows(g)
         t0 = time.perf_counter()
         logits = self._run_step(g)
         route = self._read_route(g)
-        toks = self._sample(logits, sampling, gen).cpu().numpy()
+        toks = self._sample(logits, sampling, gen, "decode", len(live.slots))
         step_ms = (time.perf_counter() - t0) * 1e3
         self.stats.decode_steps += 1
         self._observe_routing(route)

@@ -2,13 +2,16 @@
 
 Greedy argmax is the exactness contract the tests hold against the JAX
 engine. Temperature sampling draws from a seeded ``torch.Generator``; it
-cannot replay ``jax.random``, so it is outside that contract.
+cannot replay ``jax.random``, so it is outside that contract. It draws the
+whole batch's randoms (Gumbel noise, one per row and token) at every step,
+wherever its rows are computed, so a row's token does not depend on how a
+mesh splits the batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,13 +23,19 @@ class SamplingParams:
     seed: int = 0
 
 
-def sample(logits: torch.Tensor, params: SamplingParams, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """logits: (B, V) -> (B,) int64 next tokens."""
+def sample(logits: torch.Tensor, params: SamplingParams, generator: Optional[torch.Generator] = None,
+           rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """logits: (b, V) -> (b,) int64 next tokens. ``rows = (lo, hi, n)``:
+    the logits are rows ``[lo, hi)`` of a batch of ``n`` (default: the whole
+    batch). At a temperature the draws are the whole batch's, of which the
+    rows keep theirs (the Gumbel-max trick: the argmax of the scaled logits
+    plus Gumbel noise is a draw from their softmax)."""
     if params.temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
+    lo, hi, n = rows if rows is not None else (0, logits.shape[0], logits.shape[0])
     logits = logits.float() / params.temperature
     if params.top_k > 0:
         thresh = torch.topk(logits, params.top_k, dim=-1).values[:, -1:]
         logits = torch.where(logits >= thresh, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    u = torch.rand((n, logits.shape[-1]), generator=generator, device=logits.device)[lo:hi]
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)

@@ -20,7 +20,8 @@ of the mesh, in group-rank order). ``all_reduce`` (partial sums),
 ``all_gather``, ``reduce_scatter``, ``all_to_all`` (the tiled exchange of
 the EP dispatch and of the Eq.-6 reshard) and, on the model axis,
 ``exchange`` (batched point-to-point sends and receives, the ring hops of
-``kernels.ops.a2a_ppermute``). These act outside autograd;
+``kernels.ops.a2a_ppermute``), and ``gather_rows``, which the serving
+engine's host loop reads every rank's sampled rows through. These act outside autograd;
 ``repro_torch.sharding.autograd`` wraps them for training. On an axis of
 one rank each is the identity. gloo carries CUDA tensors in its
 collectives by staging them through the host itself; its point-to-point
@@ -144,6 +145,27 @@ class RankMesh:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=group)
         return torch.cat(parts, dim=dim)
+
+    def gather_rows(self, x: torch.Tensor, axes: Axis = ()) -> torch.Tensor:
+        """The whole batch, on the host, from every rank's block of rows
+        ``x`` (dim 0): the blocks in their order along ``axes`` (the data
+        axes the rows are split over; none: every rank holds every row).
+        Raises unless every rank that holds a block holds the same values
+        (the model row of a data rank, or every rank when no axis splits
+        the rows). One all-gather over the whole mesh."""
+        x = x.contiguous()
+        if self.world == 1:
+            return x.cpu()
+        seen = self.all_gather(x[None], dim=0, axis=AXES).cpu()  # (world, rows, ...) in group-rank order
+        m, blocks = self._shape["model"], {}
+        for g in range(self.world):
+            coords = {"data": g // m, "model": g % m}
+            i = 0
+            for a in _axes(axes):
+                i = i * self._shape[a] + coords[a]
+            if not torch.equal(blocks.setdefault(i, seen[g]), seen[g]):
+                raise RuntimeError(f"rank {self.index}: the ranks holding rows block {i} disagree: {seen.tolist()}")
+        return torch.cat([blocks[i] for i in range(len(blocks))], dim=0)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int, axis: Axis = "model") -> torch.Tensor:
         """The sum of every rank's ``x`` over ``axis``, of which this rank

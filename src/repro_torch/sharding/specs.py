@@ -36,9 +36,18 @@ The mesh is the reference's ``(data, model)``. Data-parallel axes
 along them (``dp_index``). ``seq_shard_acts`` (Megatron sequence
 parallelism) keeps the residual stream sequence-sharded on the model axis
 between sublayers; ``fsdp`` (ZeRO-3) shards every parameter over every
-mesh axis (``models.params.fsdp_pspecs``), gathered per layer. Both are
-training layouts: the serving engine takes neither, nor a data axis of
-size > 1 (``unported_layout``, ROADMAP A.9).
+mesh axis (``models.params.fsdp_pspecs``), gathered per layer. The
+serving engine takes both, under a static ``plan``.
+
+Serving splits a batch's rows, or a live batch's slots, over the data
+axes by ``serving_rows``: a batch of ``B`` rows that divides them gives
+data rank ``i`` the contiguous block ``[i * B / n, (i + 1) * B / n)``, in
+the row-major order of ``Mesh(devices.reshape(d, m))`` (as
+``data.pipeline.local_rows`` splits a training batch); a batch that does
+not divide them is run with the data axes dropped from the plan, every
+data rank computing every row, the batch rule of ``adapt_plan_for_batch``
+(the reference pads such a batch under GSPMD; both compute the same
+function).
 
 Expert replication differs in one point: the reference gathers each slot's
 weights from the expert-layout leaves inside every step; here the engine
@@ -299,25 +308,6 @@ def adapt_plan_for_batch(plan: ShardingPlan, cfg, batch: int, kind: str) -> Shar
     return dataclasses.replace(plan, dp_axes=(), kv_shard=kv)
 
 
-def unported_layout(plan: Optional[ShardingPlan]) -> Optional[str]:
-    """What of ``plan`` the serving engine cannot execute yet (ROADMAP
-    A.9), or None: a data-parallel mesh axis of size > 1 (in the plan's
-    ``dp_axes``, or in its mesh, which a ``seq_all`` cache would span), and
-    the training layouts ``fsdp`` and ``seq_shard_acts``. The model-level
-    entry points (``loss_and_aux``, ``prefill``, ``decode_step``) run them
-    all."""
-    if plan is None or plan.is_null:
-        return None
-    model = plan.ffn_tp_axis or plan.attn_tp_axis or "model"
-    axes = set(plan.dp_axes) | {a for a in plan.mesh.axis_names if a != model}
-    big = sorted(a for a in axes if plan.axis_size(a) > 1)
-    if big:
-        return f"data-parallel mesh axes {big} of size > 1"
-    if plan.fsdp or plan.seq_shard_acts:
-        return "the training layouts fsdp and seq_shard_acts"
-    return None
-
-
 def dp_axes(plan: Optional[ShardingPlan]) -> Tuple[str, ...]:
     """The plan's data-parallel axes of size > 1: the batch rows are
     sharded over them."""
@@ -338,6 +328,24 @@ def dp_index(plan: Optional[ShardingPlan]) -> int:
     them): it holds rows ``[i * B / n, (i + 1) * B / n)`` of a batch of B."""
     axes = dp_axes(plan)
     return plan.mesh.axis_index(axes) if axes else 0
+
+
+def serving_rows(plan: Optional[ShardingPlan], rows: int) -> Tuple[Optional[ShardingPlan], int, int]:
+    """The serving row rule: ``(plan for a batch of rows, lo, hi)``, the rows
+    ``[lo, hi)`` being the ones this rank computes. ``rows`` that divide
+    the plan's data axes split into contiguous blocks in data order (data
+    rank ``i`` holds ``[i * rows / n, (i + 1) * rows / n)``); rows that do
+    not divide them run under the plan with its data axes dropped, every
+    rank computing every row (the batch rule of ``adapt_plan_for_batch``;
+    the cache layout is kept)."""
+    n = dp_size(plan)
+    if n == 1:
+        return plan, 0, rows
+    if rows % n:
+        return dataclasses.replace(plan, dp_axes=()), 0, rows
+    b = rows // n
+    i = dp_index(plan)
+    return plan, i * b, (i + 1) * b
 
 
 def sp_active(plan: Optional[ShardingPlan]) -> bool:

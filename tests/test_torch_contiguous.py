@@ -39,6 +39,7 @@ from repro_torch.core import HAPSession, fixed_plan  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
 from repro_torch.serving import EngineStats, InferenceEngine, Request, SamplingParams  # noqa: E402
+from repro_torch.sharding.specs import ShardingPlan  # noqa: E402
 
 # the port's own measurement counters, which the JAX engine does not keep
 PORT_ONLY_STATS = ("prefix_grouped_steps", "decode_step_ms_sum", "decode_step_ms_max", "reshard_bytes")
@@ -236,16 +237,21 @@ def test_ssm_families_serve_equal_jax(name, continuous):
         ("deepseek-moe-16b", dict(paged=False, prefix_cache=True), ValueError, "prefix_cache"),
         ("deepseek-moe-16b", dict(paged=False, kv_overcommit=0.5), ValueError, "kv_overcommit"),
         ("falcon-mamba-7b", dict(kv_overcommit=0.5), ValueError, "kv_overcommit"),
-        # mamba models serve on a mesh since A.9's serving half; a data axis
-        # of size > 1 is still not ported
-        ("hymba-1.5b", dict(session=types.SimpleNamespace(mesh=types.SimpleNamespace(
-            axis_names=("data", "model"), shape={"data": 2, "model": 2}, rank=0, capturable=False))),
-         NotImplementedError, "A.9"),
+        # mamba models serve on a mesh with a data axis too (ROADMAP A.9): no error
+        ("hymba-1.5b", dict(plan=ShardingPlan(mesh=types.SimpleNamespace(
+            axis_names=("data", "model"), shape={"data": 2, "model": 2}, rank=0, size=2, capturable=False,
+            axis_index=lambda axes: 1), dp_axes=("data",))), None, None),
     ],
 )
 def test_option_errors_equal_reference(name, kw, err, match):
     cfg_j, cfg_t, jparams, tparams = setup_of(name)
-    jkw = {k: v for k, v in kw.items() if k != "session"}
+    if err is None:  # served: data rank 1 of the (2, 2) stand-in holds rows [2, 4) of a batch of 4
+        eng = InferenceEngine(cfg_t, tparams, device="cpu", **kw)
+        assert eng._rows("prefill", 4)[1:] == (2, 4) and eng._rows("prefill", 3)[1:] == (0, 3)
+        cache = eng._static_cache(4, 16)
+        assert cache.k.shape[1] == cache.conv.shape[1] == cache.ssm.shape[1] == 2
+        return
+    jkw = {k: v for k, v in kw.items() if k not in ("session", "plan")}
     if jkw == kw:  # the reference raises the same error on the same options
         with pytest.raises(err, match=match):
             JaxEngine(cfg_j, jparams, **jkw)

@@ -37,6 +37,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import decode_step, init_paged_cache, params_from_numpy, prefill  # noqa: E402
 from repro_torch.serving import EngineStats, FaultInjector, InferenceEngine, Request, SamplingParams  # noqa: E402
 from repro_torch.serving.kv_cache import BlockAllocator, BlockTable  # noqa: E402
+from repro_torch.sharding.specs import ShardingPlan  # noqa: E402
 
 TOL = 1e-4
 
@@ -240,8 +241,10 @@ def test_engine_mirrors_and_groups(moe_setup):
         (dict(paged=False, prefix_cache=True), ValueError),
         (dict(kv_overcommit=1.5), ValueError),
         (dict(faults=lambda: FaultInjector().fail("nope")), ValueError),
-        (dict(session=types.SimpleNamespace(mesh=types.SimpleNamespace(
-            axis_names=("data", "model"), shape={"data": 2, "model": 2}))), NotImplementedError),  # A.9
+        # a data axis serves (ROADMAP A.9): no error
+        (dict(max_batch=4, plan=ShardingPlan(mesh=types.SimpleNamespace(
+            axis_names=("data", "model"), shape={"data": 2, "model": 2}, rank=0, size=2, capturable=False,
+            axis_index=lambda axes: 1), dp_axes=("data",))), None),
         (dict(replicate_experts=-1), ValueError),
         (dict(prefetch=True, prefetch_top_p=0.0), ValueError),
         (dict(kv_block_size=0), ValueError),
@@ -249,7 +252,13 @@ def test_engine_mirrors_and_groups(moe_setup):
 )
 def test_unported_and_invalid_options_raise(moe_setup, kw, err):
     _, cfg_t, _, tparams = moe_setup
-    with pytest.raises(err, match="ROADMAP|paged|positive|>= 0|top_p|kv_overcommit|unknown fault site"):
+    if err is None:  # served: data rank 1 of the (2, 2) stand-in computes slots [2, 4); 3 slots run whole
+        eng = InferenceEngine(cfg_t, tparams, device="cpu", **kw)
+        plan, lo, hi = eng._rows("decode", eng.scheduler.max_batch)
+        assert (plan.dp_axes, lo, hi) == (("data",), 2, 4)
+        assert eng._rows("decode", 3)[0].dp_axes == () and eng._rows("decode", 3)[1:] == (0, 3)
+        return
+    with pytest.raises(err, match="paged|positive|>= 0|top_p|kv_overcommit|unknown fault site"):
         kw = {k: v() if callable(v) else v for k, v in kw.items()}
         InferenceEngine(cfg_t, tparams, device="cpu", **kw)
 

@@ -239,8 +239,8 @@ def test_fixed_plan_from_names():
 def test_to_sharding_plan_null_mesh_only():
     """No mesh: the null plan. A mesh of two ranks: each phase's layout
     (tests/test_torch_sharding_plan.py holds the resolver to the
-    reference's). A mesh the port cannot serve on raises, naming ROADMAP
-    A.9, and one that is not a RankMesh is refused."""
+    reference's). A (2, 2) mesh builds the engine, its layout keeping the
+    data axis; a mesh that is not a RankMesh is refused."""
     import types
 
     cfg = get_config("deepseek-moe-16b").reduced()
@@ -252,10 +252,11 @@ def test_to_sharding_plan_null_mesh_only():
     mesh = types.SimpleNamespace(axis_names=("model",), shape={"model": 2})
     pre, dec = (plan.to_sharding_plan(mesh, cfg, phase=ph) for ph in ("prefill", "decode"))
     assert (pre.attn_mode, pre.ffn_mode, dec.ffn_mode, dec.ep_axis) == ("replicated", "tp", "ep", "model")
-    s = HAPSession(cfg, "h100", 4, source=plan,
-                   mesh=types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 2}))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        s.engine({}, device="cpu")
+    grid = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 2}, rank=0, size=2,
+                                 capturable=False)
+    eng = HAPSession(cfg, "h100", 4, source=plan, mesh=grid).engine({}, device="cpu")
+    assert eng._layout == plan.to_sharding_plan(grid, cfg, phase="prefill")
+    assert eng._layout.dp_axes == ("data",)  # a data axis serves: the batch rows split over it
     with pytest.raises(TypeError, match="RankMesh"):
         HAPSession(cfg, "h100", 2, source=plan, mesh=mesh).engine({}, device="cpu")
 

@@ -190,8 +190,9 @@ def _mesh(tp, dp=1):
 
 def test_resolver_picks_the_reference_layout():
     """Every config, every attention x expert strategy on 1, 2 and 4 ranks:
-    the same plan as the reference's resolver, ``seq`` included, and only
-    a data axis of size > 1 left unported."""
+    the same plan as the reference's resolver, ``seq`` included; every rank
+    serves every row of a batch with no data axis, and a data axis of 2
+    stays in the plan, dropped for a batch it does not divide."""
     from repro.configs import get_config as jget_config
     from repro.core.strategy import AttnStrategy as JAttn
     from repro.core.strategy import ExpertStrategy as JExpert
@@ -215,8 +216,9 @@ def test_resolver_picks_the_reference_layout():
                     got = specs.strategy_sharding_plan(mesh, cfg, a, e)
                     want = jspecs.strategy_sharding_plan(mesh, jcfg, ja, je)
                     assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}, (name, tp)
-                    assert specs.unported_layout(got) is None
-        assert "data" in specs.unported_layout(specs.make_plan(_mesh(2, dp=2), cfg))
+                    assert specs.serving_rows(got, 3) == (got, 0, 3)
+        grid = specs.make_plan(_mesh(2, dp=2), cfg)
+        assert grid.dp_axes == ("data",) and specs.serving_rows(grid, 3)[0].dp_axes == ()
 
 
 @pytest.mark.parametrize("max_len", [15, 16, 17])

@@ -81,9 +81,11 @@ def test_adapt_plan_for_batch_equals_reference(batch):
         got = specs.adapt_plan_for_batch(specs.make_plan(mesh, cfg), cfg, batch, kind)
         want = jspecs.adapt_plan_for_batch(jspecs.make_plan(mesh, jcfg), jcfg, batch, kind)
         assert (got.dp_axes, got.kv_shard) == (want.dp_axes, want.kv_shard)
-        # a data axis of 2 in the mesh: the port names it, whether the plan
-        # shards the batch over it or, seq_all, the cache's positions
-        assert specs.unported_layout(got) is not None and "data" in specs.unported_layout(got)
+        # the serving row rule keeps the data axis exactly where the batch
+        # rule does, and splits the rows over it then
+        rows_plan, lo, hi = specs.serving_rows(specs.make_plan(_grid(2, 2, 1, 0), cfg), batch)
+        assert rows_plan.dp_axes == got.dp_axes
+        assert (lo, hi) == ((batch // 2, batch) if got.dp_axes else (0, batch))
 
 
 def _spec_tree(tree):
@@ -165,13 +167,54 @@ def test_sharded_init_equals_the_whole_init_cut(plan):
             assert torch.equal(part[k], cut[k]), k
 
 
-def test_unported_layouts_are_named():
+def _grid(d, m, i, j):
+    """A stand-in ``(d, m)`` RankMesh at coordinates ``(i, j)``."""
+    coords = {"data": i, "model": j}
+    shape = {"data": d, "model": m}
+
+    def axis_index(axes):
+        k = 0
+        for a in (axes,) if isinstance(axes, str) else axes:
+            k = k * shape[a] + coords[a]
+        return k
+
+    return types.SimpleNamespace(axis_names=("data", "model"), shape=shape, coords=coords, rank=j, size=m,
+                                 axis_index=axis_index)
+
+
+def test_serving_rows_split_and_drop():
+    """Every layout serves (nothing is refused any more): with no data axis
+    every rank computes every row under the plan as it is; on a (2, 2)
+    mesh a batch or a slot count that divides the data axis splits into
+    contiguous blocks in data order, and one that does not runs under the
+    plan with the data axis dropped (the cache layout kept)."""
     cfg = get_config("deepseek-moe-16b")
-    assert specs.unported_layout(specs.make_plan(_mesh(2), cfg)) is None
-    assert specs.unported_layout(specs.make_plan(_mesh(2), cfg, kv_shard="seq")) is None
-    assert specs.unported_layout(specs.make_plan(_mesh(2), cfg, kv_shard="seq_all")) is None
-    assert "data" in specs.unported_layout(specs.make_plan(_mesh(2, dp=2), cfg))
-    assert specs.unported_layout(None) is None
+    for kv in ("", "seq", "seq_all"):
+        plan = specs.make_plan(_mesh(2), cfg, kv_shard=kv)
+        assert specs.serving_rows(plan, 3) == (plan, 0, 3)
+    assert specs.serving_rows(None, 5) == (None, 0, 5)
+    for i in (0, 1):
+        for j in (0, 1):
+            plan = specs.make_plan(_grid(2, 2, i, j), cfg)
+            assert plan.dp_axes == ("data",)
+            for rows in (2, 4, 8):  # a batch, or the slots of max_batch
+                assert specs.serving_rows(plan, rows) == (plan, i * rows // 2, (i + 1) * rows // 2)
+            for rows in (1, 3, 5):
+                dropped, lo, hi = specs.serving_rows(plan, rows)
+                assert (lo, hi, dropped.dp_axes) == (0, rows, ())
+                assert dataclasses.replace(dropped, dp_axes=plan.dp_axes) == plan
+
+
+def test_serving_rows_over_both_axes():
+    """An FSDP plan shards the batch over both axes: rank (i, j) of (2, 2)
+    holds block 2i + j of four; three rows drop both axes."""
+    for i in (0, 1):
+        for j in (0, 1):
+            mesh = _grid(2, 2, i, j)
+            plan = specs.ShardingPlan(mesh=mesh, dp_axes=("data", "model"), attn_mode="replicated",
+                                      kv_shard="none", ffn_mode="tp", fsdp=True)
+            assert specs.serving_rows(plan, 8)[1:] == (2 * (2 * i + j), 2 * (2 * i + j) + 2)
+            assert specs.serving_rows(plan, 3)[0].dp_axes == ()
 
 
 # the grouped matmul at the per-rank shapes of the sharded path: TP2 / TP4
