@@ -72,16 +72,6 @@ printing one JSON line:
              and dequant against their plain versions at the shapes the
              kernels phase has no row for (68 slots, the slot leaf, the
              barrier's assembled leaf)
-   launcher - the serve launcher as a user starts it,
-             ``repro_torch.launch.serve.main(["--full", "--chip", "h100",
-             "--devices", "4", "--kernel-backend", "hopper"], params=...)``
-             on these weights: the mixed short/long trace through ``run()``,
-             then with ``--continuous --prefix-cache``; exact launches, no
-             ``ref`` dispatch, tokens and launches equal to an engine built
-             from the same session and flags; the h100 latency model fitted
-             in a background process from the script's start; then
-             ``python -m repro_torch.launch.serve`` at its reduced default
-             in a subprocess, reading that fit from its cache
 9. robustness - the same weights (the router put back after the
              replication phase), their first 2 of 28 layers (the script's
              time limit; the schedule does not depend on the depth), at
@@ -119,9 +109,9 @@ printing one JSON line:
              limit): ``run()`` and agree. Each prints its peak memory
     ssm     - the families with mamba layers at full width, each freed
              before the next: Falcon-Mamba-7B (16 of its 64 mamba1 layers, no
-             attention, no FFN) and Hymba-1.5B (32 layers of parallel
-             attention and mamba heads, hd 64, GQA 25/5, window 1024 on 29
-             layers, dense SwiGLU): ``run()`` and the continuous traffic
+             attention, no FFN) and Hymba-1.5B (16 of its 32 layers of
+             parallel attention and mamba heads, hd 64, GQA 25/5, window 1024
+             on 14 of them, dense SwiGLU): ``run()`` and the continuous traffic
              through ``serve_continuous()`` (the contiguous fallback, their
              default), one eager and one captured run each; prefill against
              decode (gated in float32, bf16 reported beside the same path's
@@ -144,42 +134,58 @@ printing one JSON line:
              (5 steps, B=4 S=256, the router's aux loss); ms per step, peak
              memory, loss; then float32 parity with the port on the CPU (a
              HuBERT train step; DeepSeek's loss, aux and gradients)
-11. sharded - DeepSeekMoE-16B at full width and depth on two ranks of a
-             gloo group, both on the one card (NCCL refuses two ranks on one
-             device), spawned by ``repro_torch.sharding.launch``; each rank
-             draws only its shard (``init_params(..., shard=...)``, the
-             serve phase's seed) and serves the serve phase's 8 requests
+   launcher - the serve launcher as a user starts it,
+             ``repro_torch.launch.serve.main(["--full", "--chip", "h100",
+             "--devices", "4", "--kernel-backend", "hopper"], params=...)``
+             on DeepSeek's seeded weights drawn anew (late, so that the h100
+             latency model, fitted in a background process from the
+             script's start, has landed): the mixed short/long trace through
+             ``run()``, then with ``--continuous --prefix-cache``; exact
+             launches, no ``ref`` dispatch, tokens and launches equal to an
+             engine built from the same session and flags; then ``python -m
+             repro_torch.launch.serve`` at its reduced default in a
+             subprocess, reading that fit from its cache
+11. sharded - DeepSeekMoE-16B at full width on two ranks of a gloo group,
+             both on the one card (NCCL refuses two ranks on one device),
+             spawned by ``repro_torch.sharding.launch``; each rank draws
+             only its shard of all 28 layers (``init_params(..., shard=...)``,
+             the serve phase's seed) and serves the serve traffic's first
+             batch (4 requests) at its first 7 layers (``SHARDED_CUT``)
              through ``HAPSession(cfg, "h100", 2, source=fixed_plan(...),
              mesh=RankMesh).engine(...).run()`` eagerly under TP2/TP2,
-             TP2/EP2 (serial and K=2), and the switching TP2/EP2->TP2 plan
-             by reshard, by INT4 upload and from resident INT4, then the
-             continuous traffic with the prefix cache under TP2/EP2. Each
-             run prints its token agreement with the one-rank runs, per-rank
-             peak memory, launches, ms per step and relayout ms and bytes;
-             every rank must launch every kernel of its path. The
-             teacher-forced logits of the agree phase's first batch under
-             each TP2/EP2 layout are held to the agree bound with the expert
-             flips counted, and one MoE layer sharded against the same layer
-             whole (EP2: exact; TP2: the kernel tolerance). A last gloo run
-             serves resident INT4 under the switching TP2 -> EP2 plan with
-             replication and prefetch at the replication phase's capacity
-             factor: the ranks' replica sets equal, each rank holding half
-             of the slots, rows hit, and its teacher-forced logits within
-             the same-expert bound of that phase's one-rank reference.
-             DP2/EP2: attention whole on each rank, its contiguous cache
-             sequence-sharded (each rank half the positions), decode on
-             the plain path; the re-plan traffic (``REPLAN_TRAFFIC``),
-             paged and contiguous, whose attention switches TP2 -> DP2 ->
-             TP2 while a request is live, moving the live cache; and
-             Falcon-Mamba-7B (4 of 64 layers) and Hymba-1.5B (16 of 32) on two ranks,
-             the mixer tensor-parallel, against one card: logits within
-             twice its batch noise, each rank half the conv/ssm state. Then
-             one NCCL rank serves TP2/EP2 captured and eager: equal tokens
+             TP2/EP2 (serial and K=2), and the switching TP2/EP2->TP2 plan by
+             reshard, by INT4 upload and from resident INT4 (4 layers), then
+             the continuous traffic with the prefix cache under TP2/EP2 (4
+             layers). Each run prints per-rank peak memory, launches, ms per
+             step and relayout ms and bytes; every rank must launch every
+             kernel of its path. The teacher-forced logits of the agree
+             phase's first batch under each TP2/EP2 layout, at 7 layers
+             (``SHARDED_REF_LAYERS``), are held to the agree bound against
+             one card at that depth with the expert flips counted, and one
+             MoE layer sharded against the same layer whole (EP2: exact;
+             TP2: the kernel tolerance). A last gloo run serves the 8
+             requests from resident INT4 at 7 layers under the switching
+             TP2 -> EP2 plan with replication and prefetch at the
+             replication phase's capacity factor: the ranks' replica sets
+             equal, each rank holding half of the slots, rows hit, and its
+             teacher-forced logits within the same-expert bound of that
+             phase's one-rank reference at 7 layers. DP2/EP2: attention
+             whole on each rank, its contiguous cache sequence-sharded (each
+             rank half the positions), decode on the plain path; the re-plan
+             traffic (``REPLAN_TRAFFIC``, 7 layers, its tokens against one
+             card at that depth), paged and contiguous, whose attention
+             switches TP2 -> DP2 -> TP2 while a request is live, moving the
+             live cache; and Falcon-Mamba-7B (4 of 64 layers) and Hymba-1.5B
+             (16 of 32) on two ranks, the mixer tensor-parallel, against one
+             card: logits within twice its batch noise, each rank half the
+             conv/ssm state. Then one NCCL rank serves TP2/EP2 captured and
+             eager: equal tokens
 12. sharded_train - training on a (data, model) mesh: four gloo ranks on
              the card, each with its shard of the state and its data rows.
              DeepSeekMoE-16B at full width, 1 of 28 layers: float32 on (2, 2)
              (TP-heads, EP) against one rank (loss 1e-5, grad norm 1e-4,
-             each gathered leaf 1e-4); bf16 3 steps each under TP2/EP2 on
+             each gathered leaf 1e-4; 2 steps, the other ranks' first
+             step taken meanwhile); bf16 2 steps each under TP2/EP2 on
              (1, 2), DP2 x EP2, DP2 x EP2 with sequence parallelism and FSDP
              on (2, 2) (ms a step, peak memory a rank, collectives a step);
              4 layers' ``prefill`` + 15 decode steps on (2, 2) through the
@@ -199,18 +205,26 @@ printing one JSON line:
              rows through the engine's own steps against one card's engine
              (the sharded bounds), float32 at 1 layer token for token
              against one card's engine, every rank's launches equal to the
-             counts worked out from the traffic (``SD_LAUNCHES``)
+             counts worked out from the traffic (``SD_LAUNCHES``); and the
+             dry run (``repro_torch.launch.dryrun``) of one TP2/EP2 decode
+             step of the static batch, traced for each rank on a fake (2, 2)
+             group in a process of its own, held to what each rank holds and
+             exchanges in that step: parameter and KV bytes, collective
+             calls and payload bytes exact; the dry run's args + temps
+             printed beside the rank's ``max_memory_allocated`` (a reading)
 
 Every engine runs its steps captured in CUDA graphs (``capture_steps``, the
-default on the card; ``repro_torch.serving.step_cache``). The serve phase,
-both continuous runs and the resident phase's async static run are each
+default on the card; ``repro_torch.serving.step_cache``). The serve phase is
 served four times on fresh engines, eager (``capture_steps=False``), captured,
-captured, eager: the tokens and the launch, variant and dispatch counts must
-be equal across the four (a replay counts as the launches it replays); each
-run prints its decode ms per step, prefill ms, tokens/s, peak memory, graphs
-captured, capture ms and replays. The resident phase's other runs (sync, the
-dense round trip, the continuous traffic) are captured, the resident
-continuous run also eager.
+captured, eager; both continuous runs, the resident phase's async static run
+and the other A/B runs once eager and once captured (the script's time
+limit): the tokens and the launch, variant and dispatch counts must be equal
+across them (a replay counts as the launches it replays); each run prints
+its decode ms per step, prefill ms, tokens/s, peak memory, graphs captured,
+capture ms and replays. The resident phase's other runs (sync, the dense
+round trip, the continuous traffic) are captured, the resident continuous run
+also eager. Each ``phase_done`` line carries the phase's seconds by step
+(``steps_s``) where the phase marks them.
 
 Every serving phase also checks that each bfloat16 flash and grouped-matmul
 launch on its path took the ``wgmma`` variant, and each paged and
@@ -308,7 +322,15 @@ AGREE_SAME_EXPERTS_TOL = 0.05  # rel L2, the ref path on the hopper path's exper
 # sharded_train's own runs to 1 (training) and 4 (serving) layers. Its
 # sharded_data part (~20-30 s) took a whole run to 1,164 s on a slower
 # host: the sharded phase's four static runs and its NCCL run went to 7 of
-# 28 layers.
+# 28 layers. The dry run's gate (~18 s) took a driver's run past 1,200 s,
+# and one of 957 s showed hosts apart by up to ~1.4x: the dry run went
+# beside the phases, every A/B but the serve phase's to one eager and one
+# captured run and its logits pass to the static run() A/Bs, Hymba's ssm
+# phase to 16 of 32 layers, the sharded phase's teacher-forced, replicated
+# and re-plan runs to 7 layers against one card at 7, its plan runs to the
+# first batch and its continuous run to 4, sharded_train to 2 steps, the
+# other ranks' first step taken meanwhile, and the launcher phase after
+# the train phase, when the latency model's fit has landed.
 # The agree bounds with each path routing on its own sit 2-4x above what
 # the H100 showed (rel L2 0.052, 0.023 and 0.157; max rel 0.067, 0.014 and
 # 0.296, PERF.md), far below a wrong kernel's ~1.4: Mixtral's top-2 of 8
@@ -323,6 +345,23 @@ FAMILIES = (
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# wall seconds by step within the running phase (or spawned rank), added by
+# ``mark``: each mark books the time since the last one under its label
+STEP_S: dict = {}
+_LAST_MARK = [time.perf_counter()]
+
+
+def mark(label: str) -> None:
+    now = time.perf_counter()
+    STEP_S[label] = STEP_S.get(label, 0.0) + now - _LAST_MARK[0]
+    _LAST_MARK[0] = now
+
+
+def reset_marks() -> None:
+    STEP_S.clear()
+    _LAST_MARK[0] = time.perf_counter()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -988,8 +1027,11 @@ def prompts(cfg):
     return [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
 
 
-# the order of every eager/captured A/B: each mode first once and last once
-AB_ORDER = (False, True, True, False)
+# the order of the serve phase's eager/captured A/B: each mode first once
+# and last once; every other A/B serves one eager and one captured run (the
+# script's time limit)
+SERVE_AB_ORDER = (False, True, True, False)
+AB_ORDER = (False, True)
 
 
 def step_stats(eng) -> dict:
@@ -998,14 +1040,16 @@ def step_stats(eng) -> dict:
     return dataclasses.asdict(eng.steps.stats)
 
 
-def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER, logits: bool = True, same=()) -> dict:
+def ab_runs(phase: str, name: str, make, serve, order=AB_ORDER, logits: bool = False, same=()) -> dict:
     """Serve one workload on fresh engines, eager (``capture_steps=False``)
     and captured, in ``order``; one JSON line per run. Every run must give
     the same tokens and the same launch, variant and dispatch counts (and
     the same values of the result's keys ``same``). Where
-    ``order`` has both modes and ``logits``, ``logits_ab`` then compares the
-    logits in two more runs, outside the timed ones. Returns the first captured run's
-    result (the main path) with ``ab`` = the per-run numbers."""
+    ``order`` has both modes and ``logits`` (the static ``run()`` A/Bs of
+    ``phase_serve``; elsewhere the tokens alone, the script's time limit),
+    ``logits_ab`` then compares the logits in two more runs, outside the
+    timed ones. Returns the first captured run's result (the main path)
+    with ``ab`` = the per-run numbers."""
     import torch
 
     results = []
@@ -1110,23 +1154,17 @@ def phase_serve(cfg, params, phase: str = "serve", order=AB_ORDER) -> dict:
         return res
 
     res = ab_runs(phase, f"{cfg.name} static",
-                  lambda cap: InferenceEngine(cfg, params, max_batch=MAX_BATCH, capture_steps=cap), serve, order)
+                  lambda cap: InferenceEngine(cfg, params, max_batch=MAX_BATCH, capture_steps=cap), serve, order,
+                  logits=True)
     res["first_batch_tokens"] = res["tokens"][:MAX_BATCH]
     return res
 
 
-def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=None,
-                same_tol: float = AGREE_SAME_EXPERTS_TOL) -> dict:
-    """Hopper against ref logits, teacher-forced on the hopper path's greedy
-    tokens, twice: each path routing on its own, then the ref path taking
-    the hopper path's expert choices (its gates still its own). Where the
-    routers near-tie, the two paths pick other experts for a token; the
-    second reading leaves that out and is held to
-    ``same_tol`` (a dense family's one reading too). ``keep`` (a dict) receives, on the host, for
-    the sharded phase: the padded tokens, the hopper path's logits, expert
-    choices and dropped token slots, and the same of one rank routing each
-    half of the tokens with its own capacity (the function an EP2 plan
-    computes) on the same forced tokens."""
+def _agree_runner(cfg, params):
+    """The agree phase's first batch, padded as the engine pads it (host
+    ids), and ``run(backend, forced)``: its prefill and MAX_NEW - 1 decode
+    steps, each fed the argmax of ``forced``'s logits at that step (its own
+    with None); every step's float32 logits on the card."""
     import torch
 
     from repro_torch.models import decode_step, prefill
@@ -1140,7 +1178,6 @@ def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=No
     max_len = toks.shape[1] + MAX_NEW + 1
 
     def run(backend, forced):
-        """Every step's float32 logits, each decode step fed ``forced``."""
         logits, cache = prefill(params, cfg, {"tokens": tokens}, max_len, backend=backend)
         out = [logits.float()]
         for step in range(MAX_NEW - 1):
@@ -1149,21 +1186,24 @@ def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=No
             out.append(logits.float())
         return out
 
+    return toks, run
+
+
+def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL,
+                same_tol: float = AGREE_SAME_EXPERTS_TOL) -> dict:
+    """Hopper against ref logits, teacher-forced on the hopper path's greedy
+    tokens, twice: each path routing on its own, then the ref path taking
+    the hopper path's expert choices (its gates still its own). Where the
+    routers near-tie, the two paths pick other experts for a token; the
+    second reading leaves that out and is held to
+    ``same_tol`` (a dense family's one reading too)."""
+    import torch
+
+    _, run = _agree_runner(cfg, params)
     with torch.inference_mode():
-        hop_experts, drops = [], []
-        with _routing(hop_experts), _dropping(drops):
+        hop_experts = []
+        with _routing(hop_experts):
             hop = run("hopper", None)
-        if keep is not None:
-            # the sharded phase's references: this run, and the function an
-            # EP2 plan computes (each half of the tokens routed with its own
-            # capacity) on the same forced tokens; with their dropped slots
-            ep2_drops, ep2_experts = [], []
-            with _dropping(ep2_drops), _routing(ep2_experts), _ep_halves(ep2_drops, ep2_experts):
-                ep2 = run("hopper", hop)
-            keep.update(tokens=toks, logits=[h.cpu() for h in hop], experts=[e.cpu() for e in hop_experts],
-                        drops=drops, logits_ep2=[h.cpu() for h in ep2], experts_ep2=[e.cpu() for e in ep2_experts],
-                        drops_ep2=ep2_drops)
-            del ep2
         greedy = torch.stack([h.argmax(-1) for h in hop], 1).tolist()
         if greedy != serve["first_batch_tokens"]:
             raise AssertionError("agree: direct hopper decode differs from the engine's tokens")
@@ -1197,6 +1237,27 @@ def phase_agree(cfg, params, serve, phase: str = "agree", tol=AGREE_TOL, keep=No
             or max(same["rel_l2_err_per_step"]) > same_tol):
         raise AssertionError(f"{phase} ({cfg.name}): hopper and ref logits differ beyond the bf16 tolerance: {res}")
     return res
+
+
+def sharded_reference(cfg, params) -> dict:
+    """The sharded phase's teacher-forced reference, on one card at
+    ``cfg``'s depth: the agree phase's first batch (padded tokens), the
+    hopper path's greedy logits, expert choices and dropped token slots,
+    and the same of one rank routing each half of the tokens with its own
+    capacity (the function an EP2 plan computes) fed the same tokens; on
+    the host."""
+    import torch
+
+    toks, run = _agree_runner(cfg, params)
+    with torch.inference_mode():
+        experts, drops = [], []
+        with _routing(experts), _dropping(drops):
+            hop = run("hopper", None)
+        ep2_drops, ep2_experts = [], []
+        with _dropping(ep2_drops), _routing(ep2_experts), _ep_halves(ep2_drops, ep2_experts):
+            ep2 = run("hopper", hop)
+    return dict(tokens=toks, logits=[h.cpu() for h in hop], experts=[e.cpu() for e in experts], drops=drops,
+                logits_ep2=[h.cpu() for h in ep2], experts_ep2=[e.cpu() for e in ep2_experts], drops_ep2=ep2_drops)
 
 
 def _rel_l2(got, want) -> float:
@@ -1333,6 +1394,7 @@ def phase_continuous(cfg, params, phase: str = "continuous", caches=(False, True
         runs[pc] = ab_runs(phase, name, lambda cap, pc=pc: InferenceEngine(
             cfg, params, max_batch=CONT_MAX_BATCH, kv_block_size=CONT_BLOCK, prefix_cache=pc, capture_steps=cap),
             serve)
+        mark(name)
     if len(runs) == 2 and runs[True]["tokens"] != runs[False]["tokens"]:
         diff = [i for i, (a, b) in enumerate(zip(runs[True]["tokens"], runs[False]["tokens"])) if a != b]
         raise AssertionError(f"{phase} ({cfg.name}): prefix-cache tokens differ from the plain run's for requests "
@@ -1839,8 +1901,9 @@ def phase_replication(cfg, params, trans, shapes) -> dict:
     run's kernel launches are recorded by shape in ``shapes`` (kernel ->
     shape -> run -> launches in that run alone, captured replays
     included). Returns the reference the sharded phase's replicated run is
-    held to: the teacher-forced logits and expert choices of these weights
-    (the INT4 round trip the resident phase left) with the model's own
+    held to: the teacher-forced logits and expert choices of these weights'
+    first ``SHARDED_REF_LAYERS`` layers (the INT4 round trip the resident
+    phase left) with the model's own
     router at capacity factor E / k, where nothing drops, so that each half
     of the tokens routed with its own capacity (EP2's function) and any
     replica set compute the same function."""
@@ -1853,7 +1916,8 @@ def phase_replication(cfg, params, trans, shapes) -> dict:
     gmm = batches * (1 + steps) * 3 * L
     cfg_nd = dataclasses.replace(cfg, capacity_factor=REPL_CAPACITY)
     tokens = _first_batch(cfg)
-    out = _replication_reference(cfg_nd, params, tokens)
+    out = _replication_reference(dataclasses.replace(cfg_nd, num_layers=SHARDED_REF_LAYERS),
+                                 _first_layers_of(params, SHARDED_REF_LAYERS), tokens)
 
     def record(run, res):
         for kernel, by_shape in res["shapes"].items():
@@ -2294,7 +2358,7 @@ def phase_robustness(cfg, params, shapes) -> dict:
         return make(capture, kv_overcommit=ROBUST_OVERCOMMIT, faults=counted[-1])
 
     oc = ab_runs("robustness", "overcommit", make_oc, lambda eng: _serve_robust(eng, cfg, "robustness (overcommit)"),
-                 logits=False, same=ROBUST_SAME)
+                 same=ROBUST_SAME)
     record("overcommit, captured", oc)
     if oc["preemptions"] < 2:
         raise AssertionError(f"robustness: the overcommitted pool preempted {oc['preemptions']} times, not >= 2")
@@ -2338,7 +2402,7 @@ def phase_robustness(cfg, params, shapes) -> dict:
                 raise AssertionError(f"robustness (lifecycle): uid {uid} ({status}) is not the worst-case run's prefix")
         return res
 
-    life = ab_runs("robustness", "lifecycle", make, serve_life, logits=False, same=ROBUST_SAME)
+    life = ab_runs("robustness", "lifecycle", make, serve_life, same=ROBUST_SAME)
     status = {uid: (st, len(toks)) for (uid, st, _), toks in zip(life["done"], life["tokens"])}
     want = {15: ("deadline", 0), 14: ("cancelled", 0)}
     if ({u: status[u] for u in want} != want or status[1][0] != "deadline" or status[0][0] != "cancelled"
@@ -2598,8 +2662,8 @@ def phase_families() -> dict:
     return out
 
 
-# ssm phase: the families with mamba layers, at full width (Falcon-Mamba at
-# SSM_LAYERS' depth, Hymba at full depth), on seeded random weights in bf16. Each bf16 check is held to the rounding
+# ssm phase: the families with mamba layers, at full width and SSM_LAYERS'
+# depth, on seeded random weights in bf16. Each bf16 check is held to the rounding
 # noise measured in the same run at the same depth, which grows with depth
 # (``tools/mamba_rounding.py`` reads it layer count by layer count): the
 # same path at another batch size (each row alone, B=1, against the batch
@@ -2615,10 +2679,11 @@ def phase_families() -> dict:
 #   backends): bf16 within twice the ref path's batch noise on the same
 #   forced tokens (per step, rel L2 and max rel), float32 within 1e-3.
 SSM_FAMILIES = ("falcon-mamba-7b", "hymba-1.5b")
-# layers kept where not all: Falcon-Mamba's plain scan is most of its
-# prefill, and the later phases needed the time (16 of 64 layers)
-SSM_LAYERS = {"falcon-mamba-7b": 16}
-SSM_AB_ORDER = (False, True)  # one eager and one captured run each: the script's time limit
+# layers kept: Falcon-Mamba's plain scan is most of its prefill, and the
+# later phases needed the time (16 of 64 layers); Hymba 16 of 32 (its first
+# global, 14 windowed and its middle global layer) since the dry run's gate
+# joined sharded_data (the script's time limit)
+SSM_LAYERS = {"falcon-mamba-7b": 16, "hymba-1.5b": 16}
 SSM_PVD_STEPS = 4
 SSM_F32_TOL = 1e-3  # rel L2, float32: prefill against decode, and Hymba's hopper against ref
 SSM_NOISE_FACTOR = 2  # bf16: a reading within this many times the same run's batch noise
@@ -2749,8 +2814,8 @@ def mixer_times(cfg, params) -> dict:
 
 
 def phase_ssm() -> dict:
-    """Falcon-Mamba-7B and Hymba-1.5B at full width and depth on seeded
-    random weights, each freed before the next: ``run()`` eager and
+    """Falcon-Mamba-7B and Hymba-1.5B at full width and ``SSM_LAYERS``' depth
+    on seeded random weights, each freed before the next: ``run()`` eager and
     captured, then the continuous traffic through ``serve_continuous()``
     (the contiguous fallback, their default) eager and captured, Hymba's
     agree check, prefill against decode, and the plain mixer's times.
@@ -2773,15 +2838,21 @@ def phase_ssm() -> dict:
         torch.cuda.synchronize()
         emit({"phase": "ssm", "model": name, "step": "init", "seconds": time.perf_counter() - t0,
               "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated()})
-        serve = phase_serve(cfg, params, "ssm", SSM_AB_ORDER)
+        mark(f"{name} init")
+        serve = phase_serve(cfg, params, "ssm")
+        mark(f"{name} serve")
         agree, noise = None, None
         if cfg.has_attention:
             tol, noise = agree_noise(cfg, params)
             agree = phase_agree(cfg, params, serve, "ssm_agree", tol, same_tol=tol[0])
         agree32 = agree_f32(cfg, params) if cfg.has_attention else None
-        cont = serve_contiguous(cfg, params, "ssm", f"{name} contiguous", SSM_AB_ORDER)
+        mark(f"{name} agree")
+        cont = serve_contiguous(cfg, params, "ssm", f"{name} contiguous")
+        mark(f"{name} contiguous")
         pvd = prefill_vs_decode(cfg, params)
+        mark(f"{name} prefill_vs_decode")
         times = mixer_times(cfg, params)
+        mark(f"{name} mixer_times")
         out[name] = {"static": serve["shapes"], "continuous": cont["shapes"]}
         launches = {"static": serve["launches"], "continuous": cont["launches"]}
         emit({"phase": "ssm", "model": name, "step": "summary", "num_layers": cfg.num_layers,
@@ -3312,8 +3383,9 @@ def phase_launcher(cfg, params, fit) -> dict:
 
 
 def replan_references(cfg, params) -> dict:
-    """The re-plan traffic on one card, paged and contiguous: the two-rank
-    relayout runs' reference tokens."""
+    """The re-plan traffic on one card, paged and contiguous, at the
+    two-rank relayout runs' depth (``SHARDED_REF_LAYERS``): their reference
+    tokens."""
     from repro_torch.core import HAPSession, fixed_plan
     from repro_torch.serving import Request
 
@@ -3355,15 +3427,26 @@ SHARDED_LOGITS = ("tp2_tp2", "tp2_ep2_serial", "tp2_ep2_k2", "dp2_ep2")  # teach
 # as often; their gates (bytes moved, dequant launches, budgets) hold at any
 # depth. No one-rank run of these depths exists, so their tokens are not
 # compared. The static runs of the four plans (and the NCCL rank's) serve 7
-# layers since the sharded_data part joined sharded_train: their teacher-forced
-# logits, against the one-rank run, stay at full depth
+# layers since the sharded_data part joined sharded_train
 SHARDED_CUT = {"tp2_tp2": 7, "tp2_ep2_serial": 7, "tp2_ep2_k2": 7, "dp2_ep2": 7, "switch_reshard": 4,
-               "switch_int4": 4, "switch_int4_resident": 4, "continuous_tp2_ep2": 7}
+               "switch_int4": 4, "switch_int4_resident": 4, "continuous_tp2_ep2": 4}
+# the plan runs above (and the NCCL rank's) serve the serve traffic's first
+# batch: each plan's prefill, transition and decode steps (the script's time
+# limit); the replicated run below serves all 8 requests (its prefetch
+# learns from the first batch)
+SHARDED_REQUESTS = MAX_BATCH
+# the runs held to a one-card reference of the same depth, made in the main
+# process on the same seeded weights: the teacher-forced logits of the four
+# plans, the replicated run and the re-plan traffic, at their first 7 of 28
+# layers since the dry run's gate joined sharded_data (the script's time
+# limit); the ranks draw all 28 layers and keep views of the first 7
+SHARDED_REF_LAYERS = 7
 # the mamba families on two ranks (model, layers kept or None for all): the
 # mixer tensor-parallel over d_inner; Hymba's 25 heads do not divide two, so
 # its attention is replicated and its contiguous cache sequence-sharded.
-# Falcon-Mamba keeps 8 of its 64 layers, and both serve the serve traffic's
-# first batch (MAX_BATCH requests; the script's time limit)
+# Falcon-Mamba keeps 4 of its 64 layers and Hymba 16 of its 32, and both
+# serve the serve traffic's first batch (MAX_BATCH requests; the script's
+# time limit)
 SHARDED_SSM = (("falcon-mamba-7b", 4), ("hymba-1.5b", 16))
 # replication and prefetch on two ranks: the switching INT4 plan (experts TP2
 # in prefill, EP2 in decode) from resident INT4 experts (two dense ranks'
@@ -3564,11 +3647,13 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path
     from repro_torch.core import HAPSession
     from repro_torch.models import init_params
 
+    reset_marks()
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     ref = torch.load(ref_path, weights_only=False)
     cfg = get_config("deepseek-moe-16b")
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend, "runs": {}, "logits": {}, "one_layer": {}}
+    mark("start")
     params, layout = None, None
     for name, plan in SHARDED_PLANS.items():
         if only is not None and name not in only:
@@ -3584,14 +3669,18 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path
             out.setdefault("init_s", {})[name] = time.perf_counter() - t0
             layout = splan
             out["param_bytes"] = torch.cuda.memory_allocated()
+            mark("init")
             if only is None and splan.ffn_mode not in out["one_layer"]:
                 out["one_layer"][splan.ffn_mode] = _one_layer(cfg, params, splan)
+                mark("one_layer")
         if name in SHARDED_LOGITS and only is None:
             dec = hap.to_sharding_plan(mesh, cfg, phase="decode")
             kw = plan[4]
             if kw.get("moe_pipeline"):
                 dec = dataclasses.replace(dec, moe_pipeline=kw["moe_pipeline"])
-            out["logits"][name] = _teacher_forced(cfg, params, dec, ref)
+            out["logits"][name] = _teacher_forced(dataclasses.replace(cfg, num_layers=SHARDED_REF_LAYERS),
+                                                  _first_layers_of(params, SHARDED_REF_LAYERS), dec, ref)
+            mark(f"teacher_forced {name}")
         for capture in captures:
             run_cfg, run_params = cfg, params
             if name in SHARDED_CUT:  # the first layers, views of the same shard
@@ -3605,25 +3694,30 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path
                 # holds the params, so that the old leaves free as the new land
                 params, layout = None, None
             key = name if len(captures) == 1 else f"{name}/{'captured' if capture else 'eager'}"
-            out["runs"][key] = _serve_rank(eng, [(p, MAX_NEW) for p in prompts(cfg)], False)
+            out["runs"][key] = _serve_rank(eng, [(p, MAX_NEW) for p in prompts(cfg)[:SHARDED_REQUESTS]], False)
             out["runs"][key].update(steps=step_stats(eng), layers=run_cfg.num_layers)
             eng.close()
             del eng
             _free()
+            mark(f"run {key}")
         if name == "tp2_ep2_serial" and only is None:
             # the re-plan traffic, paged then contiguous: the attention layout
             # switches TP2 -> DP2 -> TP2 while requests are live, the experts
             # stay EP2. The engine alone holds the params (its attention
             # leaves move); the first engine's params, back in the TP2/EP2
-            # layout, serve the second
+            # layout, serve the second. Both at the first SHARDED_REF_LAYERS
+            # layers (views of the same shard), as their one-card reference
+            replan_cfg = dataclasses.replace(cfg, num_layers=SHARDED_REF_LAYERS)
+            params = _first_layers_of(params, SHARDED_REF_LAYERS)
             for paged in (True, False):
-                session = HAPSession(cfg, "h100", mesh.size, source=ReplanSource(), mesh=mesh, prompt_bucket=64)
+                session = HAPSession(replan_cfg, "h100", mesh.size, source=ReplanSource(), mesh=mesh,
+                                     prompt_bucket=64)
                 session.transition_between = lambda old, new, w: ("reshard", 0.0)  # Eq. 6 pinned: no model to fit
                 eng = session.engine(params, max_batch=REPLAN_MAX_BATCH, paged=paged, params_plan=splan)
                 params, layout = None, None
-                run = _serve_rank(eng, replan_requests(cfg), True)
+                run = _serve_rank(eng, replan_requests(replan_cfg), True)
                 run.update(relayout_ms=list(eng.kv_relayout_ms), plan_switches=eng.stats.plan_switches,
-                           end_layout=[eng._layout.attn_mode, eng._layout.ffn_mode])
+                           end_layout=[eng._layout.attn_mode, eng._layout.ffn_mode], layers=SHARDED_REF_LAYERS)
                 out["runs"][f"replan_{'paged' if paged else 'contiguous'}"] = run
                 if run["end_layout"] != ["tp_heads", "ep"]:
                     raise AssertionError(f"sharded (replan): the run ended in {run['end_layout']}, not TP2/EP2")
@@ -3631,6 +3725,7 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path
                 eng.close()
                 del eng
                 _free()
+                mark(f"replan {'paged' if paged else 'contiguous'}")
             params = None
             _free()
         if name == "tp2_ep2_k2" and only is None:
@@ -3644,12 +3739,16 @@ def sharded_rank(mesh, ref_path: str, captures=(False,), only=None, rep_ref_path
             eng.close()
             del eng
             _free()
+            mark("run continuous_tp2_ep2")
     del params
     _free()
     if rep_ref_path is not None:
         out["runs"]["replicated_switch_int4"], out["replicated_logits"] = _replicated_rank(mesh, rep_ref_path)
+        mark("replicated_switch_int4")
     if ssm_ref_path is not None:
         out["ssm"] = _ssm_rank(mesh, ssm_ref_path)
+        mark("ssm")
+    out["steps_s"] = dict(STEP_S)
     return out
 
 
@@ -3723,6 +3822,7 @@ def _ssm_rank(mesh, ref_path: str) -> dict:
             eng.close()
             del eng
             _free()
+            mark(f"ssm {name} {'contiguous' if cont else 'static'}")
         got = _forced_logits(cfg, params, _first_batch(cfg), "hopper", feed=refs[name]["logits"],
                              plan=hap.to_sharding_plan(mesh, cfg, phase="decode"))
         res["rel_l2_err_per_step"] = [_rel_l2(a, b) for a, b in zip(got, refs[name]["logits"])]
@@ -3749,17 +3849,21 @@ def _replicated_rank(mesh, rep_ref_path: str):
     hap = _hap(SHARDED_REPLICATED)
     splan = hap.to_sharding_plan(mesh, cfg, phase="prefill")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda", shard=(splan, mesh.rank))
+    cfg = dataclasses.replace(cfg, num_layers=SHARDED_REF_LAYERS)
+    params = _first_layers_of(params, SHARDED_REF_LAYERS)
     eng = HAPSession(cfg, "h100", mesh.size, source=hap, mesh=mesh, prompt_bucket=64).engine(
         params, max_batch=MAX_BATCH, capture_steps=False, **SHARDED_REPLICATED[4])
     del params  # the engine alone holds them: old leaves free as new ones land
     run = _serve_rank(eng, [(p, MAX_NEW) for p in prompts(cfg)], False)
     st, rep = eng.stats, eng._replication
-    run.update(steps=step_stats(eng), rebalances=st.replication_rebalances, routing_steps=st.routing_steps,
+    run.update(steps=step_stats(eng), layers=cfg.num_layers, rebalances=st.replication_rebalances,
+               routing_steps=st.routing_steps,
                degrees=list(rep.degrees) if rep is not None else None,
                slots_on_rank=int(eng.params["layers"]["moe"]["wi_gate"].shape[1]),
                **{k: getattr(st, k) for k in ("prefetch_predicted", "prefetch_hits", "prefetch_misses",
                                               "prefetch_bytes", "prefetch_hidden_ms", "prefetch_exposed_ms",
                                               "prefetch_errors", "restore_wait_ms")})
+    mark("replicated run")
     logits = _teacher_forced(cfg, eng.params, eng._sharding_for("decode"), ref)
     eng.close()
     del eng
@@ -3802,7 +3906,7 @@ def phase_sharded(serve, cont, agree_ref, repl, replan) -> dict:
         return [sum(xs[i:i + layers]) for i in range(0, len(xs), layers)]
     summary = {"phase": "sharded", "ranks": 2, "backend": "gloo", "device": "cuda:0 (both ranks)",
                "seconds": two_rank_s, "ssm_reference_s": ssm_ref_s, "init_s": [r["init_s"] for r in ranks],
-               "param_bytes_per_rank": [r["param_bytes"] for r in ranks]}
+               "param_bytes_per_rank": [r["param_bytes"] for r in ranks], "rank0_steps_s": r0["steps_s"]}
     launches, shapes = {}, {}
     cfg = get_config("deepseek-moe-16b")
     for name, run in r0["runs"].items():
@@ -3833,8 +3937,8 @@ def phase_sharded(serve, cont, agree_ref, repl, replan) -> dict:
                 raise AssertionError(f"sharded ({name}): rank {r} launched no {missing}: {rr['launches']}")
         if any(len(t) != g for t, g in zip(run["tokens"], [len(w) for w in want])):
             raise AssertionError(f"sharded ({name}): a request did not get its budget")
-        if name in SHARDED_CUT:
-            want = None  # its depth has no one-rank run
+        if name in SHARDED_CUT or name == "replicated_switch_int4":
+            want = None  # its depth has no one-rank run of the serve traffic
         launches[name] = [run["launches"], other["launches"]]
         for r, rr in enumerate((run, other)):
             for kernel, by_shape in rr["shapes"].items():
@@ -3879,7 +3983,8 @@ def phase_sharded(serve, cont, agree_ref, repl, replan) -> dict:
     if (lg["rel_l2_err_per_step"], lg["same_experts_rel_l2_err_per_step"]) != (
             lg1["rel_l2_err_per_step"], lg1["same_experts_rel_l2_err_per_step"]):
         raise AssertionError("sharded (replicated): the two ranks' logits differ")
-    res = {"phase": "sharded_agree", "run": "replicated_switch_int4", "steps": MAX_NEW, **lg,
+    res = {"phase": "sharded_agree", "run": "replicated_switch_int4", "steps": MAX_NEW,
+           "layers": SHARDED_REF_LAYERS, **lg,
            "reference": "the replication phase's one-rank run (INT4 round-tripped weights, no drops)",
            "same_experts_rel_l2_tol": AGREE_SAME_EXPERTS_TOL, "two_ranks_one_card_gloo": True}
     emit(res)
@@ -3899,7 +4004,7 @@ def phase_sharded(serve, cont, agree_ref, repl, replan) -> dict:
         # EP: each rank routed its half of the tokens; TP: each rank all of them
         both = (lambda k: [a + b for a, b in zip(lg[k], lg1[k])]) if lg["split_tokens"] else (lambda k: lg[k])
         ep = lg["split_tokens"]
-        res = {"phase": "sharded_agree", "run": name, "steps": MAX_NEW, **lg,
+        res = {"phase": "sharded_agree", "run": name, "steps": MAX_NEW, "layers": SHARDED_REF_LAYERS, **lg,
                "reference": "one rank routing each half of the tokens with its own capacity" if ep else
                "the one-rank run", "expert_flips_per_step": both("expert_flips_per_step"),
                "dropped_slots_per_step": both("dropped_slots_per_step"),
@@ -3950,7 +4055,7 @@ def _check_seq_run(name: str, cfg, run, other) -> None:
         max_len = 128 + MAX_NEW + 1  # the serve traffic's bucket, its new tokens, one more
         if k[2] != math.ceil(max_len / 2) or k[3] != cfg.num_kv_heads:
             raise AssertionError(f"sharded ({name}): a rank's cache is {k}, not half the {max_len} positions")
-        steps = math.ceil(N_REQUESTS / MAX_BATCH) * (MAX_NEW - 1)
+        steps = math.ceil(SHARDED_REQUESTS / MAX_BATCH) * (MAX_NEW - 1)
         if run["seq_decode"] != steps * L or other["seq_decode"] != steps * L:
             raise AssertionError(f"sharded ({name}): {run['seq_decode']} seq decodes, expected {steps * L}")
     elif name.startswith("replan"):
@@ -4071,7 +4176,7 @@ def sharded_kernel_rows(cfg, rows, shapes) -> None:
 # prefill and decode on the (2, 2) mesh through the hopper seam, then the
 # train launcher on the four ranks
 ST_LAYERS = 1
-ST_B, ST_S, ST_STEPS = 4, 256, 3
+ST_B, ST_S, ST_STEPS = 4, 256, 2
 # the float32 run: capacity factor 11 (T k / E cf >= T on every EP shard, so
 # nothing drops) and no aux term, so that the one-rank run computes the same
 # function: EP with a data axis routes and averages the aux per shard
@@ -4176,6 +4281,7 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
     from repro_torch.sharding.mesh import RankMesh
     from repro_torch.training.tree import tree_items
 
+    reset_marks()
     if device == "cuda":
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4198,7 +4304,15 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
         out["f32_one_rank"] = {"history": hist, "peak_bytes": peak, "seconds": time.perf_counter() - t0}
         del state
         _free()
+    elif device == "cuda":
+        # meanwhile the other ranks' first training step, on one rank each:
+        # a rank process's first step pays ~8 s of one-time set-up on the
+        # card (the H100 read 9.7 s for it, 0.24 s for the next), which the
+        # (2, 2) run's first step would pay on three ranks at once
+        _st_train(cfg, None, device, B, S, 1)
+        _free()
     dist.barrier()
+    mark("f32 one rank")
     plan = _st_plan(grid, cfg)
     t0 = time.perf_counter()
     state, hist, peak, calls = _st_train(cfg, plan, device, B, S, ST_STEPS)
@@ -4207,6 +4321,7 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
     out["f32_2x2"]["params_rel_l2"] = _st_gathered_errors(state, cfg, plan, one, me)
     del state, one
     _free()
+    mark("f32 2x2")
 
     # 2. bf16 under each layout
     cfg = _st_config(ST_LAYERS, "float32" if small else "bfloat16", small)
@@ -4223,6 +4338,7 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
             del state
             _free()
         dist.barrier()
+        mark(f"bf16 {name}")
 
     # 3. prefill + decode on (2, 2) through the hopper seam: one rank first
     cfg = _st_config(ST_SERVE_LAYERS if not small else 2, "float32" if small else "bfloat16", small)
@@ -4240,6 +4356,7 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
         _free()
     dist.broadcast_object_list(ref, src=0)
     ref = ref[0]
+    mark("serve one rank")
     from repro_torch.data.pipeline import local_rows
 
     out["serve"] = {}
@@ -4270,6 +4387,7 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
                             "plan": [plan.attn_mode, plan.ffn_mode, plan.kv_shard]}
         del params
         _free()
+        mark(f"serve {kv}")
 
     # 5. the serving engine on the (2, 2) mesh
     out["sharded_data"] = sharded_data_rank(grid, device, small)
@@ -4282,6 +4400,8 @@ def sharded_train_rank(mesh, device: str = "cuda", small: bool = False, launcher
         with contextlib.redirect_stdout(sys.stderr):
             launch_train.main(["--steps", str(ST_LAUNCH_STEPS), "--device", device], history=hist)
         out["launcher"] = hist
+        mark("launcher")
+    out["steps_s"] = dict(STEP_S)
     return out
 
 
@@ -4467,6 +4587,105 @@ def _sd_serve(eng, cfg, reqs, continuous: bool) -> dict:
     return res
 
 
+SD_MAX_LEN = 128 + SD_NEW + 1  # the static cache of a batch of the serve traffic: 128-token bucket, 8 new
+SD_DRYRUN_TIMEOUT_S = 300
+
+
+def _payload_key(key) -> str:
+    return f"{key[0]}/{key[1]}"
+
+
+def _sd_decode_reading(grid, cfg, params, device: str, backend: str) -> dict:
+    """One ``decode_step`` (the function the dry run traces) of this rank's
+    rows of the static batch under the TP2/EP2 decode plan, on its shard of
+    the weights and a fresh cache of ``SD_MAX_LEN`` positions: the bytes
+    the rank holds, its collective calls and payload bytes in the step, and
+    the card's peak allocation over it (``max_memory_allocated``, a reading:
+    the caching allocator's pools make it a different quantity)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.params import torch_dtype
+    from repro_torch.sharding.specs import serving_rows
+    from repro_torch.training.tree import tree_leaves
+
+    plan, lo, hi = serving_rows(_hap(("TP2", "EP2", "", "reshard")).to_sharding_plan(grid, cfg, phase="decode"),
+                                MAX_BATCH)
+    cache = init_cache(cfg, hi - lo, SD_MAX_LEN, dtype=torch_dtype(cfg.dtype), device=device, plan=plan)
+    token = torch.zeros((hi - lo, 1), dtype=torch.int32, device=device)
+    card = device == "cuda"
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    calls, payload = collections.Counter(grid.calls), collections.Counter(grid.payload)
+    with torch.inference_mode():
+        decode_step(params, cfg, token, cache, backend=backend, plan=plan)
+    if card:
+        torch.cuda.synchronize()
+    calls, payload = collections.Counter(grid.calls) - calls, collections.Counter(grid.payload) - payload
+    return {"rows": hi - lo, "params_bytes": sum(t.nbytes for t in tree_leaves(params)),
+            "kv_bytes": cache.k.nbytes + cache.v.nbytes, "calls": dict(calls),
+            "payload": {_payload_key(k): v for k, v in payload.items()},
+            "max_memory_allocated": torch.cuda.max_memory_allocated() if card else None}
+
+
+def sd_dryrun_main(small: bool) -> None:
+    """The dry run of ``_sd_decode_reading``'s step for each rank of a fake
+    (2, 2) group, printed as one JSON line. It runs in a process of its own
+    (the dry run makes its own default group), on fake tensors: no card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_fake_mesh, release_fake_mesh
+
+    cfg = _st_config(SD_LAYERS if not small else 2, "float32" if small else "bfloat16", small)
+    out = []
+    for rank in range(4):
+        mesh = make_fake_mesh(2, 2, rank)
+        plan = _hap(("TP2", "EP2", "", "reshard")).to_sharding_plan(mesh, cfg, phase="decode")
+        res = dryrun.trace(cfg, SD_MAX_LEN, MAX_BATCH, "decode", mesh, plan)
+        cache = res.step.args[2]
+        out.append({"rows": res.step.rows, "params_bytes": res.step.arg_bytes["params"],
+                    "kv_bytes": cache.k.nbytes + cache.v.nbytes, "calls": res.calls,
+                    "payload": {_payload_key(k): v for k, v in res.payload.items()}, "args_bytes": res.args,
+                    "temps_bytes": res.temps, "kernels": res.kernels, "trace_s": res.seconds})
+    release_fake_mesh()
+    print(json.dumps(out))
+
+
+def start_sd_dryrun(small: bool):
+    """Start ``sd_dryrun_main`` in a process of its own, with no card (the
+    dry run needs none, and without one it starts no CUDA context) and one
+    host thread; it needs nothing of the ranks, so it runs beside the
+    phases before them."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH")])))
+    return subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.sd_dryrun_main({small})"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _sd_dryrun_gate(ranks, card: str, dry) -> list:
+    """The dry run (``dry``: the process ``start_sd_dryrun`` started)
+    against each rank's ``decode_reading``: rows, parameter and KV bytes,
+    collective calls and payload bytes exact. Returns the failures."""
+    t0 = time.perf_counter()
+    stdout, stderr = dry.communicate(timeout=SD_DRYRUN_TIMEOUT_S)
+    if dry.returncode != 0:
+        return [f"sharded_data dry run: exit {dry.returncode}: {stderr[-2000:]}"]
+    traced = json.loads(stdout.strip().splitlines()[-1])
+    fails = []
+    keys = ("rows", "params_bytes", "kv_bytes", "calls", "payload")
+    for rank, (r, t) in enumerate(zip((r["sharded_data"]["decode_reading"] for r in ranks), traced)):
+        exact = {k: r[k] == t[k] for k in keys}
+        emit({"phase": "sharded_data", "step": "dryrun", "card": card, "rank": rank, "exact": exact,
+              **{f"measured_{k}": r[k] for k in keys}, **{f"traced_{k}": t[k] for k in keys},
+              "traced_args_plus_temps_bytes": t["args_bytes"] + t["temps_bytes"],
+              "measured_max_memory_allocated": r["max_memory_allocated"], "traced_kernels": t["kernels"],
+              "trace_s": t["trace_s"]})
+        if not all(exact.values()):
+            fails.append(f"sharded_data dry run rank {rank}: {exact}")
+    emit({"phase": "sharded_data", "step": "dryrun", "waited_s": time.perf_counter() - t0, "background": True})
+    return fails
+
+
 def sharded_data_rank(grid, device: str, small: bool) -> dict:
     """The sharded_data phase on one of the four ranks of
     ``sharded_train_rank`` (``grid`` the (2, 2) ``RankMesh``): float32 at 1
@@ -4522,6 +4741,7 @@ def sharded_data_rank(grid, device: str, small: bool) -> dict:
     eng.close()
     del eng
     _free()
+    mark("sd f32")
 
     # 2. bf16 at SD_LAYERS layers, teacher-forced on the first batch through
     # the engines' own steps: one card's, routing in quarters (the function
@@ -4560,6 +4780,9 @@ def sharded_data_rank(grid, device: str, small: bool) -> dict:
                              "finite": all(bool(torch.isfinite(g).all()) for g in got + same)}
     del got, same
     _free()
+    mark("sd teacher_forced")
+
+    out["decode_reading"] = _sd_decode_reading(grid, cfg, params, device, backend)
 
     # the engine runs: run() TP2/EP2, the prefix-cache continuous traffic,
     # the switching INT4 plan from resident experts, then the re-plan
@@ -4569,12 +4792,14 @@ def sharded_data_rank(grid, device: str, small: bool) -> dict:
     eng.close()
     del eng
     _free()
+    mark("sd run_tp2_ep2")
     n, _, _, slots, block, chunk = SD_CONT
     eng = engine(cfg, params, tp2_ep2, max_batch=slots, kv_block_size=block, prefill_chunk=chunk, prefix_cache=True)
     out["runs"]["continuous_prefix"] = _sd_serve(eng, cfg, sd_cont_requests(cfg), True)
     eng.close()
     del eng
     _free()
+    mark("sd continuous_prefix")
     switch = ("TP2", "EP2", "TP2", "int4_upload")
     eng = engine(cfg, params, switch, max_batch=MAX_BATCH, use_int4_transition=True, resident_int4=True,
                  params_plan=_hap(tp2_ep2).to_sharding_plan(grid, cfg, phase="prefill"))
@@ -4582,6 +4807,7 @@ def sharded_data_rank(grid, device: str, small: bool) -> dict:
     eng.close()
     del eng
     _free()
+    mark("sd switch_int4_resident")
     eng = engine(cfg, params, ReplanSource(), max_batch=REPLAN_MAX_BATCH,
                  params_plan=_hap(tp2_ep2).to_sharding_plan(grid, cfg, phase="prefill"))
     del params
@@ -4589,6 +4815,7 @@ def sharded_data_rank(grid, device: str, small: bool) -> dict:
     eng.close()
     del eng
     _free()
+    mark("sd replan")
     out["seconds"] = time.perf_counter() - t_start
     return out
 
@@ -4641,29 +4868,34 @@ def _sd_gates(ranks, card: str, small: bool) -> tuple:
     return fails, launches, shapes
 
 
-def phase_sharded_train(small: bool = False) -> dict:
+def phase_sharded_train(small: bool = False, dry=None) -> dict:
     """Training on a (data, model) mesh of four gloo ranks on the card
     (``sharded_train_rank``): float32 against one rank, the bf16 layouts'
     step times, memory and collectives, the 2-D prefill and decode against
-    one rank with exact launches, the train launcher against one rank.
-    Returns {"launches": {run: per-rank launches}, "shapes": {kernel:
-    {shape: {run: per-rank launches}}}}."""
+    one rank with exact launches, the train launcher against one rank; the
+    sharded_data dry run read from ``dry`` (``start_sd_dryrun``; started
+    here if None). Returns {"launches": {run: per-rank launches}, "shapes":
+    {kernel: {shape: {run: per-rank launches}}}}."""
     import torch
 
     from repro_torch.launch import train as launch_train
     from repro_torch.sharding.launch import spawn
 
+    if dry is None:
+        dry = start_sd_dryrun(small)
     device = "cpu" if small else "cuda"
     card = card_line() if not small else "cpu"
     one = []
     with contextlib.redirect_stdout(sys.stderr):  # the one-rank launcher, before the ranks start
         launch_train.main(["--steps", str(ST_LAUNCH_STEPS), "--device", device], history=one)
     _free()
+    mark("launcher one rank")
     t0 = time.perf_counter()
     ranks = spawn("chip_smoke:sharded_train_rank", 4, backend="gloo", args={"device": device, "small": small},
                   timeout=SHARDED_TRAIN_TIMEOUT_S, pythonpath=(ROOT,),
                   env={"OMP_NUM_THREADS": "1"} if small else None)
     seconds = time.perf_counter() - t0
+    mark("four ranks")
     r0 = ranks[0]
     fails = []
 
@@ -4689,7 +4921,7 @@ def phase_sharded_train(small: bool = False) -> dict:
         hist = got[0]["history"]
         res = {"phase": "sharded_train", "step": "bf16", "layout": name, "card": card, "ranks": len(got),
                "plan": got[0]["plan"], "loss": [h["loss"] for h in hist],
-               "ms_per_step_2_3": sum(h["seconds"] for h in hist[1:]) / (len(hist) - 1) * 1e3,
+               "ms_per_step_after_first": sum(h["seconds"] for h in hist[1:]) / (len(hist) - 1) * 1e3,
                "first_step_ms": hist[0]["seconds"] * 1e3, "peak_bytes_per_rank": [p["peak_bytes"] for p in got],
                "collectives_per_step": got[0]["collectives_per_step"], "launches": got[0]["launches"]}
         emit(res)
@@ -4728,7 +4960,7 @@ def phase_sharded_train(small: bool = False) -> dict:
 
     # 5. the serving engine on (2, 2)
     sd_fails, sd_launches, sd_shapes = _sd_gates(ranks, card, small)
-    fails += sd_fails
+    fails += sd_fails + _sd_dryrun_gate(ranks, card, dry)
     launches.update(sd_launches)
     for kernel, by_shape in sd_shapes.items():
         for shape, per_run in by_shape.items():
@@ -4743,7 +4975,7 @@ def phase_sharded_train(small: bool = False) -> dict:
     emit(res)
     if err > ST_F32_TOL["loss"] or len(four) != ST_LAUNCH_STEPS:
         fails.append(f"launcher: {res}")
-    emit({"phase": "sharded_train", "seconds": seconds})
+    emit({"phase": "sharded_train", "seconds": seconds, "rank0_steps_s": r0["steps_s"]})
     if fails:
         raise AssertionError("sharded_train: " + "; ".join(fails))
     _free()
@@ -4771,21 +5003,25 @@ def main() -> int:
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
+        reset_marks()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
-        emit({"phase_done": name, "seconds": seconds[name], "elapsed_s": time.perf_counter() - start})
+        emit({"phase_done": name, "seconds": seconds[name], "elapsed_s": time.perf_counter() - start,
+              **({"steps_s": dict(STEP_S)} if STEP_S else {})})
         return out
 
     fit = start_latency_fit()  # the launcher phase's latency model, fitted meanwhile on a host core
+    dry = start_sd_dryrun(False)  # the sharded_data part's dry run, traced meanwhile on a host core
     try:
-        return _phases(cfg, seconds, timed, fit)
+        return _phases(cfg, seconds, timed, fit, dry)
     finally:
-        if fit[0].poll() is None:
-            fit[0].kill()
-            fit[0].wait()
+        for proc in (fit[0], dry):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
-def _phases(cfg, seconds, timed, fit) -> int:
+def _phases(cfg, seconds, timed, fit, dry) -> int:
     import torch
 
     from repro_torch.models import init_params
@@ -4797,23 +5033,21 @@ def _phases(cfg, seconds, timed, fit) -> int:
     torch.cuda.synchronize()
     emit({"phase": "init", "seconds": time.perf_counter() - t0,
           "params": sum(t.numel() for t in _leaves(params)), "bytes": torch.cuda.memory_allocated()})
-    serve = timed("serve", phase_serve, cfg, params)
-    agree_ref = {}
-    timed("agree", phase_agree, cfg, params, serve, "agree", AGREE_TOL, agree_ref)
+    serve = timed("serve", phase_serve, cfg, params, "serve", SERVE_AB_ORDER)
+    timed("agree", phase_agree, cfg, params, serve)
     cont = timed("continuous", phase_continuous, cfg, params)
     contig = timed("contiguous", phase_contiguous, cfg, params, cont["plain_tokens"])
-    # the re-plan traffic's one-card reference, before the resident phase
-    # rewrites the expert leaves (the sharded ranks draw pristine ones)
-    replan = timed("replan_reference", replan_references, cfg, params)
+    # the sharded phase's one-card references at its depth, before the
+    # resident phase rewrites the expert leaves (the ranks draw pristine ones)
+    cut = dataclasses.replace(cfg, num_layers=SHARDED_REF_LAYERS)
+    agree_ref = timed("sharded_reference", sharded_reference, cut, _first_layers_of(params, SHARDED_REF_LAYERS))
+    replan = timed("replan_reference", replan_references, cut, _first_layers_of(params, SHARDED_REF_LAYERS))
     # the resident phase overwrites the expert leaves with their INT4 round trip
     resident = timed("resident", phase_resident, cfg, params)
     trans = timed("transitions", phase_transitions, cfg, params)
     # the replication phase doctors the router of these weights in place, and puts it back
     repl_shapes = {}
     repl = timed("replication", phase_replication, cfg, params, trans, repl_shapes)
-    # late enough that the latency model's fit, started first, has landed;
-    # the weights' expert leaves are the resident phase's INT4 round trip
-    launcher = timed("launcher", phase_launcher, cfg, params, fit)
     robust_shapes = {}
     robust = timed("robustness", phase_robustness, dataclasses.replace(cfg, num_layers=ROBUST_LAYERS),
                    _first_layers_of(params, ROBUST_LAYERS), robust_shapes)
@@ -4822,8 +5056,14 @@ def _phases(cfg, seconds, timed, fit) -> int:
     ssm = timed("ssm", phase_ssm)
     vlm = timed("vlm", phase_vlm)
     train = timed("train", phase_train)
+    # late enough that the latency model's fit, started first, has landed
+    # (~250-320 s on one host core); DeepSeek's seeded weights drawn anew
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    launcher = timed("launcher", phase_launcher, cfg, params, fit)
+    del params
+    _free()
     sharded = timed("sharded", phase_sharded, serve, cont, agree_ref, repl, replan)
-    strain = timed("sharded_train", phase_sharded_train)
+    strain = timed("sharded_train", phase_sharded_train, False, dry)
     for kernel, by_shape in strain["shapes"].items():  # its 2-D runs' shapes get kernel rows too
         for shape, per_run in by_shape.items():
             sharded["shapes"].setdefault(kernel, {}).setdefault(shape, {}).update(per_run)

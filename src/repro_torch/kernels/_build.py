@@ -32,6 +32,7 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
@@ -72,6 +73,13 @@ SHAPE_COUNTS: collections.Counter = collections.Counter()
 # beside the launch counts so that a step capture can record all three
 # (``repro_torch.kernels.ops`` re-exports it).
 DISPATCH_COUNTS: collections.Counter = collections.Counter()
+# The dry run's tally (``repro_torch.launch.dryrun``): a wrapper handed
+# fake tensors (``FakeTensorMode``: shapes and dtypes, no storage) builds
+# and launches nothing; it returns fake outputs and adds its call, its
+# FLOPs and the HBM bytes its kernel moves here, by kernel name.
+TRACED_CALLS: collections.Counter = collections.Counter()
+TRACED_FLOPS: collections.Counter = collections.Counter()
+TRACED_BYTES: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
 _capturing = threading.local()
 
@@ -146,13 +154,36 @@ def count_dispatch(branch: str) -> None:
 
 
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCH_COUNTS``, ``VARIANT_COUNTS``, ``SHAPE_COUNTS`` and
-    ``DISPATCH_COUNTS``."""
+    """Zero ``LAUNCH_COUNTS``, ``VARIANT_COUNTS``, ``SHAPE_COUNTS``,
+    ``DISPATCH_COUNTS`` and the dry run's ``TRACED_*`` tally."""
     with _count_lock:
-        LAUNCH_COUNTS.clear()
-        VARIANT_COUNTS.clear()
-        SHAPE_COUNTS.clear()
-        DISPATCH_COUNTS.clear()
+        for counts in (LAUNCH_COUNTS, VARIANT_COUNTS, SHAPE_COUNTS, DISPATCH_COUNTS, TRACED_CALLS, TRACED_FLOPS,
+                       TRACED_BYTES):
+            counts.clear()
+
+
+def faking() -> bool:
+    """Whether a ``FakeTensorMode`` is active: the dry run traces the
+    card's path on fake CUDA tensors, its target the H100 by definition."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor: a shape and a dtype, no data to
+    compute on."""
+    return isinstance(t, FakeTensor)
+
+
+def count_traced(kernel: str, shape: tuple, flops: int, nbytes: int) -> None:
+    """Record one call of ``kernel`` on fake tensors: its ``shape`` in
+    ``SHAPE_COUNTS`` (the key its launch would have), its call, ``flops``
+    and HBM ``nbytes`` in the ``TRACED_*`` tally. Nothing was launched, so
+    ``LAUNCH_COUNTS`` is left alone."""
+    with _count_lock:
+        SHAPE_COUNTS[(kernel, shape)] += 1
+        TRACED_CALLS[kernel] += 1
+        TRACED_FLOPS[kernel] += flops
+        TRACED_BYTES[kernel] += nbytes
 
 
 def build_dir() -> Path:

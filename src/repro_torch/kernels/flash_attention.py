@@ -14,7 +14,9 @@ the multiples of 16 up to 128, and 256), every pointer 16-byte aligned and
 every stride a multiple of 8 elements, as TMA needs) or ``simt`` (float32,
 and the other bfloat16 cases). Each launch adds one to
 ``_build.LAUNCH_COUNTS["flash_attention"]`` and one to
-``_build.VARIANT_COUNTS[("flash_attention", variant)]``.
+``_build.VARIANT_COUNTS[("flash_attention", variant)]``. On fake tensors
+(the dry run) it returns the fake output and tallies ``work``; nothing is
+built or launched.
 """
 
 from __future__ import annotations
@@ -123,6 +125,25 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0, scale=
     return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
 
 
+def work(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, hd: int, element_size: int, causal: bool = True,
+         window: int = 0) -> Tuple[int, int]:
+    """(FLOPs, HBM bytes) of one call: q, k and v read once and o written
+    once; 4 flops per (query, valid key, dim). Causal: the queries are the
+    last ``Sq`` of ``Sk`` positions and query ``n`` (1-based) has ``n``
+    valid keys, at most ``window``."""
+    if causal:
+        a, b = Sk - Sq + 1, Sk  # the valid keys of the first query and of the last
+        if not window or window >= b:
+            pairs = (a + b) * (b - a + 1) // 2
+        elif window <= a:
+            pairs = window * (b - a + 1)
+        else:
+            pairs = (a + window) * (window - a + 1) // 2 + window * (b - window)
+    else:
+        pairs = Sq * Sk
+    return 4 * hd * B * Hq * pairs, element_size * B * hd * (2 * Sq * Hq + 2 * Sk * Hkv)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(
@@ -168,6 +189,10 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
     o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if _build.is_fake(q):
+        _build.count_traced("flash_attention", (B, Sq, Hq, Hkv, hd, int(window), float(softcap)),
+                            *work(B, Hq, Hkv, Sq, Sk, hd, q.element_size(), causal, window))
+        return o
     if o.numel() == 0:
         return o
     if Sk == 0:

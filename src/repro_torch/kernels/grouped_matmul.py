@@ -10,7 +10,9 @@ from the dtype and the shapes alone: variant ``wgmma`` (bfloat16 operands
 that a TMA tensor map can describe: d and f multiples of 8, both operands
 16-byte aligned) or ``simt`` (float32, and the other bfloat16 shapes). Each
 launch adds one to ``_build.LAUNCH_COUNTS["grouped_matmul"]`` and one to
-``_build.VARIANT_COUNTS[("grouped_matmul", variant)]``.
+``_build.VARIANT_COUNTS[("grouped_matmul", variant)]``. On fake tensors
+(the dry run) it returns a fake output and tallies ``work``; nothing is
+built or launched.
 """
 
 from __future__ import annotations
@@ -131,6 +133,12 @@ def gmm_plan(E: int, C: int, d: int, f: int, dtype: torch.dtype, aligned: bool =
     return plan
 
 
+def work(E: int, C: int, d: int, f: int, element_size: int) -> Tuple[int, int]:
+    """(FLOPs, HBM bytes) of one (E, C, d) x (E, d, f) call: both operands
+    read once, the output written once."""
+    return 2 * E * C * d * f, element_size * (E * C * d + E * d * f + E * C * f)
+
+
 def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """(E, C, d) x (E, d, f) -> (E, C, f): float32 products and sums, output
     in the lhs dtype (the kernel's arithmetic)."""
@@ -163,6 +171,9 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     E, C, d = lhs.shape
     f = rhs.shape[2]
     out = torch.empty((E, C, f), dtype=lhs.dtype, device=lhs.device)
+    if _build.is_fake(lhs):
+        _build.count_traced("grouped_matmul", (E, C, d, f), *work(E, C, d, f, lhs.element_size()))
+        return out
     if out.numel() == 0:
         return out
     lp, rp = lhs.data_ptr(), rhs.data_ptr()

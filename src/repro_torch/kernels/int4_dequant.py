@@ -4,10 +4,14 @@
 ``csrc/int4_dequant.cu`` (the port of ``repro/kernels/int4_dequant.py``) on
 CUDA tensors, and on CPU tensors, and only there, runs its plain PyTorch
 version ``int4_dequant_plain``. Both give the numpy dequant of
-``repro_torch.core.quantization`` bit for bit.
+``repro_torch.core.quantization`` bit for bit. On fake tensors (the dry
+run) it returns a fake output and tallies ``work``; nothing is built or
+launched.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -18,6 +22,12 @@ from .ref import int4_dequant_ref
 def int4_dequant_plain(packed, scales, zeros, out_dtype=torch.bfloat16) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (``ref.int4_dequant_ref``)."""
     return int4_dequant_ref(packed, scales, zeros, out_dtype=out_dtype)
+
+
+def work(G: int, gs: int, out_element_size: int) -> Tuple[int, int]:
+    """(FLOPs, HBM bytes) of one call: packed bytes, scales and zeros read
+    once, the output written once; a multiply and an add per element."""
+    return 2 * G * gs, G * gs // 2 + 8 * G + out_element_size * G * gs
 
 
 def _check(packed: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, out_dtype) -> None:
@@ -41,6 +51,10 @@ def int4_dequant(packed, scales, zeros, *, out_dtype=torch.bfloat16) -> torch.Te
         return int4_dequant_plain(packed, scales, zeros, out_dtype)
     G, half = packed.shape
     out = torch.empty((G, 2 * half), dtype=out_dtype, device=packed.device)
+    if _build.is_fake(packed):
+        _build.count_traced("int4_dequant", (G, 2 * half, str(out_dtype).split(".")[1]),
+                            *work(G, 2 * half, out.element_size()))
+        return out
     if out.numel() == 0:
         return out
     lib = _build.library()

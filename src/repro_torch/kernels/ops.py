@@ -22,6 +22,13 @@ INT4 restore dispatches from a worker thread. While a step is captured into
 a CUDA graph its thread's counts are recorded, not added, and every replay
 adds the recorded counts (``repro_torch.serving.step_cache``).
 
+On fake CUDA tensors (``FakeTensorMode``, the dry run of
+``repro_torch.launch.dryrun``) each wrapper applies its checks, returns
+fake outputs of the shapes and dtypes its kernel writes, and adds its
+FLOPs and HBM bytes to ``_build``'s ``TRACED_*`` tally; nothing is built
+or launched, and ``LAUNCH_COUNTS`` is left alone. This is no fallback: a
+fake tensor has no data to compute on.
+
 The expert matmul also takes the INT4 formats (``QuantizedWeight``, the
 flat transition wire format, and ``QuantizedExpert``, the structured
 resident format): the weight is dequantized by ``int4_dequant`` into one
@@ -76,7 +83,9 @@ def default_backend(device) -> KernelBackend:
 def resolve_backend(backend: BackendSpec = None, device="cpu") -> KernelBackend:
     """Normalize a backend spec for tensors on ``device``:
     None/"auto" -> environment variable -> device. Raises where the
-    choice cannot run: ``hopper`` off CUDA, or on a card that is not sm_90."""
+    choice cannot run: ``hopper`` off CUDA, or on a card that is not sm_90.
+    Under a ``FakeTensorMode`` (the dry run) no card is asked: its target
+    is the H100, and the wrappers launch nothing on fake tensors."""
     if backend is None or backend == "auto":
         backend = os.environ.get(BACKEND_ENV) or default_backend(device)
     be = KernelBackend(backend)
@@ -87,6 +96,8 @@ def resolve_backend(backend: BackendSpec = None, device="cpu") -> KernelBackend:
                 f"the hopper backend runs on CUDA tensors, got a {device.type} tensor; "
                 "use backend='ref' on the CPU"
             )
+        if _build.faking():  # a dry run's fake CUDA tensors: the target is the H100
+            return be
         cap = torch.cuda.get_device_capability(device)
         if cap != (9, 0):
             raise RuntimeError(

@@ -22,7 +22,9 @@ float32 workspace of per-split partials merged by a combine kernel in the
 same call) or ``simt`` (float32, and the other bfloat16 cases). Each call
 adds one to ``_build.LAUNCH_COUNTS["paged_attention"]`` and one to
 ``_build.VARIANT_COUNTS[("paged_attention", variant)]``, whether its
-variant launches one kernel or two.
+variant launches one kernel or two. On fake tensors (the dry run) it
+returns a fake output, the pages as they are (a fake tensor holds no
+values to write), and tallies ``work``; nothing is built or launched.
 """
 
 from __future__ import annotations
@@ -210,6 +212,20 @@ def workspace(device: torch.device, floats: int) -> Optional[int]:
     return buf.data_ptr()
 
 
+def work(B: int, C: int, Hq: int, Hkv: int, hd: int, keys: int, element_size: int, window: int = 0,
+         is_global=True) -> Tuple[int, int]:
+    """(FLOPs, HBM bytes) of one call over a table of ``keys`` positions, the
+    cache taken full (every row's chunk at the table's last C positions: a
+    fake tensor holds no positions, and the dry run's decode shapes are a
+    step at a cache of that length): q, k_new, v_new and out once, each
+    row's cached keys (within the window) read once, the chunk's K/V
+    written once; 4 flops per (query, valid key, dim)."""
+    if window > 0 and not bool(is_global):
+        keys = min(keys, window)
+    flops = 4 * hd * Hq * B * C * keys
+    return flops, element_size * (2 * B * C * Hq * hd + 2 * B * keys * Hkv * hd + 4 * B * C * Hkv * hd)
+
+
 def aligned(*tensors: torch.Tensor) -> bool:
     """Every operand starts on a 16-byte boundary."""
     return all(t.data_ptr() % 16 == 0 for t in tensors)
@@ -324,6 +340,10 @@ def paged_attention(
             scale=scale, softcap=softcap, window=window,
         )
     out = torch.empty_like(q)
+    if _build.is_fake(q):
+        _build.count_traced("paged_attention", (B, C, Hq, Hkv, hd),
+                            *work(B, C, Hq, Hkv, hd, block_tables.shape[1] * bs, q.element_size(), window, is_global))
+        return out, k_pages, v_pages
     if out.numel() == 0:
         return out, k_pages, v_pages
     plan = decode_plan(B, C, Hq, Hkv, hd, bs, block_tables.shape[1], q.dtype, False,

@@ -17,7 +17,9 @@ The launch follows ``paged_attention.decode_plan(..., prefix=True)``: the
 same variant, splits and workspace as the paged kernel on the same shapes,
 plus shared blocks for the groups. Each call counts one launch in
 ``_build.LAUNCH_COUNTS["prefix_paged_attention"]`` and in
-``_build.VARIANT_COUNTS[("prefix_paged_attention", variant)]``.
+``_build.VARIANT_COUNTS[("prefix_paged_attention", variant)]``. On fake
+tensors (the dry run) it tallies the paged kernel's ``work`` and launches
+nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from . import _build
 from .paged_attention import _check as _check_paged
-from .paged_attention import aligned, decode_plan, paged_attention_plain, workspace
+from .paged_attention import aligned, decode_plan, paged_attention_plain, work, workspace
 
 
 def prefix_paged_attention_plain(
@@ -91,6 +93,10 @@ def prefix_paged_attention(
             scale=scale, softcap=softcap, window=window,
         )
     out = torch.empty_like(q)
+    if _build.is_fake(q):  # the shared pages counted as the rows' own: a fake grouping holds no values
+        _build.count_traced("prefix_paged_attention", (B, C, Hq, Hkv, hd),
+                            *work(B, C, Hq, Hkv, hd, block_tables.shape[1] * bs, q.element_size(), window, is_global))
+        return out, k_pages, v_pages
     if out.numel() == 0:
         return out, k_pages, v_pages
     plan = decode_plan(B, C, Hq, Hkv, hd, bs, block_tables.shape[1], q.dtype, True,

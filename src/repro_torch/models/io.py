@@ -65,6 +65,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> DecodeCache:
     return DecodeCache(k=k, v=v, conv=conv, ssm=ssm, pos=_spec((), torch.int32))
 
 
+def batch_specs(cfg: ModelConfig, seq: int, batch: int, kind: str) -> Dict[str, torch.Tensor]:
+    """Meta tensors of a ``kind`` ("train" or "prefill") batch of ``batch``
+    rows x ``seq`` positions: its inputs, and for ``train`` its labels."""
+    return {k: _spec(s, d) for k, (s, d) in _input_shapes(cfg, seq, batch, with_labels=kind == "train").items()}
+
+
 def input_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, Any]:
     """Meta tensors for one (arch x input-shape) combination.
 
@@ -74,8 +80,7 @@ def input_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, Any]:
     """
     seq, batch, kind = INPUT_SHAPES[shape_name]
     if kind in ("train", "prefill"):
-        shapes = _input_shapes(cfg, seq, batch, with_labels=kind == "train")
-        return {"batch": {k: _spec(s, d) for k, (s, d) in shapes.items()}}
+        return {"batch": batch_specs(cfg, seq, batch, kind)}
     return {"token": _spec((batch, 1), torch.int32), "cache": cache_specs(cfg, batch, seq)}
 
 

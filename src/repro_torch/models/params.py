@@ -24,7 +24,8 @@ from repro_torch.sharding.specs import Spec, packed_spec_for, shard_slices, take
 
 Params = Dict[str, Any]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float8_e4m3fn": torch.float8_e4m3fn}  # float8: a KV cache dtype (``kv_cache_dtype``)
 
 
 def torch_dtype(name) -> torch.dtype:

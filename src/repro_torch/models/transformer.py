@@ -21,7 +21,8 @@ audio frame embeddings (``features``) or image patch embeddings
   init_paged_cache  an empty block-pooled cache for continuous batching
                     (attention-only models)
   decode_step       one cache-appending step (a token or a prefill chunk),
-                    over either layout
+                    over either layout; its layer body is ``decode_layer``
+                    (the reference's decode body), over ``layer_cache``
   merge_cache_rows  a prefilled request's rows into a live contiguous cache
 
 Each serving entry point takes a ShardingPlan (``plan``; None is one
@@ -510,6 +511,37 @@ def merge_cache_rows(cache: DecodeCache, sub: DecodeCache, rows: Sequence[int]) 
     return cache
 
 
+def layer_cache(cache: DecodeCache, layer: int) -> DecodeCache:
+    """Layer ``layer``'s view of ``cache`` (k/v and conv/ssm without their
+    leading L; the tables and positions shared)."""
+    return dataclasses.replace(cache, route_topk=None, **{k: getattr(cache, k)[layer] for k in ("k", "v", "conv", "ssm")
+                                                          if getattr(cache, k) is not None})
+
+
+def decode_layer(x, lp, flag, cfg: ModelConfig, cache: DecodeCache, pos: torch.Tensor, backend=None, plan=None,
+                 routes=None) -> torch.Tensor:
+    """One layer of ``decode_step`` (the reference's decode body): x (B, C,
+    d) through the mixer over the layer's ``cache`` (``layer_cache``),
+    updated in place, then the FFN; ``routes``, a list, collects the
+    router's top-k ids. Under FSDP ``lp`` holds this rank's shards."""
+    lp = _fsdp_layer(lp, cfg, plan)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.has_attention:
+        a_out, _, _ = attn_mod.decode_attention(
+            h, attn_mod.AttnTemps(**lp["attn"]), cfg, flag, cache.k, cache.v, pos,
+            block_tables=cache.block_tables, prefix_groups=cache.prefix_groups, backend=backend, plan=plan,
+        )
+    if cfg.has_mamba:
+        m_out = mamba_mod.mamba_decode_step(h, lp["mamba"], cfg, mamba_mod.MambaCache(conv=cache.conv, ssm=cache.ssm),
+                                            plan)
+    out = _fuse(a_out, m_out, lp, cfg) if cfg.block_type == "hybrid" else a_out if cfg.has_attention else m_out
+    if cfg.use_post_norm:
+        out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
+    x = x + out
+    ffn, _ = _ffn(x, lp, cfg, backend, plan, routes, want_aux=False)
+    return x + ffn if ffn is not None else x
+
+
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCache,
                 backend=None, plan=None, collect_routing: bool = False) -> Tuple[torch.Tensor, DecodeCache]:
     """One cache-appending step: token (B, C) -> (last-position logits
@@ -537,23 +569,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: DecodeCach
     pos = torch.as_tensor(cache.pos, dtype=torch.int32, device=x.device)
     flags = cfg.global_layer_flags()
     for layer in range(cfg.num_layers):
-        lp = _fsdp_layer(layer_slice(params["layers"], layer), cfg, plan)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if cfg.has_attention:
-            a_out, _, _ = attn_mod.decode_attention(
-                h, attn_mod.AttnTemps(**lp["attn"]), cfg, flags[layer], cache.k[layer], cache.v[layer], pos,
-                block_tables=cache.block_tables, prefix_groups=cache.prefix_groups, backend=backend, plan=plan,
-            )
-        if cfg.has_mamba:
-            m_out = mamba_mod.mamba_decode_step(
-                h, lp["mamba"], cfg, mamba_mod.MambaCache(conv=cache.conv[layer], ssm=cache.ssm[layer]), plan)
-        out = _fuse(a_out, m_out, lp, cfg) if cfg.block_type == "hybrid" else a_out if cfg.has_attention else m_out
-        if cfg.use_post_norm:
-            out = rms_norm(out, lp["ln1_post"], cfg.norm_eps)
-        x = x + out
-        ffn, _ = _ffn(x, lp, cfg, backend, plan, routes, want_aux=False)
-        if ffn is not None:
-            x = x + ffn
+        x = decode_layer(x, layer_slice(params["layers"], layer), flags[layer], cfg, layer_cache(cache, layer), pos,
+                         backend, plan, routes)
     logits = unembed(params, cfg, x[:, -1:, :], plan)
     route = None
     if routes is not None:

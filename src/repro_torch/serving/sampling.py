@@ -37,5 +37,8 @@ def sample(logits: torch.Tensor, params: SamplingParams, generator: Optional[tor
     if params.top_k > 0:
         thresh = torch.topk(logits, params.top_k, dim=-1).values[:, -1:]
         logits = torch.where(logits >= thresh, logits, -1e30)
+    # uniforms on [tiny, 1), as ``jax.random.gumbel`` draws them: at u = 0
+    # the noise would be -inf and the token could never be drawn
     u = torch.rand((n, logits.shape[-1]), generator=generator, device=logits.device)[lo:hi]
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)

@@ -28,7 +28,11 @@ collectives by staging them through the host itself; its point-to-point
 ops take host tensors only, so ``exchange`` stages a CUDA tensor through
 the host on a gloo group and hands it to the card again when the receive
 completes. No collective changes a dtype. ``calls`` counts the collectives
-issued, by name.
+issued, by name, and ``payload`` their bytes by (name, the size of the
+group they span): what the rank receives, the result tensor's bytes (a
+reduce-scatter's block, a gather's whole result, an exchange's receives),
+as the reference's roofline reads a collective's result shape
+(``repro_torch.launch.roofline.wire_bytes`` turns them into wire bytes).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ class RankMesh:
     its ``group`` must be the default group."""
 
     axis_names = AXES
+    name = ""  # a label for printed lines (``launch.mesh.make_production_mesh``)
 
     def __init__(self, group=None, data: int = 1):
         if not dist.is_available() or not dist.is_initialized():
@@ -72,6 +77,7 @@ class RankMesh:
         self._tag = 0
         self._scatter_ok = True  # whether the backend takes reduce_scatter_tensor
         self.calls: collections.Counter = collections.Counter()
+        self.payload: collections.Counter = collections.Counter()  # bytes by (name, group size)
         # the group of each axis: the whole group where the axis spans it
         self._groups = {"data": group if m == 1 else None, "model": group if d == 1 else None}
         if d > 1 and m > 1:
@@ -131,7 +137,7 @@ class RankMesh:
         """Reduce ``x`` (a sum by default) over ``axis``, in place; returns it."""
         group, n = self._group(axis)
         if n > 1:
-            self.calls["all_reduce"] += 1
+            self._count("all_reduce", n, x.nbytes)
             dist.all_reduce(x, op=op, group=group)
         return x
 
@@ -140,7 +146,7 @@ class RankMesh:
         group, n = self._group(axis)
         if n == 1:
             return x
-        self.calls["all_gather"] += 1
+        self._count("all_gather", n, x.nbytes * n)
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=group)
@@ -178,7 +184,7 @@ class RankMesh:
             return x
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
-        self.calls["reduce_scatter"] += 1
+        self._count("reduce_scatter", n, x.nbytes // n)
         w = x.shape[dim] // n
         if self._scatter_ok:
             stage = self.backend == "gloo" and x.is_cuda
@@ -205,7 +211,7 @@ class RankMesh:
         split, concat = split % x.ndim, concat % x.ndim
         if x.shape[split] % n:
             raise ValueError(f"split dim {x.shape[split]} not divisible by the mesh size {n}")
-        self.calls["all_to_all"] += 1
+        self._count("all_to_all", n, x.nbytes)
         rows = x.movedim(split, 0)
         send = rows.reshape(n, rows.shape[0] // n, *rows.shape[1:]).contiguous()
         recv = torch.empty_like(send)
@@ -222,7 +228,7 @@ class RankMesh:
         order (one tag per call)."""
         self._tag += 1
         if sends or recvs:
-            self.calls["exchange"] += 1
+            self._count("exchange", self.size, sum(dest.nbytes for dest, _ in recvs))
         stage = self.backend == "gloo"
         ops, landing = [], []
         for t, peer in sends:
@@ -238,6 +244,10 @@ class RankMesh:
             landing.append((dest, buf))
             ops.append(dist.P2POp(dist.irecv, buf, self._peer(peer), self.group, self._tag))
         return Exchange(dist.batch_isend_irecv(ops) if ops else [], landing, ops, result)
+
+    def _count(self, name: str, n: int, nbytes: int) -> None:
+        self.calls[name] += 1
+        self.payload[(name, n)] += nbytes
 
     def _peer(self, rank: int) -> int:
         """A model-axis rank of this row as the global rank the
